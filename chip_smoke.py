@@ -1,0 +1,373 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's int8 NNUE serving path once on one CUDA card.
+
+    python3 chip_smoke.py        # from the repository root
+
+Phases, one line each (any failure raises and exits non-zero):
+
+1. device    require CUDA; print the card (nvidia-smi), torch and CUDA versions
+2. build     nvcc-build the kernels from nnue_vision_tpu_torch/csrc
+3. model     flagship-width NNUE (config/train_nnue.py widths) from a numpy
+             seed → nnue_quantize → write_nnue → read_nnue → nnue_sim_params
+4. serve     batches of 1, 37, 512 and 8192 normalized 32×32 images through
+             every entry point; each result torch.equal to its plain version
+5. stress    phase 4 at batch 512 for a random int model at full width, with
+             a negative threshold and int16 FT weights (padding features
+             active, FT sums wrap)
+6. evaluate  evaluate_int8_sim with use_pallas="mega" and True equal to False
+7. launches  both kernels launched during phases 4-6 (the main path)
+8. timing    kernel vs plain version at batch 8192 (and the mega kernel at 1
+             and 512), CUDA events, median of 20 in turns
+
+Then one JSON line with each kernel's launches, error and times, the card's
+name and power limit, and the last line {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from nnue_vision_tpu_torch import (
+    QConv,
+    QFeatureTransformer,
+    QLinear,
+    QuantizedNNUE,
+    read_nnue,
+    write_nnue,
+)
+from nnue_vision_tpu_torch.bridge import nnue_from_jax_params
+from nnue_vision_tpu_torch.data.augment import normalize_images
+from nnue_vision_tpu_torch.models.nnue import (
+    GridFeatureSet,
+    NNUEConfig,
+    nnue_quantize,
+)
+from nnue_vision_tpu_torch.ops import nnue_kernels as nk
+from nnue_vision_tpu_torch.ops._build import load_library
+from nnue_vision_tpu_torch.ops.engine_sim import (
+    conv_out_hw,
+    engine_conv_stride,
+    nnue_conv_buffer,
+    nnue_engine_forward,
+    nnue_sim_params,
+)
+from nnue_vision_tpu_torch.training.evaluate import evaluate_int8_sim
+
+SEED = 42
+H = W = 32
+SERVE_BATCHES = (1, 37, 512, 8192)
+TIMING_BATCH = 8192
+TIMING_RUNS = 20
+FLAGSHIP = NNUEConfig(  # config/train_nnue.py
+    feature_set=GridFeatureSet(grid_size=10, num_features_per_square=8),
+    l1_size=1024, l2_size=128, l3_size=32, num_classes=10, input_size=32,
+    qat=True,
+)
+SOURCE = "nnue_vision_tpu_torch/csrc/nnue_head.cu"
+REPLACES = {
+    "nnue_mega_kernel": "nnue_vision_tpu/ops/pallas_kernels.py:161",
+    "nnue_head_kernel": "nnue_vision_tpu/ops/pallas_kernels.py:156",
+}
+
+
+def say(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def flagship_params(rng: np.random.Generator, cfg: NNUEConfig) -> dict:
+    """Random float params with the JAX package's init distributions."""
+    fs = cfg.feature_set
+    ch, l1, l2, l3, c = (fs.num_features_per_square, cfg.l1_size, cfg.l2_size,
+                         cfg.l3_size, cfg.num_classes)
+
+    def u(shape, fan_in):
+        b = 1.0 / math.sqrt(fan_in)
+        return rng.uniform(-b, b, shape).astype(np.float32)
+
+    return {
+        "conv_w": u((ch, 3, 3, 3), 27),
+        "visual_threshold": np.full((ch,), 0.1, np.float32),
+        "ft_w": (rng.standard_normal((fs.num_features, l1)) * 0.1).astype(np.float32),
+        "ft_b": np.zeros((l1,), np.float32),
+        "fc1_w": u((l2, l1), l1), "fc1_b": u((l2,), l1),
+        "fc2_w": u((l3, l2), l2), "fc2_b": u((l3,), l2),
+        "out_w": u((c, l3), l3), "out_b": u((c,), l3),
+        "nnue2score": np.float32(600.0),
+    }
+
+
+def stress_model(rng: np.random.Generator, q):
+    """conftest-style random integers at the flagship widths, with int16 FT
+    weights large enough that the FT sums wrap, and a negative threshold."""
+    def i8(*s):
+        return rng.integers(-127, 128, s).astype(np.int8)
+
+    def i32(*s, lo=-2000, hi=2000):
+        return rng.integers(lo, hi, s).astype(np.int32)
+
+    f, l1, l2, l3, c = q.num_features, q.l1, q.l2, q.l3, q.num_classes
+    ch = q.num_features_per_square
+    return QuantizedNNUE(
+        grid_size=q.grid_size, num_features_per_square=ch, l1=l1, l2=l2, l3=l3,
+        nnue2score=600.0, visual_threshold=-0.25,
+        conv=QConv(weight=i8(ch, 3, 3, 3), bias=i32(ch, lo=-500, hi=500)),
+        ft=QFeatureTransformer(
+            weight=rng.integers(-30000, 30000, (f, l1)).astype(np.int16),
+            bias=i32(l1)),
+        fc1=QLinear(weight=i8(l2, l1), bias=i32(l2)),
+        fc2=QLinear(weight=i8(l3, l2), bias=i32(l3)),
+        out=QLinear(weight=i8(c, l3), bias=i32(c)),
+    ).validate()
+
+
+class Errors:
+    """Largest |kernel - plain| seen per kernel (logits and counts)."""
+
+    def __init__(self):
+        self.max = {name: 0.0 for name in nk.LAUNCHES}
+
+    def equal(self, kernel: str, what: str, got, ref) -> None:
+        if ref is None:
+            check(got is None, f"{what}: expected None")
+            return
+        check(got.shape == ref.shape and got.dtype == ref.dtype,
+              f"{what}: {got.dtype}{tuple(got.shape)} vs "
+              f"{ref.dtype}{tuple(ref.shape)}")
+        err = float((got.double() - ref.double()).abs().max()) if got.numel() else 0.0
+        self.max[kernel] = max(self.max[kernel], err)
+        check(torch.equal(got, ref), f"{what}: differs from plain (max {err})")
+        if got.is_floating_point():
+            check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+
+    def outputs(self, kernel: str, what: str, got, ref) -> None:
+        names = ("logits", "density", "count") if len(ref) == 3 else \
+            ("logits", "count")
+        for name, g, r in zip(names, got, ref, strict=True):
+            self.equal(kernel, f"{what} {name}", g, r)
+
+
+def serve(errs: Errors, sim, cfg, batch: int, gen: torch.Generator,
+          heads, tag: str) -> None:
+    """One request batch through every entry point, each held to its plain
+    version and to the engine sim."""
+    mega, head = heads
+    x = normalize_images(
+        torch.rand((batch, H, W, 3), generator=gen, device="cuda")
+    ).contiguous()
+    flat = x.reshape(batch, -1)
+    kw = dict(cfg=cfg, image_h=H, image_w=W)
+    sim_out = nnue_engine_forward(sim, x, **kw)
+
+    out = nk.nnue_engine_forward_mega(mega, flat, **kw)
+    errs.outputs("nnue_mega_kernel", f"{tag} mega f32",
+                 out, nk.nnue_engine_forward_mega_reference(mega, flat, **kw))
+    errs.outputs("nnue_mega_kernel", f"{tag} mega vs sim", out, sim_out)
+    check(out[0].shape == (batch, cfg.num_classes), "logits shape")
+
+    lo = nk.nnue_engine_forward_mega(mega, flat, with_count=False, **kw)
+    errs.outputs("nnue_mega_kernel", f"{tag} mega logits-only", lo,
+                 (sim_out[0], None, None))
+
+    qb = nk.quantize_images_for_mega(flat, cfg)
+    qo = nk.nnue_engine_forward_mega(mega, qb, input_mode="qbf16", **kw)
+    errs.outputs("nnue_mega_kernel", f"{tag} mega qbf16", qo,
+                 nk.nnue_engine_forward_mega_reference(
+                     mega, qb, input_mode="qbf16", **kw))
+    errs.outputs("nnue_mega_kernel", f"{tag} mega qbf16 vs sim", qo, sim_out)
+
+    fo = nk.nnue_engine_forward_fused(sim, head, x, **kw)
+    errs.outputs("nnue_head_kernel", f"{tag} fused", fo,
+                 nk.nnue_engine_forward_fused_reference(sim, head, x, **kw))
+    errs.outputs("nnue_head_kernel", f"{tag} fused vs sim", fo, sim_out)
+
+    buf = nnue_conv_buffer(sim, x, cfg=cfg, image_h=H)
+    ho = nk.fused_nnue_head(head, buf, cfg=cfg)
+    errs.outputs("nnue_head_kernel", f"{tag} fused_nnue_head", ho,
+                 nk.fused_nnue_head_reference(head, buf, cfg=cfg))
+    errs.outputs("nnue_head_kernel", f"{tag} fused_nnue_head vs sim", ho,
+                 (sim_out[0], sim_out[2]))
+    torch.cuda.synchronize()
+
+
+def time_ms(fn) -> float:
+    """One call's device time, CUDA events around it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def time_pair(kernel_fn, plain_fn) -> tuple:
+    """Median ms of each, measured in turns (plain, kernel, kernel, plain)."""
+    for fn in (kernel_fn, plain_fn, kernel_fn, plain_fn):  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    k, p = [], []
+    for i in range(TIMING_RUNS):
+        order = ((p, plain_fn), (k, kernel_fn)) if i % 2 == 0 else \
+            ((k, kernel_fn), (p, plain_fn))
+        for sink, fn in order:
+            sink.append(time_ms(fn))
+    return statistics.median(k), statistics.median(p)
+
+
+def main() -> int:
+    # 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing run",
+              file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say("device", f"{smi} | torch {torch.__version__} | CUDA "
+        f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
+
+    # 2. build
+    built = load_library()
+    ptxas = [ln.strip() for ln in built.log.splitlines()
+             if "registers" in ln or "Compiling entry" in ln]
+    say("build", f"{built.path.name} built in {built.seconds:.1f} s; "
+        + " | ".join(ptxas))
+
+    # 3. model
+    rng = np.random.default_rng(SEED)
+    model = nnue_from_jax_params(flagship_params(rng, FLAGSHIP), FLAGSHIP,
+                                 device="cuda")
+    q0 = nnue_quantize(model)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "flagship.nnue"
+        write_nnue(q0, path)
+        size = path.stat().st_size
+        q = read_nnue(path)
+    check(np.array_equal(q.ft.weight, q0.ft.weight)
+          and q.visual_threshold == np.float32(q0.visual_threshold),
+          ".nnue round trip changed the model")
+    sim, cfg = nnue_sim_params(q, device="cuda")
+    heads = (nk.mega_head_params(sim, cfg, H, W), nk.pallas_head_params(sim))
+    say("model", f"F={q.num_features} L1={q.l1} L2={q.l2} L3={q.l3} "
+        f"classes={q.num_classes} threshold={q.visual_threshold} "
+        f"via {size}-byte .nnue")
+
+    # 4. serve — the main path, counted from here to phase 7
+    errs = Errors()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    nk.reset_launch_counts()
+    for batch in SERVE_BATCHES:
+        t0 = time.perf_counter()
+        serve(errs, sim, cfg, batch, gen, heads, f"B={batch}")
+        say("serve", f"B={batch}: mega f32/logits-only/qbf16, fused, "
+            f"fused_nnue_head all equal to plain and sim (tolerance: none, "
+            f"torch.equal) ({time.perf_counter() - t0:.2f} s)")
+
+    # 5. stress
+    qs = stress_model(np.random.default_rng(SEED + 1), q)
+    ssim, scfg = nnue_sim_params(qs, device="cuda")
+    sheads = (nk.mega_head_params(ssim, scfg, H, W), nk.pallas_head_params(ssim))
+    serve(errs, ssim, scfg, 512, gen, sheads, "stress")
+    x = normalize_images(torch.rand((512, H, W, 3), generator=gen, device="cuda"))
+    _, _, count = nnue_engine_forward(ssim, x, cfg=scfg, image_h=H, image_w=W)
+    oh, ow = conv_out_hw(H, W, engine_conv_stride(H, scfg.grid_size))
+    n_pad = scfg.num_features - oh * ow * scfg.channels
+    check(int(count.min()) >= n_pad, "padding features not active")
+    say("stress", f"negative threshold, int16 FT weights: all equal; "
+        f"counts {int(count.min())}..{int(count.max())} (n_pad {n_pad})")
+
+    # 6. evaluate
+    images = torch.rand((3, 256, H, W, 3), generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (3, 256), generator=gen,
+                           device="cuda")
+    loader = [(images[i].cpu().numpy(), labels[i].cpu().numpy())
+              for i in range(3)]
+    results = {mode: evaluate_int8_sim(model, loader, use_pallas=mode)
+               for mode in (False, True, "mega")}
+    keys = ("acc", "f1", "precision", "recall", "latent_density")
+    for mode in (True, "mega"):
+        check(all(results[mode][k] == results[False][k] for k in keys),
+              f"evaluate_int8_sim use_pallas={mode!r} differs: "
+              f"{results[mode]} vs {results[False]}")
+    say("evaluate", "use_pallas=True and 'mega' equal False: "
+        + json.dumps({k: results["mega"][k] for k in keys}))
+
+    # 7. launches
+    launches = dict(nk.LAUNCHES)
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the path never launched: {launches}")
+    say("launches", json.dumps(launches))
+
+    # 8. timing
+    x = normalize_images(
+        torch.rand((TIMING_BATCH, H, W, 3), generator=gen, device="cuda")
+    ).contiguous()
+    flat = x.reshape(TIMING_BATCH, -1)
+    kw = dict(cfg=cfg, image_h=H, image_w=W)
+    mega, head = heads
+    acc = nk._fused_acc(sim, x, cfg, H, W)
+    hkw = dict(cfg=cfg, n_pad=cfg.num_features - acc.shape[1],
+               conv_scale=cfg.conv_scale, with_count=True)
+    ms = {}
+    ms["nnue_mega_kernel"] = time_pair(
+        lambda: nk.nnue_engine_forward_mega(mega, flat, **kw),
+        lambda: nk.nnue_engine_forward_mega_reference(mega, flat, **kw))
+    ms["nnue_head_kernel"] = time_pair(
+        lambda: nk._head_launch(head, acc, **hkw),
+        lambda: nk._head_plain(head, acc, **hkw))
+    qb = nk.quantize_images_for_mega(flat, cfg)
+    ms_qbf16 = time_pair(
+        lambda: nk.nnue_engine_forward_mega(mega, qb, input_mode="qbf16", **kw),
+        lambda: nk.nnue_engine_forward_mega_reference(
+            mega, qb, input_mode="qbf16", **kw))
+    ms_fused = time_pair(
+        lambda: nk.nnue_engine_forward_fused(sim, head, x, **kw),
+        lambda: nk.nnue_engine_forward_fused_reference(sim, head, x, **kw))
+    rows = [(TIMING_BATCH, "mega f32", ms["nnue_mega_kernel"]),
+            (TIMING_BATCH, "mega qbf16", ms_qbf16),
+            (TIMING_BATCH, "head kernel", ms["nnue_head_kernel"]),
+            (TIMING_BATCH, "fused (conv + head)", ms_fused)]
+    for batch in (1, 512):  # small batches: host cost per call shows here
+        rows.append((batch, "mega f32", time_pair(
+            lambda b=batch: nk.nnue_engine_forward_mega(mega, flat[:b], **kw),
+            lambda b=batch: nk.nnue_engine_forward_mega_reference(
+                mega, flat[:b], **kw))))
+    for batch, name, (k, p) in rows:
+        say("timing", f"B={batch} {name}: kernel {k:.4f} ms "
+            f"({batch / k * 1e3:,.0f} img/s), plain {p:.4f} ms "
+            f"({batch / p * 1e3:,.0f} img/s) on {smi}")
+
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[name], "launches": launches[name],
+         "max_abs_err": errs.max[name], "ms": ms[name][0],
+         "plain_ms": ms[name][1]}
+        for name in ("nnue_mega_kernel", "nnue_head_kernel")]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

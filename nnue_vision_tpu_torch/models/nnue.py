@@ -1,0 +1,316 @@
+"""NNUE for vision as a torch `nn.Module` (forward and quantization).
+
+Port of `nnue_vision_tpu/models/nnue.py:60-476`. `NNUE.forward` is the JAX
+package's `nnue_apply` (float and `qat` paths, `return_aux`): the binary
+feature mask is the feature vector, the feature transformer is one dense
+masked matmul, and the geometry follows the engine's stride rule and flat
+placement of the conv output into the grid buffer, so the model computes
+the features the int8 engine computes.
+
+The parameters carry the JAX package's names and layouts (`conv_w` OIHW,
+`ft_w` (F, L1), `fc*_w` (out, in), `visual_threshold` (C,)), so
+`bridge.py` moves them across unchanged. The threshold compare here is a
+plain `>`: its straight-through gradient comes with the training port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from nnue_vision_tpu.formats import (
+    QConv,
+    QFeatureTransformer,
+    QLinear,
+    QuantizedNNUE,
+)
+from nnue_vision_tpu.quantize import (
+    QUANT_SCALE,
+    clip_unit,
+    quantize_bias_i32,
+    quantize_weight_i8,
+)
+from nnue_vision_tpu_torch.ops.engine_sim import engine_conv_stride
+
+DEFAULT_L1 = 1024
+DEFAULT_L2 = 128
+DEFAULT_L3 = 32
+
+_WEIGHTS = ("ft_w", "fc1_w", "fc2_w", "out_w")
+
+
+@dataclasses.dataclass(frozen=True)
+class GridFeatureSet:
+    """Grid-based feature set (reference nnue.py:81-91)."""
+
+    grid_size: int = 10
+    num_features_per_square: int = 8
+
+    @property
+    def num_features(self) -> int:
+        return self.grid_size * self.grid_size * self.num_features_per_square
+
+
+@dataclasses.dataclass(frozen=True)
+class NNUEConfig:
+    feature_set: GridFeatureSet = GridFeatureSet()
+    l1_size: int = DEFAULT_L1
+    l2_size: int = DEFAULT_L2
+    l3_size: int = DEFAULT_L3
+    num_classes: int = 10
+    input_size: int = 32
+    # Keep activations in the engine's quantized dynamic range (clipped ReLU
+    # to [0,1] in float ≙ [0,127] int); with qat_rounding also fake-quantize
+    # weights and biases to the serialized values.
+    qat: bool = False
+    qat_rounding: bool = True
+
+    @property
+    def conv_stride(self) -> int:
+        return engine_conv_stride(self.input_size, self.feature_set.grid_size)
+
+    @property
+    def conv_out_hw(self) -> int:
+        return (self.input_size + 2 - 3) // self.conv_stride + 1
+
+
+def _wq(w: torch.Tensor, scale: float) -> torch.Tensor:
+    """Weight fake-quantization round(clip(w)·scale)/scale, straight-through."""
+    q = torch.round(torch.clamp(w, -1.0, 1.0) * scale) / scale
+    return w + (q - w).detach()
+
+
+def _bq(b: torch.Tensor, scale: float) -> torch.Tensor:
+    """Bias fake-quantization (int32 slot: rounded, never clipped)."""
+    q = torch.round(b * scale) / scale
+    return b + (q - b).detach()
+
+
+class NNUE(nn.Module):
+    """Conv frontend → binary grid features → FT → pairwise → dense head.
+
+    `forward(images)` takes (B, H, W, 3) float NHWC and returns logits
+    (B, classes) float32; with `return_aux=True` also
+    {"density": (B,), "mask": (B, F)}.
+    """
+
+    def __init__(self, cfg: NNUEConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        fs = cfg.feature_set
+        ch, l1, l2, l3 = (fs.num_features_per_square, cfg.l1_size,
+                          cfg.l2_size, cfg.l3_size)
+
+        def p(*shape):
+            return nn.Parameter(torch.zeros(shape, device=device))
+
+        self.conv_w = p(ch, 3, 3, 3)  # OIHW
+        self.visual_threshold = p(ch)
+        self.ft_w = p(fs.num_features, l1)
+        self.ft_b = p(l1)
+        self.fc1_w = p(l2, l1)
+        self.fc1_b = p(l2)
+        self.fc2_w = p(l3, l2)
+        self.fc2_b = p(l3)
+        self.out_w = p(cfg.num_classes, l3)
+        self.out_b = p(cfg.num_classes)
+        self.register_buffer(
+            "nnue2score", torch.tensor(600.0, device=device)
+        )
+
+    def _qat_params(self) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        p = {name: t for name, t in self.named_parameters()}
+        if not (cfg.qat and cfg.qat_rounding):
+            return p
+        half = cfg.l1_size // 2
+        # conv weights are not clipped by the reference; quantize on the
+        # ±127/64 representable grid
+        cw = p["conv_w"]
+        cq = torch.round(torch.clamp(cw, -127 / 64, 127 / 64) * 64) / 64
+        p["conv_w"] = cw + (cq - cw).detach()
+        p["ft_w"] = _wq(p["ft_w"], 64)
+        p["ft_b"] = _bq(p["ft_b"], 64)
+        p["fc1_w"] = torch.cat(
+            [_wq(p["fc1_w"][:, :half], 64), _wq(p["fc1_w"][:, half:], 32)],
+            dim=1,
+        )
+        p["fc1_b"] = _bq(p["fc1_b"], 2048)
+        p["fc2_w"] = _wq(p["fc2_w"], 64)
+        p["fc2_b"] = _bq(p["fc2_b"], 4096)
+        p["out_w"] = _wq(p["out_w"], 64)
+        p["out_b"] = _bq(p["out_b"], 4096)
+        return p
+
+    def forward(self, images: torch.Tensor, return_aux: bool = False):
+        cfg = self.cfg
+        fs = cfg.feature_set
+        p = self._qat_params()
+        x = images.to(torch.float32)
+
+        thresh = p["visual_threshold"]
+        deployed_thresh = None
+        if cfg.qat:
+            # Serialization collapses the per-channel thresholds to their
+            # mean, so train the compare against that same scalar.
+            deployed_thresh = thresh.mean(dim=0, keepdim=True)
+            thresh = deployed_thresh.expand(thresh.shape)
+
+        # Conv frontend, engine geometry; back to NHWC for the flat order.
+        conv = F.conv2d(
+            x.permute(0, 3, 1, 2), p["conv_w"],
+            stride=cfg.conv_stride, padding=1,
+        ).permute(0, 2, 3, 1)
+        mask = (conv > thresh).to(torch.float32)
+
+        # Engine flat placement: (B, oh, ow, C) → (B, F) with zero tail.
+        b = mask.shape[0]
+        flat = mask.reshape(b, -1)
+        pad = fs.num_features - flat.shape[1]
+        if cfg.qat and pad > 0:
+            # The engine thresholds the whole zero-filled buffer: the tail
+            # is active whenever the threshold is negative.
+            tail = (deployed_thresh < 0).to(torch.float32).expand(b, pad)
+            features = torch.cat([flat, tail], dim=1)
+        else:
+            features = F.pad(flat, (0, pad))
+
+        ft = features @ p["ft_w"] + p["ft_b"]
+        half = cfg.l1_size // 2
+        if cfg.qat:
+            # int16 FT clipped to [0,127] at scale 64, pairwise products at
+            # scale 32, hidden activations int8 [0,127] at scale 64.
+            ft = torch.clamp(ft, 0.0, 127.0 / 64.0)
+            a, bb = ft[:, :half], ft[:, half:]
+            l0 = torch.cat([torch.clamp(a * bb, 0.0, 127.0 / 32.0), a], dim=1)
+            h1 = torch.clamp(self._linear(l0, p, "fc1"), 0.0, 127.0 / 64.0)
+            h2 = torch.clamp(self._linear(h1, p, "fc2"), 0.0, 127.0 / 64.0)
+        else:
+            # Reference float semantics: unclamped pairwise + ReLU.
+            a, bb = ft[:, :half], ft[:, half:]
+            l0 = torch.cat([a * bb, a], dim=1)
+            h1 = torch.relu(self._linear(l0, p, "fc1"))
+            h2 = torch.relu(self._linear(h1, p, "fc2"))
+        logits = self._linear(h2, p, "out")
+
+        if return_aux:
+            density = features.sum(dim=1) / fs.num_features
+            return logits, {"density": density, "mask": features}
+        return logits
+
+    @staticmethod
+    def _linear(x, p, name):
+        return x @ p[f"{name}_w"].T + p[f"{name}_b"]
+
+
+def nnue_clip_weights(model: NNUE) -> NNUE:
+    """Clamp FT + classifier weights to [-1, 1] (nnue.py:528-539), in place
+    (the JAX package returns a new pytree)."""
+    with torch.no_grad():
+        for name in _WEIGHTS:
+            getattr(model, name).clamp_(-1.0, 1.0)
+    return model
+
+
+def nnue_quantize(model: NNUE) -> QuantizedNNUE:
+    """float model → engine-domain QuantizedNNUE (serialize-ready).
+
+    The JAX package's engine-faithful scheme, computed with the same numpy
+    expressions on the same numpy arrays so the `.nnue` bytes are identical
+    (a torch mean sums in another order than `np.mean`):
+    FT and fc2/out weights at 64, fc1 product columns at 64 and linear
+    columns at 32, biases at 64/2048/4096/4096, file scales 32/64/4096, the
+    threshold as the channel mean times 64.
+    """
+    from nnue_vision_tpu_torch.bridge import nnue_to_numpy
+
+    cfg = model.cfg
+    p = nnue_to_numpy(model)
+    fs = cfg.feature_set
+    half = cfg.l1_size // 2
+
+    fc1_w = clip_unit(p["fc1_w"])
+    fc1_q = np.concatenate(
+        [
+            quantize_weight_i8(fc1_w[:, :half], scale=64.0),
+            quantize_weight_i8(fc1_w[:, half:], scale=32.0),
+        ],
+        axis=1,
+    )
+    return QuantizedNNUE(
+        grid_size=fs.grid_size,
+        num_features_per_square=fs.num_features_per_square,
+        l1=cfg.l1_size,
+        l2=cfg.l2_size,
+        l3=cfg.l3_size,
+        nnue2score=float(p["nnue2score"]),
+        visual_threshold=float(np.mean(p["visual_threshold"])) * 64.0,
+        conv=QConv(
+            weight=quantize_weight_i8(p["conv_w"]),
+            bias=np.zeros(fs.num_features_per_square, np.int32),
+        ),
+        ft=QFeatureTransformer(
+            weight=quantize_weight_i8(clip_unit(p["ft_w"])).astype(np.int16),
+            bias=quantize_bias_i32(p["ft_b"]),
+        ),
+        fc1=QLinear(
+            weight=fc1_q,
+            bias=quantize_bias_i32(p["fc1_b"], scale=2048.0),
+            scale=32.0,
+        ),
+        fc2=QLinear(
+            weight=quantize_weight_i8(clip_unit(p["fc2_w"])),
+            bias=quantize_bias_i32(p["fc2_b"], scale=4096.0),
+            scale=64.0,
+        ),
+        out=QLinear(
+            weight=quantize_weight_i8(clip_unit(p["out_w"])),
+            bias=quantize_bias_i32(p["out_b"], scale=4096.0),
+            scale=4096.0,
+        ),
+    ).validate()
+
+
+def nnue_from_quantized(q: QuantizedNNUE, device=None) -> NNUE:
+    """Dequantize a QuantizedNNUE back into a float model."""
+    from nnue_vision_tpu_torch.bridge import nnue_from_jax_params
+
+    cfg = NNUEConfig(
+        feature_set=GridFeatureSet(q.grid_size, q.num_features_per_square),
+        l1_size=q.l1,
+        l2_size=q.l2,
+        l3_size=q.l3,
+        num_classes=q.num_classes,
+    )
+    s = np.float32(QUANT_SCALE)
+    half = q.l1 // 2
+    fc1 = np.asarray(q.fc1.weight, np.float32)
+    # invert the faithful column scaling: product columns at 64, linear at 32
+    fc1_w = np.concatenate([fc1[:, :half] / 64.0, fc1[:, half:] / 32.0], axis=1)
+    params = {
+        "conv_w": np.asarray(q.conv.weight, np.float32) / s,
+        "visual_threshold": np.full(
+            (q.num_features_per_square,), q.visual_threshold / 64.0, np.float32
+        ),
+        "ft_w": np.asarray(q.ft.weight, np.float32) / s,
+        "ft_b": np.asarray(q.ft.bias, np.float32) / s,
+        "fc1_w": fc1_w.astype(np.float32),
+        "fc1_b": np.asarray(q.fc1.bias, np.float32) / np.float32(2048.0),
+        "fc2_w": np.asarray(q.fc2.weight, np.float32) / s,
+        "fc2_b": np.asarray(q.fc2.bias, np.float32) / np.float32(4096.0),
+        "out_w": np.asarray(q.out.weight, np.float32) / s,
+        "out_b": np.asarray(q.out.bias, np.float32) / np.float32(4096.0),
+        "nnue2score": np.float32(q.nnue2score),
+    }
+    return nnue_from_jax_params(params, cfg, device=device)
+
+
+def count_parameters(model: NNUE) -> int:
+    """Number of values in the model, `nnue2score` included, like the JAX
+    package's count over its params pytree."""
+    return sum(t.numel() for t in model.state_dict().values())

@@ -1,0 +1,107 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+`load_library()` compiles `nnue_vision_tpu_torch/csrc/*.cu` at first use into
+`build/torch_kernels/` under the repository root (listed in `.gitignore`),
+keyed by a hash of the sources, and loads the shared library. The sources
+have a plain C interface, so the build takes seconds (no PyTorch headers).
+
+Only sources in the repository are compiled, and a failed build raises:
+there is no fallback. `--use_fast_math` is deliberately absent: it makes
+f32 division approximate, and the logits are `acc / out_scale`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_HEAD_ARGS = [_F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F] + [_P] * 9
+SIGNATURES = {
+    "nnue_error_string": ([_I], ctypes.c_char_p),
+    "nnue_mega_launch": (
+        [_P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P] + _HEAD_ARGS
+        + [_P, _P, _P],
+        _I,
+    ),
+    "nnue_head_launch": ([_P, _I] + _HEAD_ARGS + [_P, _P, _P], _I),
+}
+
+
+class Built(NamedTuple):
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float  # compile time in this process, 0.0 when already built
+    log: str        # nvcc's output (ptxas register and shared-memory usage)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = [os.environ.get("CUDA_HOME"), CUDA_HOME]
+    for home in candidates:
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
+            "kernels of nnue_vision_tpu_torch cannot be built on this host"
+        )
+    return found
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        digest.update(p.name.encode() + p.read_bytes())
+    return srcs, digest.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> Built:
+    """Compile (once per source hash) and load the kernels' library."""
+    srcs, key = _sources()
+    lib_path = BUILD_DIR / f"libnnue_kernels_{key}.so"
+    log_path = lib_path.with_suffix(".log")
+    seconds = 0.0
+    if not lib_path.is_file():
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        log_path.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib_path)  # atomic: concurrent builds race safely
+    lib = ctypes.CDLL(str(lib_path))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    log = log_path.read_text() if log_path.is_file() else ""
+    return Built(lib, lib_path, seconds, log)

@@ -1,0 +1,272 @@
+"""Bit-exact torch simulation of the int8 C++ inference engine (NNUE).
+
+Port of `nnue_vision_tpu/ops/engine_sim.py` (NNUE half). Given the arrays a
+`.nnue` file carries and a float image batch, `nnue_engine_forward` gives
+the logits and active-feature counts of the C++ `nnue_inference` binary, bit
+for bit. It is the plain oracle the Hopper kernels of `nnue_kernels.py` are
+held against, and the path a CPU tensor takes.
+
+The integer contract is the JAX module's (see its docstring for the engine
+citations): `int32(x * 64.0f)` input quantization, int32 conv accumulation
+with truncating `/scale` and a ±127 clamp, the engine's runtime stride rule
+`ceil((H-1)/(grid-1))`, flat placement of the conv output into a zero-filled
+grid²·C buffer, float threshold compare, int16 wraparound feature
+transformer, truncating pairwise and dense requantization, float logits.
+
+How exactness is kept here, on the CPU and on the card alike:
+
+* every integer stage runs in int64, and truncating division is
+  `torch.div(..., rounding_mode="trunc")` (torch's `//` floors);
+* the conv, the FT and the dense products are float64 matmuls of
+  integer-valued operands: every product and partial sum is an integer
+  below 2^53, so any summation order gives the exact sum. (The JAX sim
+  sums in float32 and is exact only below 2^24.) The conv is a GEMM over
+  unfolded patches, never `F.conv2d`: cuDNN may run float32 in TF32 or
+  pick Winograd/FFT.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from nnue_vision_tpu.formats import QuantizedNNUE
+
+
+@dataclasses.dataclass(frozen=True)
+class NNUESimCfg:
+    """Static NNUE architecture facts (the JAX package's jit statics)."""
+
+    grid_size: int
+    channels: int
+    l1: int
+    l2: int
+    l3: int
+    num_classes: int
+    conv_scale: int
+    fc1_scale: int
+    fc2_scale: int
+    out_scale: float
+    quantized_one: int
+
+    @property
+    def num_features(self) -> int:
+        return self.grid_size * self.grid_size * self.channels
+
+
+def _tdiv(a: torch.Tensor, b: int) -> torch.Tensor:
+    """C-style truncating integer division (toward zero), b > 0."""
+    return torch.div(a, b, rounding_mode="trunc")
+
+
+def _wrap_i16(a: torch.Tensor) -> torch.Tensor:
+    """Reduce integers mod 2^16 into [-32768, 32767] (int16 wraparound)."""
+    return ((a & 0xFFFF) ^ 0x8000) - 0x8000
+
+
+def engine_conv_stride(image_h: int, grid_size: int) -> int:
+    """The engine's runtime stride rule: ceil((H-1)/(grid-1))
+    (nnue_engine.cpp:667-675)."""
+    if grid_size <= 0:
+        raise ValueError("grid_size must be positive")
+    if grid_size == 1:
+        return max(1, image_h)
+    return max(1, -(-(image_h - 1) // (grid_size - 1)))
+
+
+def conv_out_hw(image_h: int, image_w: int, stride: int) -> Tuple[int, int]:
+    """Output height and width of the 3×3 pad-1 conv at `stride`."""
+    return (image_h - 1) // stride + 1, (image_w - 1) // stride + 1
+
+
+def _quantize_input(img: torch.Tensor, scale: float) -> torch.Tensor:
+    """`static_cast<int32_t>(x * scale)`: f32 multiply, truncate toward zero."""
+    s = torch.full((), scale, dtype=torch.float32, device=img.device)
+    return torch.trunc(img.to(torch.float32) * s).to(torch.int32)
+
+
+def _int_conv3x3(
+    qin: torch.Tensor, weight_oihw: torch.Tensor, bias: torch.Tensor,
+    stride: int,
+) -> torch.Tensor:
+    """Exact integer 3×3 conv, padding 1: (B, H, W, 3) → (B, oh, ow, C) int64.
+
+    One float64 GEMM of the (B·oh·ow, 27) input patches with the (27, C)
+    weights: every product and partial sum is an integer below 2^53, so the
+    sum is exact in any order, and no library convolution (TF32, Winograd
+    or FFT) is involved.
+    """
+    b, h, w, cin = qin.shape
+    oh, ow = conv_out_hw(h, w, stride)
+    c = weight_oihw.shape[0]
+    qpad = torch.zeros((b, h + 2, w + 2, cin), dtype=torch.float64,
+                       device=qin.device)
+    qpad[:, 1:h + 1, 1:w + 1] = qin
+    # (B, oh, ow, cin, kh, kw): the same (cin, kh, kw) order as OIHW rows
+    patches = qpad.unfold(1, 3, stride).unfold(2, 3, stride)
+    acc = patches.reshape(b * oh * ow, cin * 9) @ \
+        weight_oihw.reshape(c, cin * 9).to(torch.float64).T
+    return acc.to(torch.int64).reshape(b, oh, ow, c) + bias.to(torch.int64)
+
+
+def conv_inputs_bf16_safe(images, scale) -> bool:
+    """Is every |trunc(x·scale)| ≤ 256, the window where integers cast to
+    bfloat16 exactly? Only `input_mode="qbf16"` needs it: the port's conv
+    is exact in int32 for any input."""
+    x = torch.as_tensor(images, dtype=torch.float32)
+    m = float(x.abs().max()) if x.numel() else 0.0
+    return m * float(scale) <= 256
+
+
+# ---------------------------------------------------------------------------
+# NNUE
+# ---------------------------------------------------------------------------
+
+
+def nnue_sim_params(
+    q: QuantizedNNUE, device="cpu"
+) -> Tuple[Dict[str, torch.Tensor], NNUESimCfg]:
+    """Tensors on `device` + static config for `nnue_engine_forward`.
+
+    Weights keep the `.nnue` integer types (int16 FT, int8 dense, int32
+    biases); `visual_threshold` is the float32 the engine compares against.
+    """
+    def t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype).to(device).contiguous()
+
+    params = {
+        "conv_w": t(q.conv.weight, torch.int32),
+        "conv_b": t(q.conv.bias, torch.int32),
+        "ft_w": t(q.ft.weight, torch.int16),
+        "ft_b": t(q.ft.bias, torch.int32),
+        "fc1_w": t(q.fc1.weight, torch.int8),
+        "fc1_b": t(q.fc1.bias, torch.int32),
+        "fc2_w": t(q.fc2.weight, torch.int8),
+        "fc2_b": t(q.fc2.bias, torch.int32),
+        "out_w": t(q.out.weight, torch.int8),
+        "out_b": t(q.out.bias, torch.int32),
+        "visual_threshold": t(q.visual_threshold, torch.float32),
+    }
+    cfg = NNUESimCfg(
+        grid_size=q.grid_size,
+        channels=q.num_features_per_square,
+        l1=q.l1,
+        l2=q.l2,
+        l3=q.l3,
+        num_classes=q.num_classes,
+        conv_scale=int(q.conv.scale),
+        fc1_scale=int(q.fc1.scale),
+        fc2_scale=int(q.fc2.scale),
+        out_scale=float(q.out.scale),
+        quantized_one=int(q.quantized_one),
+    )
+    return params, cfg
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact integer product x @ w in float64 (operands integer-valued,
+    every partial sum below 2^53), returned as int64."""
+    return (x.to(torch.float64) @ w.to(torch.float64)).to(torch.int64)
+
+
+def conv_epilogue(acc: torch.Tensor, conv_scale: int) -> torch.Tensor:
+    """`clamp(acc / scale, ±127)` with C truncating division
+    (nnue_engine.cpp:92)."""
+    return torch.clamp(_tdiv(acc.to(torch.int64), conv_scale), -127, 127)
+
+
+def grid_buffer(conv_out_flat: torch.Tensor, num_features: int) -> torch.Tensor:
+    """Flat conv output placed into the zero-filled grid²·C buffer
+    (nnue_engine.cpp:679-683)."""
+    pad = num_features - conv_out_flat.shape[1]
+    if pad < 0:
+        raise ValueError("conv output exceeds feature grid — invalid config")
+    return torch.nn.functional.pad(conv_out_flat.to(torch.int64), (0, pad))
+
+
+def nnue_tail(
+    params: Dict[str, torch.Tensor], buf: torch.Tensor,
+    thresh: torch.Tensor, cfg: NNUESimCfg,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Engine from the (B, F) grid buffer to (logits, active_count).
+
+    Threshold → FT → int16 wrap → clipped ReLU → pairwise → dense stack,
+    with the weights in `.nnue` layout: `ft_w` (F, L1), `fc*_w` (out, in).
+    `thresh` is a float32 scalar tensor (nnue_engine.h:246 compares floats).
+    """
+    mask = buf.to(torch.float32) > thresh
+    active_count = mask.sum(dim=1, dtype=torch.int32)
+
+    # Feature transformer: int16 accumulator with wraparound
+    # (simd_scalar.cpp:78-95) == exact sum reduced mod 2^16.
+    ft = _dot(mask, params["ft_w"]) + params["ft_b"].to(torch.int64)
+    ft = torch.clamp(_wrap_i16(ft), 0, cfg.quantized_one)
+
+    # Pairwise interaction (nnue_engine.cpp:491-500).
+    half = cfg.l1 // 2
+    a, b = ft[:, :half], ft[:, half:]
+    pairwise = torch.cat(
+        [torch.clamp(_tdiv(a * b, 128), 0, 127), torch.clamp(a, 0, 127)],
+        dim=1,
+    )
+
+    # Dense 1 (nnue_engine.cpp:503-509): /fc1_scale truncating, clamp [0,127].
+    h1 = _dot(pairwise, params["fc1_w"].T) + params["fc1_b"].to(torch.int64)
+    h1 = torch.clamp(_tdiv(h1, cfg.fc1_scale), 0, 127)
+    # Dense 2 (nnue_engine.cpp:512-523): clamp ±127 then ReLU.
+    h2 = _dot(h1, params["fc2_w"].T) + params["fc2_b"].to(torch.int64)
+    h2 = torch.clamp(_tdiv(h2, cfg.fc2_scale), 0, 127)
+    # Output (nnue_engine.cpp:526-533): float logits acc / output_scale.
+    out = _dot(h2, params["out_w"].T) + params["out_b"].to(torch.int64)
+    scale = torch.full((), cfg.out_scale, dtype=torch.float32,
+                       device=out.device)
+    return out.to(torch.float32) / scale, active_count
+
+
+def density_of(count: torch.Tensor, num_features: int) -> torch.Tensor:
+    """The engine's density: one f32 division (nnue_inference.cpp:54).
+
+    The divisor is a device tensor, not a Python number: CUDA torch divides
+    by a host scalar as a multiply by its reciprocal, 1 ulp off for F = 800.
+    (Scalars here are made with `torch.full`, a device fill, rather than
+    `torch.tensor`, whose host-to-device copy can stall the stream.)"""
+    f = torch.full((), float(num_features), dtype=torch.float32,
+                   device=count.device)
+    return count.to(torch.float32) / f
+
+
+def nnue_conv_buffer(
+    params: Dict[str, torch.Tensor], images: torch.Tensor, *,
+    cfg: NNUESimCfg, image_h: int,
+) -> torch.Tensor:
+    """(B, H, W, 3) float32 images → the engine's (B, F) int64 grid buffer:
+    quantized input, int conv, epilogue, flat NHWC placement
+    (f = (i·ow + j)·C + c) into the zero-filled grid²·C buffer."""
+    stride = engine_conv_stride(image_h, cfg.grid_size)
+    qin = _quantize_input(images, cfg.conv_scale)
+    acc = _int_conv3x3(qin, params["conv_w"], params["conv_b"], stride)
+    conv_out = conv_epilogue(acc, cfg.conv_scale)  # (B, oh, ow, C)
+    return grid_buffer(conv_out.reshape(conv_out.shape[0], -1),
+                       cfg.num_features)
+
+
+def nnue_engine_forward(
+    params: Dict[str, torch.Tensor], images: torch.Tensor, *,
+    cfg: NNUESimCfg, image_h: int, image_w: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bit-exact NNUE int8 inference for a batch.
+
+    Args:
+      params, cfg: from `nnue_sim_params`.
+      images: (B, H, W, 3) float32 NHWC, the engine's `.bin` order
+        (nnue_inference.cpp:23-30 indexes `(h*W + w)*3 + c`).
+
+    Returns:
+      (logits (B, num_classes) float32, density (B,) float32,
+      active_count (B,) int32), identical to the `nnue_inference` CLI.
+    """
+    buf = nnue_conv_buffer(params, images, cfg=cfg, image_h=image_h)
+    logits, count = nnue_tail(params, buf, params["visual_threshold"], cfg)
+    return logits, density_of(count, cfg.num_features), count
