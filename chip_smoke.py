@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's int8 NNUE serving path once on one CUDA card.
+"""Drive the PyTorch port's int8 NNUE serving path and its NNUE training
+path once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -18,6 +19,20 @@ Phases, one line each (any failure raises and exits non-zero):
 7. launches  both kernels launched during phases 4-6 (the main path)
 8. timing    kernel vs plain version at batch 8192 (and the mega kernel at 1
              and 512), CUDA events, median of 20 in turns
+9. pipeline  the light-pipeline kernel (K3) on the 20,000 synthetic-hard
+             training images at batch 512 and 37, with flips, holes and
+             brightness/contrast drawn, torch.equal to its plain version;
+             identity params equal normalize_images of the gathered rows
+10. train    train_model on config/train_nnue_hard.py (full width, batch
+             512), one epoch = 39 fused steps, compiled_backend "mega"; K3
+             launched 39 times and K1 in the int8 eval, finite losses,
+             best_model.ckpt written; on the checkpointed model the mega int8
+             metrics and counts equal the plain sim's
+11. launches all three kernels launched on their paths (serving: 4-6,
+             training: 10)
+12. timing   K3 vs plain at batch 512 and 8192 (CUDA events, median of 20 in
+             turns); ms per train step over a 39-step chunk (host clock, one
+             sync at the end)
 
 Then one JSON line with each kernel's launches, error and times, the card's
 name and power limit, and the last line {"ok": true, "device": {...}}.
@@ -27,6 +42,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -45,13 +61,16 @@ from nnue_vision_tpu_torch import (
     read_nnue,
     write_nnue,
 )
+from config import load_config
 from nnue_vision_tpu_torch.bridge import nnue_from_jax_params
 from nnue_vision_tpu_torch.data.augment import normalize_images
+from nnue_vision_tpu_torch.data.datasets import GenericVisionDataset
 from nnue_vision_tpu_torch.models.nnue import (
     GridFeatureSet,
     NNUEConfig,
     nnue_quantize,
 )
+from nnue_vision_tpu_torch.ops import input_pipeline as ip
 from nnue_vision_tpu_torch.ops import nnue_kernels as nk
 from nnue_vision_tpu_torch.ops._build import load_library
 from nnue_vision_tpu_torch.ops.engine_sim import (
@@ -61,7 +80,17 @@ from nnue_vision_tpu_torch.ops.engine_sim import (
     nnue_engine_forward,
     nnue_sim_params,
 )
+from nnue_vision_tpu_torch.training.checkpoint import (
+    load_checkpoint,
+    nnue_from_checkpoint,
+)
 from nnue_vision_tpu_torch.training.evaluate import evaluate_int8_sim
+from nnue_vision_tpu_torch.training.loop import train_model
+from nnue_vision_tpu_torch.training.optim import create_optimizer
+from nnue_vision_tpu_torch.training.step import (
+    make_train_state,
+    scanned_train_steps_fused,
+)
 
 SEED = 42
 H = W = 32
@@ -73,10 +102,18 @@ FLAGSHIP = NNUEConfig(  # config/train_nnue.py
     l1_size=1024, l2_size=128, l3_size=32, num_classes=10, input_size=32,
     qat=True,
 )
-SOURCE = "nnue_vision_tpu_torch/csrc/nnue_head.cu"
+TRAIN_CONFIG = "config/train_nnue_hard.py"
+PIPELINE_BATCHES = (512, 37)
+PIPELINE_TIMING_BATCHES = (512, 8192)
+SOURCES = {
+    "nnue_mega_kernel": "nnue_vision_tpu_torch/csrc/nnue_head.cu",
+    "nnue_head_kernel": "nnue_vision_tpu_torch/csrc/nnue_head.cu",
+    "light_pipeline_kernel": "nnue_vision_tpu_torch/csrc/light_pipeline.cu",
+}
 REPLACES = {
     "nnue_mega_kernel": "nnue_vision_tpu/ops/pallas_kernels.py:161",
     "nnue_head_kernel": "nnue_vision_tpu/ops/pallas_kernels.py:156",
+    "light_pipeline_kernel": "nnue_vision_tpu/ops/input_pipeline.py:147",
 }
 
 
@@ -139,7 +176,7 @@ class Errors:
     """Largest |kernel - plain| seen per kernel (logits and counts)."""
 
     def __init__(self):
-        self.max = {name: 0.0 for name in nk.LAUNCHES}
+        self.max = {name: 0.0 for name in SOURCES}
 
     def equal(self, kernel: str, what: str, got, ref) -> None:
         if ref is None:
@@ -227,6 +264,60 @@ def time_pair(kernel_fn, plain_fn) -> tuple:
         for sink, fn in order:
             sink.append(time_ms(fn))
     return statistics.median(k), statistics.median(p)
+
+
+def pipeline(errs: Errors, dataset: torch.Tensor, gen: torch.Generator,
+             batch: int) -> None:
+    """K3 on one batch of drawn params, held to its plain version; every
+    branch (flip, hole, brightness/contrast) must occur."""
+    n, h, w, _ = dataset.shape
+    params = ip.draw_light_params(gen, 1, batch, h, w)
+    flip, pf, pi = params.flip[0], params.pf[0], params.pi[0]
+    if batch < 100:  # force every branch into a small batch
+        flip[:3] = torch.tensor([True, False, True])
+        pf[0] = torch.tensor([1.08, -0.03])
+        pi[1] = torch.tensor([3, 4, 10, 11], dtype=torch.int32)
+    check(bool(flip.any()) and bool((~flip).any())
+          and bool((pf[:, 0] != 1.0).any())
+          and bool((pi[:, 1] > pi[:, 0]).any()), "a branch was not drawn")
+    idx = torch.randint(0, n, (batch,), generator=gen)
+    idx_eff = (idx + n * flip.to(torch.int64)).to(torch.int32).cuda()
+    pf, pi = pf.cuda(), pi.cuda()
+    got = ip.fused_light_pipeline(dataset, idx_eff, pf, pi, h=h, w=w)
+    ref = ip.fused_light_pipeline_reference(dataset, idx_eff, pf, pi, h=h, w=w)
+    errs.equal("light_pipeline_kernel", f"pipeline B={batch}", got, ref)
+    check(got.shape == (batch, h, w, 3), "pipeline output shape")
+
+    ident = ip.identity_light_params(1, batch)
+    idx_c = idx.to(torch.int32).cuda()
+    got = ip.fused_light_pipeline(dataset, idx_c, ident.pf[0].cuda(),
+                                  ident.pi[0].cuda(), h=h, w=w)
+    errs.equal("light_pipeline_kernel", f"pipeline identity B={batch}", got,
+               normalize_images(dataset[idx.cuda()]))
+    torch.cuda.synchronize()
+
+
+def train(tmp: Path) -> dict:
+    """One epoch of train_model on the training config at full width,
+    counted from here: returns what the phase checks and prints."""
+    cfg = load_config(TRAIN_CONFIG)
+    cfg.max_epochs = 1
+    cfg.compiled_backend = "mega"
+    cfg.log_dir = str(tmp / "logs")
+    os.environ["NV_SKIP_ENGINE"] = "1"
+    nk.reset_launch_counts()
+    ip.reset_launch_counts()
+    t0 = time.perf_counter()
+    check(train_model(cfg, "nnue", device="cuda") == 0, "train_model failed")
+    seconds = time.perf_counter() - t0
+    launches = {**nk.LAUNCHES, **ip.LAUNCHES}
+    metrics = next((tmp / "logs" / "runs").glob("*/metrics.jsonl"))
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    epoch = next(r for r in records if "compiled/f1" in r)
+    ckpt = next((tmp / "logs" / "checkpoints").glob("*/best_model.ckpt"))
+    return dict(cfg=cfg, seconds=seconds, launches=launches, losses=losses,
+                epoch=epoch, ckpt=ckpt)
 
 
 def main() -> int:
@@ -356,12 +447,97 @@ def main() -> int:
             f"({batch / k * 1e3:,.0f} img/s), plain {p:.4f} ms "
             f"({batch / p * 1e3:,.0f} img/s) on {smi}")
 
+    # 9. pipeline
+    ds = GenericVisionDataset("synthetic-hard", split="train",
+                              synthetic_size=20000, seed=42)
+    dataset = ip.prepare_gather_dataset(torch.from_numpy(ds.images).cuda())
+    pgen = torch.Generator().manual_seed(SEED)
+    for batch in PIPELINE_BATCHES:
+        pipeline(errs, dataset, pgen, batch)
+    say("pipeline", f"N={dataset.shape[0]} ({dataset.numel() * 4 / 1e6:.1f} MB "
+        f"on the card), B={PIPELINE_BATCHES}: kernel equal to plain and "
+        "identity equal to normalize_images (tolerance: none, torch.equal)")
+
+    # 10. train — the training path, counted from here to its end
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = train(Path(tmp))
+        losses = tr["losses"]
+        check(len(losses) == 39 and all(math.isfinite(v) for v in losses),
+              f"expected 39 finite losses, got {losses}")
+        check(tr["launches"]["light_pipeline_kernel"] == 39,
+              f"K3 launched {tr['launches']['light_pipeline_kernel']} times, "
+              "not once per fused step")
+        check(tr["launches"]["nnue_mega_kernel"] > 0, "K1 not launched by the eval")
+        payload = load_checkpoint(tr["ckpt"])
+    trained = nnue_from_checkpoint(payload, device="cuda")
+    val = GenericVisionDataset("synthetic-hard", split="test",
+                               synthetic_size=20000, seed=42)
+    vloader = [(val.images[i:i + 1024], val.labels[i:i + 1024])
+               for i in range(0, len(val.labels), 1024)]
+    int8 = {mode: evaluate_int8_sim(trained, vloader, use_pallas=mode)
+            for mode in ("mega", False)}
+    keys = ("acc", "f1", "precision", "recall", "latent_density")
+    check(all(int8["mega"][k] == int8[False][k] for k in keys),
+          f"mega int8 metrics differ from sim: {int8}")
+    tsim, tqcfg = nnue_sim_params(nnue_quantize(trained), device="cuda")
+    thead = nk.mega_head_params(tsim, tqcfg, H, W)
+    for i in range(0, len(val.labels), 1024):
+        x = normalize_images(torch.from_numpy(val.images[i:i + 1024]).cuda())
+        _, _, c_mega = nk.nnue_engine_forward_mega(
+            thead, x.reshape(x.shape[0], -1).contiguous(), cfg=tqcfg,
+            image_h=H, image_w=W)
+        _, _, c_sim = nnue_engine_forward(tsim, x, cfg=tqcfg, image_h=H, image_w=W)
+        errs.equal("nnue_mega_kernel", "trained model counts", c_mega, c_sim)
+    say("train", f"{TRAIN_CONFIG}, 1 epoch of {len(losses)} fused steps at "
+        f"batch {tr['cfg'].batch_size} in {tr['seconds']:.2f} s (train_model, "
+        f"data generation included); loss first {losses[0]:.4f} last "
+        f"{losses[-1]:.4f}; val acc {tr['epoch']['val/accuracy']:.4f}, "
+        f"compiled acc {tr['epoch']['compiled/accuracy']:.4f}; checkpoint "
+        "int8 mega == sim: " + json.dumps({k: int8["mega"][k] for k in keys}))
+
+    # 11. launches
+    train_launches = tr["launches"]
+    say("launches", "serving " + json.dumps(launches) + "; training "
+        + json.dumps(train_launches))
+    launches["light_pipeline_kernel"] = train_launches["light_pipeline_kernel"]
+
+    # 12. timing
+    for batch in PIPELINE_TIMING_BATCHES:
+        params = ip.draw_light_params(pgen, 1, batch, H, W)
+        idx = torch.randint(0, dataset.shape[0], (batch,), generator=pgen)
+        args = ((idx + dataset.shape[0] * params.flip[0]).to(torch.int32).cuda(),
+                params.pf[0].cuda(), params.pi[0].cuda())
+        k, p = time_pair(
+            lambda a=args: ip.fused_light_pipeline(dataset, *a, h=H, w=W),
+            lambda a=args: ip.fused_light_pipeline_reference(dataset, *a, h=H, w=W))
+        if batch == 512:
+            ms["light_pipeline_kernel"] = (k, p)
+        say("timing", f"K3 B={batch}: kernel {k:.4f} ms ({batch / k * 1e3:,.0f} "
+            f"img/s), plain {p:.4f} ms ({batch / p * 1e3:,.0f} img/s) on {smi}")
+    cfg = tr["cfg"]
+    opt = create_optimizer(cfg, 39)
+    state = make_train_state(trained, opt)
+    labels = torch.from_numpy(ds.labels).cuda()
+    chunk = np.random.default_rng(SEED).permutation(len(ds.labels))[:39 * 512]
+    chunk = chunk.reshape(39, 512)
+    for run in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = scanned_train_steps_fused(state, dataset, labels, chunk, pgen,
+                                      optimizer=opt, height=H, width=W)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 39 * 1e3
+        check(bool(torch.isfinite(m["loss"]).all()), "non-finite timing losses")
+        say("timing", f"train step (39-step fused chunk {run + 1}/2, batch 512): "
+            f"{step_ms:.3f} ms/step ({512 / step_ms * 1e3:,.0f} img/s), host "
+            f"clock, one sync, on {smi}")
+
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs.max[name], "ms": ms[name][0],
          "plain_ms": ms[name][1]}
-        for name in ("nnue_mega_kernel", "nnue_head_kernel")]}))
+        for name in SOURCES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,25 @@
-"""NNUE for vision as a torch `nn.Module` (forward and quantization).
+"""NNUE for vision as a torch `nn.Module` (init, forward, quantization).
 
 Port of `nnue_vision_tpu/models/nnue.py:60-476`. `NNUE.forward` is the JAX
 package's `nnue_apply` (float and `qat` paths, `return_aux`): the binary
 feature mask is the feature vector, the feature transformer is one dense
 masked matmul, and the geometry follows the engine's stride rule and flat
 placement of the conv output into the grid buffer, so the model computes
-the features the int8 engine computes.
+the features the int8 engine computes. The threshold compare goes through
+`binary_activation_ste`, whose backward is the JAX package's custom VJP,
+and the QAT clamps split the gradient at a bound as `jnp.clip` does.
 
 The parameters carry the JAX package's names and layouts (`conv_w` OIHW,
-`ft_w` (F, L1), `fc*_w` (out, in), `visual_threshold` (C,)), so
-`bridge.py` moves them across unchanged. The threshold compare here is a
-plain `>`: its straight-through gradient comes with the training port.
+`ft_w` (F, L1), `fc*_w` (out, in), `visual_threshold` (C,), the scalar
+`nnue2score`), so `bridge.py` moves them across unchanged. `nnue2score` is
+a parameter, as it is a leaf of the JAX params pytree: no loss reaches it,
+but the optimizer's weight decay does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict
 
 import numpy as np
@@ -42,6 +46,21 @@ DEFAULT_L2 = 128
 DEFAULT_L3 = 32
 
 _WEIGHTS = ("ft_w", "fc1_w", "fc2_w", "out_w")
+
+
+@dataclasses.dataclass(frozen=True)
+class LossParams:
+    """Score-space loss shaping constants (nnue.py:60-73 of the JAX package;
+    declared for config compatibility, the trainer uses cross-entropy)."""
+
+    in_offset: float = 270.0
+    out_offset: float = 270.0
+    in_scaling: float = 340.0
+    out_scaling: float = 380.0
+    start_lambda: float = 1.0
+    end_lambda: float = 1.0
+    pow_exp: float = 2.5
+    qp_asymmetry: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +96,42 @@ class NNUEConfig:
     @property
     def conv_out_hw(self) -> int:
         return (self.input_size + 2 - 3) // self.conv_stride + 1
+
+
+class BinaryActivationSTE(torch.autograd.Function):
+    """Hard threshold forward, straight-through backward (the JAX package's
+    `binary_activation_ste` custom VJP, nnue.py:122-145).
+
+    x: (B, H, W, C); threshold: (C,), broadcast per channel. Forward:
+    (x > t) as x's dtype. Backward: dL/dx = g; dL/dt = -sum over B, H, W of
+    g·k·σ'(k(x - t)) with k = 10.
+    """
+
+    @staticmethod
+    def forward(ctx, x, threshold):
+        ctx.save_for_backward(x, threshold)
+        return (x > threshold).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, threshold = ctx.saved_tensors
+        k = 10.0
+        sig = torch.sigmoid(k * (x - threshold))
+        grad_t = -(g * k * sig * (1.0 - sig)).sum(dim=(0, 1, 2))
+        return g, grad_t.to(threshold.dtype)
+
+
+def binary_activation_ste(x: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
+    return BinaryActivationSTE.apply(x, threshold)
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """`jnp.clip`: max then min, which pass half the gradient to a value
+    that equals a bound (`torch.clamp` passes all of it). The bounds are
+    0-dim CPU tensors, which a CUDA operand takes as scalars: no copy."""
+    lo_t = torch.tensor(lo, dtype=x.dtype)
+    hi_t = torch.tensor(hi, dtype=x.dtype)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
 def _wq(w: torch.Tensor, scale: float) -> torch.Tensor:
@@ -119,9 +174,7 @@ class NNUE(nn.Module):
         self.fc2_b = p(l3)
         self.out_w = p(cfg.num_classes, l3)
         self.out_b = p(cfg.num_classes)
-        self.register_buffer(
-            "nnue2score", torch.tensor(600.0, device=device)
-        )
+        self.nnue2score = nn.Parameter(torch.tensor(600.0, device=device))
 
     def _qat_params(self) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
@@ -166,7 +219,7 @@ class NNUE(nn.Module):
             x.permute(0, 3, 1, 2), p["conv_w"],
             stride=cfg.conv_stride, padding=1,
         ).permute(0, 2, 3, 1)
-        mask = (conv > thresh).to(torch.float32)
+        mask = binary_activation_ste(conv, thresh)
 
         # Engine flat placement: (B, oh, ow, C) → (B, F) with zero tail.
         b = mask.shape[0]
@@ -175,7 +228,9 @@ class NNUE(nn.Module):
         if cfg.qat and pad > 0:
             # The engine thresholds the whole zero-filled buffer: the tail
             # is active whenever the threshold is negative.
-            tail = (deployed_thresh < 0).to(torch.float32).expand(b, pad)
+            tail = binary_activation_ste(
+                x.new_zeros((b, 1, pad, 1)), deployed_thresh
+            ).reshape(b, pad)
             features = torch.cat([flat, tail], dim=1)
         else:
             features = F.pad(flat, (0, pad))
@@ -185,11 +240,11 @@ class NNUE(nn.Module):
         if cfg.qat:
             # int16 FT clipped to [0,127] at scale 64, pairwise products at
             # scale 32, hidden activations int8 [0,127] at scale 64.
-            ft = torch.clamp(ft, 0.0, 127.0 / 64.0)
+            ft = _clip(ft, 0.0, 127.0 / 64.0)
             a, bb = ft[:, :half], ft[:, half:]
-            l0 = torch.cat([torch.clamp(a * bb, 0.0, 127.0 / 32.0), a], dim=1)
-            h1 = torch.clamp(self._linear(l0, p, "fc1"), 0.0, 127.0 / 64.0)
-            h2 = torch.clamp(self._linear(h1, p, "fc2"), 0.0, 127.0 / 64.0)
+            l0 = torch.cat([_clip(a * bb, 0.0, 127.0 / 32.0), a], dim=1)
+            h1 = _clip(self._linear(l0, p, "fc1"), 0.0, 127.0 / 64.0)
+            h2 = _clip(self._linear(h1, p, "fc2"), 0.0, 127.0 / 64.0)
         else:
             # Reference float semantics: unclamped pairwise + ReLU.
             a, bb = ft[:, :half], ft[:, half:]
@@ -206,6 +261,42 @@ class NNUE(nn.Module):
     @staticmethod
     def _linear(x, p, name):
         return x @ p[f"{name}_w"].T + p[f"{name}_b"]
+
+
+def nnue_init(cfg: NNUEConfig, generator: torch.Generator, device=None) -> NNUE:
+    """A new `NNUE` with the JAX package's init distributions (nnue.py:157-184):
+    fan-in uniform conv and dense weights and biases, FT weights N(0, 0.1²),
+    FT bias 0, threshold 0.1 per channel, nnue2score 600.
+
+    Drawn on the host from `generator` (a CPU `torch.Generator`), so a seed
+    gives the same model on every device; the streams differ from
+    `jax.random`'s, so tests hand both packages numpy-made params.
+    """
+    fs = cfg.feature_set
+    ch, l1, l2, l3, nc = (fs.num_features_per_square, cfg.l1_size,
+                          cfg.l2_size, cfg.l3_size, cfg.num_classes)
+
+    def uniform(shape, fan_in):
+        bound = 1.0 / math.sqrt(fan_in)
+        u = torch.rand(shape, generator=generator, dtype=torch.float32)
+        return u * (2 * bound) - bound
+
+    params = {
+        "conv_w": uniform((ch, 3, 3, 3), 27),
+        "visual_threshold": torch.full((ch,), 0.1),
+        "ft_w": torch.randn((fs.num_features, l1), generator=generator) * 0.1,
+        "ft_b": torch.zeros(l1),
+        "fc1_w": uniform((l2, l1), l1),
+        "fc1_b": uniform((l2,), l1),
+        "fc2_w": uniform((l3, l2), l2),
+        "fc2_b": uniform((l3,), l2),
+        "out_w": uniform((nc, l3), l3),
+        "out_b": uniform((nc,), l3),
+        "nnue2score": torch.tensor(600.0),
+    }
+    model = NNUE(cfg, device=device)
+    model.load_state_dict(params)
+    return model
 
 
 def nnue_clip_weights(model: NNUE) -> NNUE:

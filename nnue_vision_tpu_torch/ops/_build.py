@@ -2,8 +2,9 @@
 
 `load_library()` compiles `nnue_vision_tpu_torch/csrc/*.cu` at first use into
 `build/torch_kernels/` under the repository root (listed in `.gitignore`),
-keyed by a hash of the sources, and loads the shared library. The sources
-have a plain C interface, so the build takes seconds (no PyTorch headers).
+keyed by a hash of the sources, and loads the shared library: one nvcc per
+source, all started together, then one link. The sources have a plain C
+interface, so the build takes seconds (no PyTorch headers).
 
 Only sources in the repository are compiled, and a failed build raises:
 there is no fallback. `--use_fast_math` is deliberately absent: it makes
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -26,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +43,9 @@ SIGNATURES = {
         _I,
     ),
     "nnue_head_launch": ([_P, _I] + _HEAD_ARGS + [_P, _P, _P], _I),
+    "light_pipeline_launch": (
+        [_P, _I, _I, _I, _P, _P, _P, _I] + [_F] * 6 + [_P, _P], _I,
+    ),
 }
 
 
@@ -75,6 +80,16 @@ def _sources():
     return srcs, digest.hexdigest()[:16]
 
 
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    return proc.stdout + proc.stderr
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> Built:
     """Compile (once per source hash) and load the kernels' library."""
@@ -85,18 +100,25 @@ def load_library() -> Built:
     if not lib_path.is_file():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{key}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
+        try:
+            with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+                logs = list(pool.map(
+                    lambda so: _run([nvcc, *NVCC_FLAGS, "-c", "-o", str(so[1]),
+                                     str(so[0])]),
+                    zip(srcs, objs)))
+            _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        except RuntimeError:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        log_path.write_text(proc.stdout + proc.stderr)
+            raise
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+        seconds = time.perf_counter() - t0
+        log_path.write_text("".join(logs))
         os.replace(tmp, lib_path)  # atomic: concurrent builds race safely
     lib = ctypes.CDLL(str(lib_path))
     for name, (argtypes, restype) in SIGNATURES.items():

@@ -1,0 +1,203 @@
+"""Profile the port's fused train step: where a step's time goes.
+
+    python -m nnue_vision_tpu_torch.profile_train_step \\
+        [--config config/train_nnue_hard.py] [--device cuda] [--out DIR]
+
+Builds the config's model (its seed's random init), uploads its training
+set and runs the light-tier fused path of `train_model`
+(`scanned_train_steps_fused`: one K3 launch and one train step per step):
+
+1. chunk     after one warm-up chunk, one chunk of `steps_per_dispatch`
+             steps on the host clock with one sync at the end: ms per step
+2. phases    each phase of one step alone, synced before and after, median
+             of 20: K3, forward + loss, backward, optimizer, weight clip
+3. profile   one more chunk under torch.profiler: device operations per
+             step, device busy time (the union of their intervals) against
+             the chunk's wall time, and the ops by device time, written to
+             DIR/profile_table.txt
+
+Prints one JSON object with these numbers and, on a card, its name and
+power limit from nvidia-smi. On the CPU the device numbers are null. The
+profiler slows the host, so the busy share is read against the profiled
+chunk's own wall time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+from config import load_config
+from nnue_vision_tpu_torch.data.loaders import create_data_loaders
+from nnue_vision_tpu_torch.models.nnue import nnue_clip_weights
+from nnue_vision_tpu_torch.ops.input_pipeline import (
+    draw_light_params,
+    fused_light_pipeline,
+    prepare_gather_dataset,
+)
+from nnue_vision_tpu_torch.training.loop import build_model
+from nnue_vision_tpu_torch.training.optim import create_optimizer
+from nnue_vision_tpu_torch.training.step import (
+    make_train_state,
+    scanned_train_steps_fused,
+)
+
+PHASE_RUNS = 20
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -float("inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def profile(config_path: str, device: str, out: Path) -> dict:
+    cfg = load_config(config_path)
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError("CUDA asked for, but not available on this host")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    train_loader, _, _ = create_data_loaders(
+        dataset_name=cfg.dataset_name, batch_size=cfg.batch_size,
+        max_samples_per_split=getattr(cfg, "max_samples_per_split", None),
+        seed=cfg.seed, synthetic_size=getattr(cfg, "synthetic_size", 512),
+    )
+    ds = train_loader.dataset
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model, _ = build_model(cfg, "nnue", gen, dev)
+    steps = int(getattr(cfg, "steps_per_dispatch", 8))
+    optimizer = create_optimizer(cfg, max(1, len(train_loader)))
+    state = make_train_state(model, optimizer)
+    dataset = prepare_gather_dataset(torch.from_numpy(ds.images).to(dev))
+    labels = torch.from_numpy(ds.labels).to(dev)
+    n, h, w = ds.images.shape[:3]
+    batch = cfg.batch_size
+    rng = np.random.default_rng(cfg.seed)
+
+    def chunk():
+        idx = np.stack([rng.permutation(n)[:batch] for _ in range(steps)])
+        return scanned_train_steps_fused(state, dataset, labels, idx, gen,
+                                         optimizer=optimizer, height=h, width=w)
+
+    chunk()  # warm-up: cuDNN/cuBLAS choices, the kernel's build
+    sync()
+    t0 = time.perf_counter()
+    losses = chunk()["loss"]
+    sync()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    if not bool(torch.isfinite(losses).all()):
+        raise FloatingPointError("non-finite loss in the timed chunk")
+
+    # each phase of one step alone
+    params = dict(model.named_parameters())
+    lp = draw_light_params(gen, 1, batch, h, w)
+    idx = torch.as_tensor(rng.permutation(n)[:batch])
+    idx_eff = (idx + n * lp.flip[0].to(torch.int64)).to(torch.int32).to(dev)
+    pf, pi = lp.pf[0].to(dev), lp.pi[0].to(dev)
+    y = labels[idx.to(dev)]
+    x = fused_light_pipeline(dataset, idx_eff, pf, pi, h=h, w=w)
+    box = {}
+
+    def forward():
+        box["loss"] = F.cross_entropy(model(x), y)
+
+    def backward():
+        box["grads"] = torch.autograd.grad(box["loss"], list(params.values()),
+                                           allow_unused=True)
+
+    def timed(fn, setup=None) -> float:
+        times = []
+        for _ in range(PHASE_RUNS):
+            if setup is not None:
+                setup()
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    phase_ms = {
+        "k3": timed(lambda: fused_light_pipeline(dataset, idx_eff, pf, pi,
+                                                 h=h, w=w)),
+        "forward_loss": timed(forward),
+        "backward": timed(backward, setup=forward),
+        "optimizer": timed(lambda: optimizer.step(
+            params, dict(zip(params, box["grads"])), state.opt_state)),
+        "weight_clip": timed(lambda: nnue_clip_weights(model)),
+    }
+
+    # one chunk under the profiler
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        chunk()
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_ops = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = _busy_us((e.time_range.start, e.time_range.end)
+                       for e in device_ops)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "profile_table.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total" if cuda else "self_cpu_time_total",
+        row_limit=60))
+
+    card = None
+    if cuda:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+    return {
+        "config": config_path, "device": str(dev), "card": card,
+        "batch": batch, "steps": steps,
+        "step_ms": step_ms, "images_per_s": batch / step_ms * 1e3,
+        "phase_ms": phase_ms,
+        "device_ops_per_step": len(device_ops) / steps if cuda else None,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps if cuda else None,
+        "profiled_wall_ms_per_step": wall_us / 1e3 / steps,
+        "device_busy_share": busy_us / wall_us if cuda else None,
+        "table": str(out / "profile_table.txt"),
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", default="config/train_nnue_hard.py")
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--out", default="logs/profile",
+                        help="directory for profile_table.txt")
+    args = parser.parse_args(argv)
+    print(json.dumps(profile(args.config, args.device, Path(args.out))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

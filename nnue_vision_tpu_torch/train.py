@@ -1,0 +1,108 @@
+"""Training CLI of the PyTorch port (port of the root `train.py:22-161`).
+
+    NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train nnue \\
+        --config config/train_nnue_test.py            # on the CPU
+    NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train nnue \\
+        --config config/train_nnue_hard.py --device cuda
+
+The port trains NNUE on one device. NV_SKIP_ENGINE=1 is required for now:
+the C++ engine start-up probe is not ported (ROADMAP Queue A item 4a).
+The overrides are the root CLI's that apply to this model; runs are
+tracked locally under --log_dir.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from config import ConfigError, load_config
+from nnue_vision_tpu_torch.training.logging import early_log
+
+_OVERRIDES = (
+    "batch_size", "max_epochs", "learning_rate", "note", "use_augmentation",
+    "augmentation_strength", "num_classes", "dataset_name", "seed",
+    "synthetic_class_seed", "ef_warmup_epochs", "checkpoint_metric",
+    "eval_train_samples", "eval_batch_size",
+)
+
+
+def setup_argument_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Train NNUE models with the PyTorch port",
+        epilog="Set NV_SKIP_ENGINE=1: the C++ engine start-up probe is not "
+               "ported yet.",
+    )
+    parser.add_argument("model_type", choices=["nnue"], help="Model type to train")
+    parser.add_argument("--config", type=str, help="Path to the configuration file")
+    parser.add_argument("--device", type=str, default="cpu",
+                        help="torch device to train on: cpu (default), cuda, "
+                             "cuda:N; cuda raises where there is no card")
+    parser.add_argument("--batch_size", type=int, help="Override batch size")
+    parser.add_argument("--max_epochs", type=int, help="Override max epochs")
+    parser.add_argument("--learning_rate", type=float, help="Override learning rate")
+    parser.add_argument("--note", type=str, help="Note to add to the run")
+    parser.add_argument("--wandb-run-id", type=str, help="Name of the local run")
+    parser.add_argument("--log_dir", type=str, default="logs",
+                        help="Directory for logs and checkpoints")
+    parser.add_argument("--use_augmentation", type=lambda x: x.lower() == "true",
+                        help="Enable data augmentation (true/false)")
+    parser.add_argument("--augmentation_strength", choices=["light"],
+                        help="Augmentation strength (medium and heavy come "
+                             "with the EtinyNet slice)")
+    parser.add_argument("--dataset_name", type=str,
+                        choices=["cifar10", "cifar100", "synthetic",
+                                 "synthetic-hard"],
+                        help="Dataset to use")
+    parser.add_argument("--num_classes", type=int, help="Number of classes")
+    parser.add_argument("--seed", type=int, help="Override training/data seed")
+    parser.add_argument("--synthetic_class_seed", type=int,
+                        help="Synthetic-hard generator variant")
+    parser.add_argument("--ef_warmup_epochs", type=int,
+                        help="Override progressive-QAT warmup epochs")
+    parser.add_argument("--name_suffix", type=str,
+                        help="Suffix appended to the config name")
+    parser.add_argument("--checkpoint_metric", choices=["val_f1", "compiled_f1"],
+                        help="Best-model gate: float val F1 (default) or the "
+                             "deployed int8 compiled F1")
+    parser.add_argument("--eval_train_samples", type=int,
+                        help="Evaluate per-epoch train metrics on only the "
+                             "first N samples")
+    parser.add_argument("--eval_batch_size", type=int,
+                        help="Batch size for per-epoch evals")
+    return parser
+
+
+def load_and_setup_config(args: argparse.Namespace, model_type: str):
+    if args.config is None:
+        args.config = f"config/train_{model_type}_default.py"
+    early_log(f"Loading configuration: {args.config}")
+    config = load_config(args.config)
+    early_log(f"Configuration loaded: {config.name}")
+    for attr in _OVERRIDES:
+        value = getattr(args, attr, None)
+        if value is not None:
+            setattr(config, attr, value)
+    if args.log_dir:
+        config.log_dir = args.log_dir
+    if args.name_suffix:
+        config.name = f"{config.name}_{args.name_suffix}"
+    return config
+
+
+def main(argv=None) -> int:
+    args = setup_argument_parser().parse_args(argv)
+    try:
+        config = load_and_setup_config(args, args.model_type)
+    except ConfigError as e:
+        early_log(f"Error loading configuration: {e}")
+        return 1
+
+    from nnue_vision_tpu_torch.training.loop import train_model
+
+    return train_model(config, args.model_type, wandb_run_id=args.wandb_run_id,
+                       device=args.device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,116 @@
+"""The NNUE train and eval steps (port of
+`nnue_vision_tpu/training/step.py:23-112, 178-328`).
+
+The JAX package's steps are jitted pure functions over a TrainState
+pytree; here a step runs eagerly and updates the model's parameters and
+the optimizer state in place. The loss is cross-entropy; after every
+optimizer step the FT and classifier weights are clipped to [-1, 1].
+
+`scanned_train_steps_fused` is the fused light-tier path: one host draw of
+the augmentation parameters for all K steps of a chunk, one upload, then
+per step one K3 launch (`fused_light_pipeline`) and one train step. The
+losses come back as one (K,) tensor, so the chunk syncs with the host once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+from nnue_vision_tpu_torch.data.augment import preprocess_batch
+from nnue_vision_tpu_torch.models.nnue import NNUE, nnue_clip_weights
+from nnue_vision_tpu_torch.ops.input_pipeline import (
+    draw_light_params,
+    fused_light_pipeline,
+)
+from nnue_vision_tpu_torch.training.optim import Optimizer, OptState
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters), the optimizer state and the step count."""
+    model: NNUE
+    opt_state: OptState
+    step: int = 0
+
+
+def make_train_state(model: NNUE, optimizer: Optimizer) -> TrainState:
+    return TrainState(model, optimizer.init(dict(model.named_parameters())))
+
+
+def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
+               *, optimizer: Optimizer) -> Dict[str, torch.Tensor]:
+    """One optimizer step on normalized images (B, H, W, 3) and labels (B,),
+    then the FT and classifier weights clipped to [-1, 1]. Returns {"loss",
+    "accuracy"} as device scalars."""
+    model = state.model
+    params = dict(model.named_parameters())
+    logits = model(images)
+    loss = F.cross_entropy(logits, labels)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    optimizer.step(params, dict(zip(params, grads)), state.opt_state)
+    nnue_clip_weights(model)
+    state.step += 1
+    acc = (logits.detach().argmax(dim=-1) == labels).to(torch.float32).mean()
+    return {"loss": loss.detach(), "accuracy": acc}
+
+
+def _check_indices(idx: np.ndarray, n: int) -> None:
+    if idx.size and (idx.min() < 0 or idx.max() >= n):
+        raise IndexError(f"batch indices outside [0, {n})")
+
+
+def gathered_train_step(state: TrainState, device_images: torch.Tensor,
+                        device_labels: torch.Tensor, idx: np.ndarray,
+                        gen: torch.Generator, *, optimizer: Optimizer,
+                        strength: str = "medium", augment: bool = True
+                        ) -> Dict[str, torch.Tensor]:
+    """Gather a batch by index from the device-resident dataset, augment,
+    normalize, train one step."""
+    idx = np.asarray(idx)
+    _check_indices(idx, device_labels.shape[0])
+    i = torch.as_tensor(idx, dtype=torch.int64).to(device_images.device)
+    x = preprocess_batch(gen, device_images[i], strength=strength,
+                         augment=augment)
+    return train_step(state, x, device_labels[i], optimizer=optimizer)
+
+
+def scanned_train_steps_fused(state: TrainState, gather_dataset: torch.Tensor,
+                              device_labels: torch.Tensor,
+                              idx_chunk: np.ndarray, gen: torch.Generator, *,
+                              optimizer: Optimizer, height: int, width: int
+                              ) -> Dict[str, torch.Tensor]:
+    """K train steps of the light tier with the whole input path in one K3
+    launch per step. The (K, B) draws are made once, on the host, and the
+    effective indices (flip folded in as +N) are checked there, while they
+    are numpy."""
+    idx_chunk = np.asarray(idx_chunk)
+    steps, batch = idx_chunk.shape
+    n = device_labels.shape[0]
+    _check_indices(idx_chunk, n)
+    params = draw_light_params(gen, steps, batch, height, width)
+    idx_eff = idx_chunk + n * params.flip.numpy().astype(np.int64)
+    _check_indices(idx_eff, 2 * n)
+    dev = gather_dataset.device
+    idx_eff = torch.as_tensor(idx_eff, dtype=torch.int32).to(dev)
+    labels = device_labels[torch.as_tensor(idx_chunk, dtype=torch.int64).to(dev)]
+    pf, pi = params.pf.to(dev), params.pi.to(dev)
+
+    metrics = []
+    for k in range(steps):
+        x = fused_light_pipeline(gather_dataset, idx_eff[k], pf[k], pi[k],
+                                 h=height, w=width)
+        metrics.append(train_step(state, x, labels[k], optimizer=optimizer))
+    return {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
+
+
+@torch.no_grad()
+def eval_step(model: NNUE, images: torch.Tensor, labels: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed CE loss over the batch, logits)."""
+    logits = model(images)
+    return F.cross_entropy(logits, labels, reduction="sum"), logits

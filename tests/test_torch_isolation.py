@@ -16,12 +16,23 @@ MODULES = [
     "nnue_vision_tpu_torch",
     "nnue_vision_tpu_torch.bridge",
     "nnue_vision_tpu_torch.data.augment",
+    "nnue_vision_tpu_torch.data.datasets",
+    "nnue_vision_tpu_torch.data.loaders",
     "nnue_vision_tpu_torch.models.nnue",
     "nnue_vision_tpu_torch.ops._build",
     "nnue_vision_tpu_torch.ops.engine_sim",
+    "nnue_vision_tpu_torch.ops.input_pipeline",
     "nnue_vision_tpu_torch.ops.nnue_kernels",
+    "nnue_vision_tpu_torch.profile_train_step",
+    "nnue_vision_tpu_torch.training.checkpoint",
     "nnue_vision_tpu_torch.training.evaluate",
+    "nnue_vision_tpu_torch.training.logging",
+    "nnue_vision_tpu_torch.training.loop",
     "nnue_vision_tpu_torch.training.metrics",
+    "nnue_vision_tpu_torch.training.optim",
+    "nnue_vision_tpu_torch.training.step",
+    "nnue_vision_tpu_torch.training.utils",
+    "nnue_vision_tpu_torch.train",
     "chip_smoke",
 ]
 
@@ -80,6 +91,24 @@ def test_chip_smoke_fails_without_a_card():
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_cli_help_runs_without_jax():
+    code = (
+        "import sys, runpy\n"
+        "sys.argv = ['train', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('nnue_vision_tpu_torch.train', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in ('jax', 'optax', 'ml_dtypes') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "NV_SKIP_ENGINE=1" in proc.stdout
 
 
 def test_chip_smoke_fails_alone(tmp_path):
