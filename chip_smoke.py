@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's int8 NNUE serving path and its NNUE training
-path once on one CUDA card.
+"""Drive the PyTorch port's int8 NNUE serving path, its NNUE training path,
+its EtinyNet int8 serving path and its EtinyNet training path once on one
+CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -33,6 +34,25 @@ Phases, one line each (any failure raises and exits non-zero):
 12. timing   K3 vs plain at batch 512 and 8192 (CUDA events, median of 20 in
              turns); ms per train step over a 39-step chunk (host clock, one
              sync at the end)
+13. etiny-serve  a 0.98M-width EtinyNet from a numpy seed (random weights and
+             norm statistics) → etinynet_quantize → write_etiny → read_etiny,
+             and a stress model at full int8 ranges; batches 1, 37, 1024 and
+             8192 through etiny_forward_kernel (K6, one launch per LB block),
+             each torch.equal to the engine sim
+14. augment  on synthetic-hard 32×32 images at batch 1024 and 37: K4 on drawn
+             heavy-tier maps, rot90/flip-only maps and out-of-frame maps; K5,
+             both variants, with every gate on, drawn, and off (identity);
+             each torch.equal to its plain version
+15. etiny-train  train_model on config/train_etinynet.py (0.98M, bf16, heavy
+             tier, batch 1024) on 50,000 synthetic-hard images for one epoch
+             of 48 steps: K4 and K5 each launched 96 times, finite losses,
+             best_model.ckpt written; on the checkpointed model K6's int8
+             logits equal the sim's on the val split
+16. launches the three kernels launched on their paths (serving: 13,
+             training: 15)
+17. timing   K4, K5 (each variant) and K6 (the whole int8 forward, and its 12
+             LB blocks alone) vs plain at batch 1024 and 8192; ms per EtinyNet train step at batch 1024
+             over 48 steps (host clock, one sync at the end)
 
 Then one JSON line with each kernel's launches, error and times, the card's
 name and power limit, and the last line {"ok": true, "device": {...}}.
@@ -56,31 +76,48 @@ import torch
 from nnue_vision_tpu_torch import (
     QConv,
     QFeatureTransformer,
+    QLBBlock,
     QLinear,
+    QuantizedEtinyNet,
     QuantizedNNUE,
+    read_etiny,
     read_nnue,
+    write_etiny,
     write_nnue,
 )
 from config import load_config
 from nnue_vision_tpu_torch.bridge import nnue_from_jax_params
+from nnue_vision_tpu_torch.data import augment as aug
 from nnue_vision_tpu_torch.data.augment import normalize_images
 from nnue_vision_tpu_torch.data.datasets import GenericVisionDataset
+from nnue_vision_tpu_torch.models.etinynet import (
+    EtinyNet,
+    EtinyNetConfig,
+    etinynet_quantize,
+)
 from nnue_vision_tpu_torch.models.nnue import (
     GridFeatureSet,
     NNUEConfig,
     nnue_quantize,
 )
+from nnue_vision_tpu_torch.ops import etiny_kernels as ek
 from nnue_vision_tpu_torch.ops import input_pipeline as ip
 from nnue_vision_tpu_torch.ops import nnue_kernels as nk
+from nnue_vision_tpu_torch.ops import photometric_kernel as pk
+from nnue_vision_tpu_torch.ops import warp_kernel as wk
 from nnue_vision_tpu_torch.ops._build import load_library
 from nnue_vision_tpu_torch.ops.engine_sim import (
     conv_out_hw,
     engine_conv_stride,
+    etiny_engine_forward,
+    etiny_sim_params,
+    etiny_stem,
     nnue_conv_buffer,
     nnue_engine_forward,
     nnue_sim_params,
 )
 from nnue_vision_tpu_torch.training.checkpoint import (
+    etinynet_from_checkpoint,
     load_checkpoint,
     nnue_from_checkpoint,
 )
@@ -88,6 +125,7 @@ from nnue_vision_tpu_torch.training.evaluate import evaluate_int8_sim
 from nnue_vision_tpu_torch.training.loop import train_model
 from nnue_vision_tpu_torch.training.optim import create_optimizer
 from nnue_vision_tpu_torch.training.step import (
+    gathered_train_step,
     make_train_state,
     scanned_train_steps_fused,
 )
@@ -105,15 +143,28 @@ FLAGSHIP = NNUEConfig(  # config/train_nnue.py
 TRAIN_CONFIG = "config/train_nnue_hard.py"
 PIPELINE_BATCHES = (512, 37)
 PIPELINE_TIMING_BATCHES = (512, 8192)
+ETINY_CONFIG = "config/train_etinynet.py"
+ETINY_TRAIN_SIZE = 50000  # CIFAR-10's train split, in synthetic-hard images
+ETINY_SERVE_BATCHES = (1, 37, 1024, 8192)
+AUGMENT_BATCHES = (1024, 37)
+ETINY_TIMING_BATCHES = (1024, 8192)
+GATES = {"medium": [0, 3, 7, 8, 10, 11, 15, 20, 22, 23],
+         "heavy_extra": [0, 3, 7, 8, 10, 11]}
 SOURCES = {
     "nnue_mega_kernel": "nnue_vision_tpu_torch/csrc/nnue_head.cu",
     "nnue_head_kernel": "nnue_vision_tpu_torch/csrc/nnue_head.cu",
     "light_pipeline_kernel": "nnue_vision_tpu_torch/csrc/light_pipeline.cu",
+    "warp_kernel": "nnue_vision_tpu_torch/csrc/warp.cu",
+    "photometric_kernel": "nnue_vision_tpu_torch/csrc/photometric.cu",
+    "etiny_block_kernel": "nnue_vision_tpu_torch/csrc/etiny_block.cu",
 }
 REPLACES = {
     "nnue_mega_kernel": "nnue_vision_tpu/ops/pallas_kernels.py:161",
     "nnue_head_kernel": "nnue_vision_tpu/ops/pallas_kernels.py:156",
     "light_pipeline_kernel": "nnue_vision_tpu/ops/input_pipeline.py:147",
+    "warp_kernel": "nnue_vision_tpu/ops/warp_kernel.py:46",
+    "photometric_kernel": "nnue_vision_tpu/ops/photometric_kernel.py:114",
+    "etiny_block_kernel": "nnue_vision_tpu/ops/etiny_pallas.py:105",
 }
 
 
@@ -311,6 +362,139 @@ def train(tmp: Path) -> dict:
     check(train_model(cfg, "nnue", device="cuda") == 0, "train_model failed")
     seconds = time.perf_counter() - t0
     launches = {**nk.LAUNCHES, **ip.LAUNCHES}
+    metrics = next((tmp / "logs" / "runs").glob("*/metrics.jsonl"))
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    epoch = next(r for r in records if "compiled/f1" in r)
+    ckpt = next((tmp / "logs" / "checkpoints").glob("*/best_model.ckpt"))
+    return dict(cfg=cfg, seconds=seconds, launches=launches, losses=losses,
+                epoch=epoch, ckpt=ckpt)
+
+
+def etiny_model(rng: np.random.Generator) -> EtinyNet:
+    """A 0.98M-width EtinyNet with random weights in the JAX package's init
+    ranges and random norm affines and running statistics."""
+    model = EtinyNet(EtinyNetConfig(variant="0.98M", num_classes=10,
+                                    input_size=H))
+    state = {}
+    for name, t in model.state_dict().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("scale", "var"):
+            value = rng.uniform(0.5, 1.5, t.shape)
+        elif leaf in ("bias", "mean"):
+            value = rng.uniform(-0.3, 0.3, t.shape)
+        else:
+            fan_in = t.shape[1] if leaf == "cls_w" else (
+                t.shape[0] if leaf == "cls_b" else t.shape[0] * t.shape[1] * t.shape[2])
+            b = 1.0 / math.sqrt(fan_in)
+            value = rng.uniform(-b, b, t.shape)
+        state[name] = torch.from_numpy(value.astype(np.float32))
+    model.load_state_dict(state)
+    return model
+
+
+def etiny_stress_model(rng: np.random.Generator, q: QuantizedEtinyNet):
+    """Random int8 weights over the full range and wide pw-expand biases at
+    the widths and strides of `q`."""
+    def i8(*s):
+        return rng.integers(-127, 128, s).astype(np.int8)
+
+    blocks = [QLBBlock(pw_expand=i8(b.mid_channels, b.in_channels),
+                       dw=i8(b.mid_channels, 3, 3),
+                       pw_project=i8(b.out_channels, b.mid_channels),
+                       stride=b.stride, is_dense=b.is_dense,
+                       pw_expand_bias=rng.integers(-300000, 300000, b.mid_channels
+                                                   ).astype(np.int32))
+              for b in q.blocks]
+    return QuantizedEtinyNet(
+        variant=q.variant, num_classes=q.num_classes, input_size=q.input_size,
+        conv_channels=q.conv_channels, final_channels=q.final_channels,
+        stem=QConv(weight=i8(*q.stem.weight.shape),
+                   bias=rng.integers(-2000, 2000, q.conv_channels).astype(np.int32)),
+        blocks=blocks,
+        classifier=QLinear(weight=i8(*q.classifier.weight.shape),
+                           bias=rng.integers(-30000, 30000, q.num_classes
+                                             ).astype(np.int32),
+                           scale=q.classifier.scale),
+    ).validate()
+
+
+def etiny_serve(errs: Errors, kp, sim, cfg, x: torch.Tensor, tag: str) -> None:
+    """One batch through the EtinyNet serving entry point, held to the sim."""
+    kw = dict(cfg=cfg, image_h=H, image_w=W)
+    got = ek.etiny_forward_kernel(kp, x, **kw)
+    errs.equal("etiny_block_kernel", f"{tag} etiny_forward_kernel vs sim", got,
+               etiny_engine_forward(sim, x, **kw))
+    check(got.shape == (x.shape[0], cfg.num_classes), "EtinyNet logits shape")
+
+
+def augment(errs: Errors, images: torch.Tensor, gen: torch.Generator) -> None:
+    """K4 and K5 on one batch, every case held to its plain version."""
+    b = images.shape[0]
+    draws = aug.draw_tier(gen, "heavy", b, H, W, "cuda")
+    eye = torch.eye(2).expand(b, 2, 2)
+    zero = torch.zeros((b, 2))
+
+    def maps(m, v):
+        return wk.pack_warp_params(*wk.warp_coefficients(
+            m.contiguous(), v.contiguous(), H, W)).cuda()
+
+    rot = aug.geom_rot90(torch.ones(b, dtype=torch.bool),
+                         torch.randint(0, 4, (b,), generator=gen))
+    flip = aug.geom_hflip(torch.rand(b, generator=gen) < 0.5)
+    cases = {
+        "heavy-tier maps (block 1)": draws.warp1,
+        "heavy-tier maps (block 2)": draws.warp2,
+        "rot90 maps": maps(*aug._mv_compose(flip, rot)),
+        "out-of-frame maps": maps(eye, zero + torch.tensor([70.0, -90.0])),
+    }
+    for name, params in cases.items():
+        got = wk.warp_bilinear(images, params)
+        errs.equal("warp_kernel", f"B={b} warp {name}", got,
+                   wk.warp_bilinear_reference(images, params))
+    check(torch.equal(got, torch.zeros_like(got)), "out-of-frame warp not zero")
+    rot_only = maps(*rot)
+    k = torch.randint(0, 4, (1,), generator=gen).item()
+    rot1 = maps(aug._ROT90[k].expand(b, 2, 2), zero)
+    check(torch.equal(wk.warp_bilinear(images, rot1),
+                      torch.rot90(images, k, (1, 2))),
+          "rot90 warp differs from torch.rot90")
+    errs.equal("warp_kernel", f"B={b} warp rot90-only", wk.warp_bilinear(
+        images, rot_only), wk.warp_bilinear_reference(images, rot_only))
+
+    noise = torch.randn(images.shape, generator=torch.Generator(
+        device="cuda").manual_seed(b), device="cuda")
+    for variant, (f, i) in (("medium", draws.photo1),
+                            ("heavy_extra", draws.photo2)):
+        on, off = f.clone(), f.clone()
+        on[:, GATES[variant]] = 1.0
+        off[:, GATES[variant]] = 0.0
+        for gates, fp in (("on", on), ("drawn", f), ("off", off)):
+            got = pk.photometric_block(images, noise, fp, i, variant=variant)
+            errs.equal("photometric_kernel", f"B={b} {variant} gates {gates}",
+                       got, pk.photometric_block_reference(
+                           images, noise, fp, i, variant=variant))
+        check(torch.equal(got, images), f"{variant} with every gate off "
+              "is not the identity")
+    torch.cuda.synchronize()
+
+
+def etiny_train(tmp: Path) -> dict:
+    """One epoch of train_model on the EtinyNet production config, counted
+    from here: returns what the phase checks and prints."""
+    cfg = load_config(ETINY_CONFIG)
+    cfg.dataset_name = "synthetic-hard"
+    cfg.synthetic_size = ETINY_TRAIN_SIZE
+    cfg.max_epochs = 1
+    cfg.log_dir = str(tmp / "logs")
+    os.environ["NV_SKIP_ENGINE"] = "1"
+    for module in (wk, pk, ek, ip, nk):
+        module.reset_launch_counts()
+    t0 = time.perf_counter()
+    check(train_model(cfg, "etinynet", device="cuda") == 0,
+          "train_model failed on the EtinyNet config")
+    seconds = time.perf_counter() - t0
+    launches = {**wk.LAUNCHES, **pk.LAUNCHES, **ek.LAUNCHES, **ip.LAUNCHES}
     metrics = next((tmp / "logs" / "runs").glob("*/metrics.jsonl"))
     records = [json.loads(line) for line in metrics.read_text().splitlines()]
     losses = [r["train/loss"] for r in records if "train/loss" in r]
@@ -531,6 +715,160 @@ def main() -> int:
         say("timing", f"train step (39-step fused chunk {run + 1}/2, batch 512): "
             f"{step_ms:.3f} ms/step ({512 / step_ms * 1e3:,.0f} img/s), host "
             f"clock, one sync, on {smi}")
+
+    # 13. etiny-serve — the EtinyNet serving path, counted from here to 16
+    rng = np.random.default_rng(SEED)
+    q0 = etinynet_quantize(etiny_model(rng))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "etinynet.etiny"
+        write_etiny(q0, path)
+        esize = path.stat().st_size
+        qe = read_etiny(path)
+    etiny_models = {"0.98M": qe, "stress": etiny_stress_model(rng, qe)}
+    etiny_params = {}
+    for tag, qm in etiny_models.items():
+        esim, ecfg = etiny_sim_params(qm, device="cuda")
+        etiny_params[tag] = (ek.etiny_kernel_params(esim, ecfg), esim, ecfg)
+    ek.reset_launch_counts()
+    for batch in ETINY_SERVE_BATCHES:
+        t0 = time.perf_counter()
+        x = normalize_images(torch.rand((batch, H, W, 3), generator=gen,
+                                        device="cuda")).contiguous()
+        for tag, (kp, esim, ecfg) in etiny_params.items():
+            etiny_serve(errs, kp, esim, ecfg, x * (4.0 if tag == "stress" else 1.0),
+                        f"{tag} B={batch}")
+        torch.cuda.synchronize()
+        say("etiny-serve", f"B={batch}: 0.98M model ({len(qe.blocks)} LB blocks "
+            f"via a {esize}-byte .etiny) and stress model: etiny_forward_kernel "
+            f"equal to the sim (tolerance: none, torch.equal) "
+            f"({time.perf_counter() - t0:.2f} s)")
+    serve_launches = dict(ek.LAUNCHES)
+    check(serve_launches["etiny_block_kernel"]
+          == 2 * len(ETINY_SERVE_BATCHES) * len(qe.blocks),
+          f"K6 launches {serve_launches} are not one per LB block and call")
+
+    # 14. augment
+    agen = torch.Generator().manual_seed(SEED)
+    for batch in AUGMENT_BATCHES:
+        images = torch.from_numpy(ds.images[:batch]).cuda()
+        augment(errs, images, agen)
+        say("augment", f"B={batch}: K4 on heavy-tier, rot90/flip and "
+            "out-of-frame maps, K5 medium and heavy_extra with gates on, "
+            "drawn and off, all equal to plain (tolerance: none, torch.equal)")
+
+    # 15. etiny-train — the EtinyNet training path, counted from here to its end
+    with tempfile.TemporaryDirectory() as tmp:
+        et = etiny_train(Path(tmp))
+        elosses = et["losses"]
+        steps = ETINY_TRAIN_SIZE // et["cfg"].batch_size
+        check(len(elosses) == steps and all(math.isfinite(v) for v in elosses),
+              f"expected {steps} finite losses, got {elosses}")
+        for name in ("warp_kernel", "photometric_kernel"):
+            check(et["launches"][name] == 2 * steps,
+                  f"{name} launched {et['launches'][name]} times, not twice "
+                  "per heavy-tier step")
+        epayload = load_checkpoint(et["ckpt"])
+    trained_e = etinynet_from_checkpoint(epayload, device="cuda")
+    check(trained_e.cfg.dtype == "bfloat16", "the checkpoint lost its dtype")
+    tsim_e, tcfg_e = etiny_sim_params(etinynet_quantize(trained_e), device="cuda")
+    tkp_e = ek.etiny_kernel_params(tsim_e, tcfg_e)
+    eval_val = GenericVisionDataset("synthetic-hard", split="test",
+                                    synthetic_size=ETINY_TRAIN_SIZE, seed=42)
+    hits = 0
+    for i in range(0, len(eval_val.labels), 1024):
+        x = normalize_images(torch.from_numpy(eval_val.images[i:i + 1024]).cuda())
+        got = ek.etiny_forward_kernel(tkp_e, x.contiguous(), cfg=tcfg_e,
+                                      image_h=H, image_w=W)
+        errs.equal("etiny_block_kernel", "trained EtinyNet logits vs sim", got,
+                   etiny_engine_forward(tsim_e, x, cfg=tcfg_e, image_h=H,
+                                        image_w=W))
+        hits += int((got.argmax(1).cpu().numpy()
+                     == eval_val.labels[i:i + 1024]).sum())
+    int8_acc = hits / len(eval_val.labels)
+    check(int8_acc == et["epoch"]["compiled/accuracy"],
+          f"K6 int8 val accuracy {int8_acc} differs from the loop's sim "
+          f"{et['epoch']['compiled/accuracy']}")
+    say("etiny-train", f"{ETINY_CONFIG} on {ETINY_TRAIN_SIZE} synthetic-hard "
+        f"images, 1 epoch of {len(elosses)} steps at batch "
+        f"{et['cfg'].batch_size} in {et['seconds']:.2f} s (train_model, data "
+        f"generation included); loss first {elosses[0]:.4f} last "
+        f"{elosses[-1]:.4f}; val acc {et['epoch']['val/accuracy']:.4f}; "
+        f"checkpoint int8 val accuracy through K6 {int8_acc:.4f} == sim")
+
+    # 16. launches
+    say("launches", "EtinyNet serving " + json.dumps(serve_launches)
+        + "; EtinyNet training " + json.dumps(et["launches"]))
+    launches["etiny_block_kernel"] = serve_launches["etiny_block_kernel"]
+    launches["warp_kernel"] = et["launches"]["warp_kernel"]
+    launches["photometric_kernel"] = et["launches"]["photometric_kernel"]
+
+    # 17. timing
+    tgen = torch.Generator().manual_seed(SEED + 2)
+    for batch in ETINY_TIMING_BATCHES:
+        images = torch.from_numpy(ds.images[:batch]).cuda()
+        draws = aug.draw_tier(tgen, "heavy", batch, H, W, "cuda")
+        noise = torch.randn(images.shape, device="cuda")
+        x = normalize_images(images).contiguous()
+        kp, esim, ecfg = etiny_params["0.98M"]
+        ekw = dict(cfg=ecfg, image_h=H, image_w=W)
+        rows = {
+            "warp_kernel": time_pair(
+                lambda: wk.warp_bilinear(images, draws.warp1),
+                lambda: wk.warp_bilinear_reference(images, draws.warp1)),
+            "photometric_kernel": time_pair(
+                lambda: pk.photometric_block(images, noise, *draws.photo1,
+                                             variant="medium"),
+                lambda: pk.photometric_block_reference(
+                    images, noise, *draws.photo1, variant="medium")),
+            "photometric_kernel heavy_extra": time_pair(
+                lambda: pk.photometric_block(images, noise, *draws.photo2,
+                                             variant="heavy_extra"),
+                lambda: pk.photometric_block_reference(
+                    images, noise, *draws.photo2, variant="heavy_extra")),
+            "etiny_block_kernel": time_pair(
+                lambda: ek.etiny_forward_kernel(kp, x, **ekw),
+                lambda: etiny_engine_forward(esim, x, **ekw)),
+        }
+        block_inputs = [etiny_stem(kp, x, ecfg).to(torch.int8)]
+        for blk, bs in zip(kp["blocks"], ecfg.blocks):
+            block_inputs.append(ek.lb_block(block_inputs[-1], blk, bs))
+        blocks = list(zip(block_inputs, kp["blocks"], ecfg.blocks))
+        rows["etiny_block_kernel, the LB blocks alone"] = time_pair(
+            lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in blocks],
+            lambda: [ek.lb_block_reference(a, blk, bs) for a, blk, bs in blocks])
+        for name, (k, p) in rows.items():
+            what = ("the whole int8 forward (12 K6 launches + plain stem/tail) "
+                    "vs the sim" if name == "etiny_block_kernel" else name)
+            say("timing", f"B={batch} {what}: kernel {k:.4f} ms "
+                f"({batch / k * 1e3:,.0f} img/s), plain {p:.4f} ms "
+                f"({batch / p * 1e3:,.0f} img/s) on {smi}")
+        if batch == 1024:
+            for name in ("warp_kernel", "photometric_kernel"):
+                ms[name] = rows[name]
+        else:
+            ms["etiny_block_kernel"] = rows["etiny_block_kernel"]
+    ecfg_t = et["cfg"]
+    eopt = create_optimizer(ecfg_t, steps)
+    estate = make_train_state(trained_e, eopt)
+    eimages = torch.from_numpy(ds.images).cuda()
+    elabels = torch.from_numpy(ds.labels).cuda()
+    noise_gen = aug.device_generator(tgen, "cuda")
+    erng = np.random.default_rng(SEED)
+    for run in range(2):
+        idx = erng.integers(0, len(ds.labels), (steps, ecfg_t.batch_size))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_losses = torch.stack([
+            gathered_train_step(estate, eimages, elabels, i, tgen, optimizer=eopt,
+                                strength="heavy", noise_gen=noise_gen)["loss"]
+            for i in idx])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
+        check(bool(torch.isfinite(step_losses).all()), "non-finite timing losses")
+        say("timing", f"EtinyNet train step ({steps} steps, run {run + 1}/2, "
+            f"batch {ecfg_t.batch_size}, bf16, heavy tier): {step_ms:.3f} ms/step "
+            f"({ecfg_t.batch_size / step_ms * 1e3:,.0f} img/s), host clock, one "
+            f"sync, on {smi}")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

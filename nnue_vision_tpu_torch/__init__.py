@@ -1,8 +1,8 @@
 """nnue_vision_tpu_torch — the PyTorch + CUDA port of `nnue_vision_tpu`.
 
 The JAX package beside it is the reference this port is held against; the
-port imports `torch` and never `jax`. What is ported so far is the int8
-serving path:
+port imports `torch` and never `jax`. Ported so far: int8 serving and
+training of both model families (NNUE and EtinyNet) on one device:
 
 * `ops/engine_sim.py`: the bit-exact NNUE int8 engine simulation in plain
   torch — the oracle and the CPU path.
@@ -14,8 +14,15 @@ serving path:
   the shared `.nnue` format; `bridge.py` moves params to and from the JAX
   package's numpy layout.
 * `training/evaluate.py`: `evaluate_int8_sim` over any of the three backends.
+* `models/etinynet.py`, `ops/etiny_kernels.py` (`csrc/etiny_block.cu`, one
+  LB block per launch) and the EtinyNet half of `ops/engine_sim.py`.
+* `data/augment.py` (three tiers), with the warp (`ops/warp_kernel.py`,
+  `csrc/warp.cu`) and photometric (`ops/photometric_kernel.py`,
+  `csrc/photometric.cu`) kernels of the medium and heavy tiers, the light
+  tier's fused input kernel (`ops/input_pipeline.py`), and `training/`
+  with `train_model` and its CLI, `python -m nnue_vision_tpu_torch.train`.
 
-The `.nnue` reader/writer and the `QuantizedNNUE` record are the
+The `.nnue` / `.etiny` readers and writers and their records are the
 framework-free `nnue_vision_tpu.formats`, shared by both packages.
 """
 
@@ -24,8 +31,12 @@ __version__ = "0.1.0"
 from nnue_vision_tpu.formats import (  # noqa: F401
     QConv,
     QFeatureTransformer,
+    QLBBlock,
     QLinear,
+    QuantizedEtinyNet,
     QuantizedNNUE,
+    read_etiny,
     read_nnue,
+    write_etiny,
     write_nnue,
 )

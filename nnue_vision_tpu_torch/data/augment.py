@@ -1,5 +1,5 @@
-"""Input normalization and the light augmentation tier (port of
-`nnue_vision_tpu/data/augment.py:40-60, 487-498, 609-670, 741-751`).
+"""Input normalization and the three augmentation tiers (port of
+`nnue_vision_tpu/data/augment.py:40-60, 97-181, 382-466, 487-751`).
 
 Images are float32 [0, 1] NHWC on any device. Per-sample random draws are
 made on the host from a CPU `torch.Generator` and moved to the images'
@@ -7,18 +7,50 @@ device, so a seed gives the same augmentation on the CPU and on the card.
 The streams differ from `jax.random`'s: tests feed both packages the same
 drawn parameters, and check the draws' distributions.
 
-The medium and heavy tiers (composed warps on K4, the photometric chain on
-K5) come with the EtinyNet slice (ROADMAP Queue A item 5).
+Light: hflip (p .5), brightness/contrast ±0.1 (p .2), one 5% cutout (p .2).
+
+Medium and heavy: the geometric ops (flip, rot90, rotate, affine) each
+draw their gate and parameters and compose, per sample, into one inverse
+map (M, v) per block (`_mv_compose`, `_mv_where`), realized by one warp
+(K4, `ops/warp_kernel.py`); then the block's gated photometric chain runs
+as one K5 launch (`ops/photometric_kernel.py`). The heavy tier's second
+block (its own geometry, one more warp, then `heavy_extra`) runs after the
+medium photometric block, the reference op order. Every photometric op is
+a draw helper (`_*_draw`) and an apply step (`ops/photometric_kernel.py`),
+drawn in the JAX package's order. The draws of a step are packed on the
+host into one int32 buffer (float fields bit-cast) and uploaded once
+(`draw_tier`); the two full-batch unit-normal noise tensors are drawn on
+the images' device from a generator of that device, seeded once from the
+host generator (`device_generator`).
+
+The tensor's device picks the realization: the kernels on a CUDA tensor,
+their plain versions on a CPU one.
 """
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple, Optional, Tuple
+
 import torch
+
+from nnue_vision_tpu_torch.ops.photometric_kernel import (
+    apply_brightness_contrast,
+    apply_cutout,
+    photometric_block,
+)
+from nnue_vision_tpu_torch.ops.warp_kernel import (
+    pack_warp_params,
+    warp_bilinear,
+    warp_coefficients,
+)
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 STRENGTHS = ("light", "medium", "heavy")
+
+MV = Tuple[torch.Tensor, torch.Tensor]  # (M (B, 2, 2), v (B, 2)) float32
 
 
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
@@ -33,8 +65,20 @@ def uniform(gen: torch.Generator, shape, lo: float = 0.0, hi: float = 1.0):
     return torch.rand(shape, generator=gen) * (hi - lo) + lo
 
 
+def device_generator(gen: torch.Generator, device) -> torch.Generator:
+    """A generator on `device`, seeded by one draw from the host `gen`:
+    the noise tensors are drawn where the images are."""
+    seed = int(torch.randint(0, 2**62, (), generator=gen))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _bernoulli(gen, p, b):
     return uniform(gen, (b, 1, 1, 1)) < p
+
+
+# ---------------------------------------------------------------------------
+# photometric draws, each the JAX helper's draws in its order
+# ---------------------------------------------------------------------------
 
 
 def _bc_draw(gen, b, p, limit):
@@ -44,9 +88,19 @@ def _bc_draw(gen, b, p, limit):
     return apply, bright, contr
 
 
-def apply_brightness_contrast(x, apply, bright, contr):
-    out = torch.clamp((x - 0.5) * contr + 0.5 + bright, 0.0, 1.0)
-    return torch.where(apply, out, x)
+def _hsv_draw(gen, b, p, hue_lim, sat_lim, val_lim):
+    apply = _bernoulli(gen, p, b)
+    hue = uniform(gen, (b, 1, 1, 1), -hue_lim, hue_lim)
+    sat = 1.0 + uniform(gen, (b, 1, 1, 1), -sat_lim, sat_lim)
+    val = 1.0 + uniform(gen, (b, 1, 1, 1), -val_lim, val_lim)
+    return apply, hue, sat, val
+
+
+def _noise_draw(gen, b, p, sigma_range):
+    """Gate and sigma; the unit-normal tensor is drawn on the device."""
+    apply = _bernoulli(gen, p, b)
+    sigma = uniform(gen, (b, 1, 1, 1), *sigma_range)
+    return apply, sigma
 
 
 def _cutout_draw(gen, b, h, w, p, size_range):
@@ -59,44 +113,257 @@ def _cutout_draw(gen, b, h, w, p, size_range):
     return apply, y0, hh, x0, ww
 
 
-def apply_cutout(x, apply, y0, hh, x0, ww):
-    _, h, w, _ = x.shape
-    yy = torch.arange(h, device=x.device)[None, :, None]
-    xx = torch.arange(w, device=x.device)[None, None, :]
-    hole = (
-        (yy >= y0[:, None, None]) & (yy < (y0 + hh)[:, None, None])
-        & (xx >= x0[:, None, None]) & (xx < (x0 + ww)[:, None, None])
-    )[..., None]
-    return torch.where(apply & hole, 0.0, x)
+def _shadow_draw(gen, b, p):
+    apply = _bernoulli(gen, p, b)
+    theta = uniform(gen, (b, 1, 1), 0.0, 2 * math.pi)
+    offset = uniform(gen, (b, 1, 1), -0.3, 0.3)
+    dark = uniform(gen, (b, 1, 1, 1), 0.4, 0.7)
+    return apply, theta, offset, dark
 
 
-def augment_batch(gen: torch.Generator, images: torch.Tensor,
-                  strength: str = "medium") -> torch.Tensor:
-    """One augmentation tier on a float [0,1] NHWC batch. Light: hflip
-    (p .5), brightness/contrast ±0.1 (p .2), one cutout hole of 5% (p .2)."""
-    if strength not in STRENGTHS:
-        raise ValueError(f"strength must be one of {STRENGTHS}")
-    if strength != "light":
-        raise NotImplementedError(
-            f"the {strength!r} augmentation tier is not ported yet; it comes "
-            "with the EtinyNet slice (ROADMAP Queue A item 5)"
-        )
-    x = images
+def _fog_draw(gen, b, p):
+    apply = _bernoulli(gen, p, b)
+    amount = uniform(gen, (b, 1, 1, 1), 0.1, 0.4)
+    return apply, amount
+
+
+def _cols(*values) -> torch.Tensor:
+    """(B, k) float32 from per-sample draws of any (B, ...) shape."""
+    return torch.stack([v.reshape(v.shape[0]).to(torch.float32)
+                        for v in values], dim=1)
+
+
+def draw_medium_photometric(gen, b, h, w):
+    """fparams (B, 24), iparams (B, 4) of the medium block, in the kernel's
+    layout (JAX `_photometric_medium_fused`)."""
+    bc = _bc_draw(gen, b, 0.3, 0.2)
+    h1 = _hsv_draw(gen, b, 0.3, 10 / 255.0, 0.15, 10 / 255.0)
+    bl = _bernoulli(gen, 0.2, b)
+    nz = _noise_draw(gen, b, 0.2, (0.01, 0.05))
+    ct_a, y0, hh, x0, ww = _cutout_draw(gen, b, h, w, 0.3, (0.05, 0.15))
+    h2 = _hsv_draw(gen, b, 0.2, 8 / 255.0, 0.1, 8 / 255.0)
+    sh_a, theta, offset, dark = _shadow_draw(gen, b, 0.1)
+    fog = _fog_draw(gen, b, 0.1)
+    po = _bernoulli(gen, 0.1, b)
+    eq = _bernoulli(gen, 0.1, b)
+    fparams = _cols(*bc, *h1, bl, *nz, ct_a, *h2, sh_a, torch.cos(theta),
+                    torch.sin(theta), offset, dark, *fog, po, eq)
+    iparams = torch.stack([y0, hh, x0, ww], dim=1).to(torch.int32)
+    return fparams, iparams
+
+
+def draw_heavy_photometric(gen, b, h, w):
+    """fparams (B, 12), iparams (B, 8) of the heavy-extra block (JAX
+    `_photometric_heavy_fused`)."""
+    bc = _bc_draw(gen, b, 0.2, 0.3)
+    hv = _hsv_draw(gen, b, 0.2, 15 / 255.0, 0.2, 15 / 255.0)
+    bl = _bernoulli(gen, 0.2, b)
+    nz = _noise_draw(gen, b, 0.2, (0.05, 0.1))
+    c1_a, *rect1 = _cutout_draw(gen, b, h, w, 0.2, (0.1, 0.25))
+    c2_a, *rect2 = _cutout_draw(gen, b, h, w, 0.2, (0.1, 0.25))
+    fparams = _cols(*bc, *hv, bl, *nz, c1_a, c2_a)
+    iparams = torch.stack([*rect1, *rect2], dim=1).to(torch.int32)
+    return fparams, iparams
+
+
+# ---------------------------------------------------------------------------
+# composed geometry: per-sample inverse maps src = M·dst_c + v
+# ---------------------------------------------------------------------------
+
+
+def _mv_identity(b: int) -> MV:
+    return torch.eye(2).repeat(b, 1, 1), torch.zeros((b, 2))
+
+
+def _mv_compose(mv_prev: MV, mv_new: MV) -> MV:
+    """The transform applied after the existing chain: the overall inverse
+    map becomes prev ∘ new (sample through the newest op first)."""
+    m1, v1 = mv_prev
+    m2, v2 = mv_new
+    return m1 @ m2, (m1 @ v2[:, :, None])[:, :, 0] + v1
+
+
+def _mv_where(apply: torch.Tensor, mv: MV) -> MV:
+    """Gate a transform by a per-sample boolean (identity when off)."""
+    m, v = mv
+    mi, vi = _mv_identity(m.shape[0])
+    a = apply.reshape(-1, 1, 1)
+    return torch.where(a, m, mi), torch.where(a[:, :, 0], v, vi)
+
+
+def geom_hflip(apply: torch.Tensor) -> MV:
+    b = apply.shape[0]
+    m = torch.tensor([[1.0, 0.0], [0.0, -1.0]]).repeat(b, 1, 1)
+    return _mv_where(apply, (m, torch.zeros((b, 2))))
+
+
+_ROT90 = torch.tensor([
+    [[1.0, 0.0], [0.0, 1.0]],
+    [[0.0, 1.0], [-1.0, 0.0]],
+    [[-1.0, 0.0], [0.0, -1.0]],
+    [[0.0, -1.0], [1.0, 0.0]],
+])
+
+
+def geom_rot90(apply: torch.Tensor, choice: torch.Tensor) -> MV:
+    """Exact 0/90/180/270° rotations (integer entries, so the warp lands
+    on grid points for square images)."""
+    b = apply.shape[0]
+    return _mv_where(apply, (_ROT90[choice], torch.zeros((b, 2))))
+
+
+def geom_affine(apply, deg, tx, ty, sc) -> MV:
+    """Rotation by `deg`, translation (ty, tx) pixels, isotropic scale `sc`
+    as the inverse map src_c = R(-θ)/s · (dst_c - t)."""
+    theta = deg * (math.pi / 180.0)
+    cos = torch.cos(theta) / sc
+    sin = torch.sin(theta) / sc
+    m = torch.stack([torch.stack([cos, sin], -1),
+                     torch.stack([-sin, cos], -1)], dim=1)
+    t = torch.stack([ty, tx], dim=-1)
+    v = -(m @ t[:, :, None])[:, :, 0]
+    return _mv_where(apply, (m, v))
+
+
+def _geom_hflip_draw(gen, b, p):
+    return geom_hflip(uniform(gen, (b,)) < p)
+
+
+def _geom_rot90_draw(gen, b, p):
+    apply = uniform(gen, (b,)) < p
+    return geom_rot90(apply, torch.randint(0, 4, (b,), generator=gen))
+
+
+def _geom_affine_draw(gen, b, p, max_deg, max_translate, scale_range, h, w):
+    apply = uniform(gen, (b,)) < p
+    deg = uniform(gen, (b,), -max_deg, max_deg)
+    tx = uniform(gen, (b,), -max_translate, max_translate) * w
+    ty = uniform(gen, (b,), -max_translate, max_translate) * h
+    sc = uniform(gen, (b,), *scale_range)
+    return geom_affine(apply, deg, tx, ty, sc)
+
+
+def draw_medium_geometry(gen, b, h, w) -> MV:
+    """hflip (.5) → rot90 (.5) → rotate ±15° (.3) → affine ±15°, ±10%,
+    0.9–1.1 (.3), composed."""
+    mv = _geom_hflip_draw(gen, b, 0.5)
+    mv = _mv_compose(mv, _geom_rot90_draw(gen, b, 0.5))
+    mv = _mv_compose(mv, _geom_affine_draw(gen, b, 0.3, 15.0, 0.0,
+                                           (1.0, 1.0001), h, w))
+    return _mv_compose(mv, _geom_affine_draw(gen, b, 0.3, 15.0, 0.1,
+                                             (0.9, 1.1), h, w))
+
+
+def draw_heavy_geometry(gen, b, h, w) -> MV:
+    """hflip (.1) → rot90 (.1) → rotate ±25° (.2) → affine ±25°, ±15%,
+    0.85–1.15 (.2), composed."""
+    mv = _geom_hflip_draw(gen, b, 0.1)
+    mv = _mv_compose(mv, _geom_rot90_draw(gen, b, 0.1))
+    mv = _mv_compose(mv, _geom_affine_draw(gen, b, 0.2, 25.0, 0.0,
+                                           (1.0, 1.0001), h, w))
+    return _mv_compose(mv, _geom_affine_draw(gen, b, 0.2, 25.0, 0.15,
+                                             (0.85, 1.15), h, w))
+
+
+# ---------------------------------------------------------------------------
+# the tiers
+# ---------------------------------------------------------------------------
+
+
+class TierDraws(NamedTuple):
+    """One step's medium/heavy draws on the images' device: the warp params
+    (B, 8) and photometric (fparams, iparams) of each block, views into one
+    uploaded buffer."""
+    warp1: torch.Tensor
+    photo1: Tuple[torch.Tensor, torch.Tensor]
+    warp2: Optional[torch.Tensor]
+    photo2: Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _warp_params(mv: MV, h: int, w: int) -> torch.Tensor:
+    return pack_warp_params(*warp_coefficients(mv[0], mv[1], h, w))
+
+
+def draw_tier(gen: torch.Generator, strength: str, b: int, h: int, w: int,
+              device) -> TierDraws:
+    """All of a medium or heavy step's per-sample draws, in the JAX
+    package's order (medium geometry, medium photometric, heavy geometry,
+    heavy photometric), packed on the host into one int32 buffer (float
+    fields bit-cast) and uploaded once."""
+    fields = [_warp_params(draw_medium_geometry(gen, b, h, w), h, w),
+              *draw_medium_photometric(gen, b, h, w)]
+    if strength == "heavy":
+        fields += [_warp_params(draw_heavy_geometry(gen, b, h, w), h, w),
+                   *draw_heavy_photometric(gen, b, h, w)]
+    flat = torch.cat([f.reshape(-1).view(torch.int32) if f.is_floating_point()
+                      else f.reshape(-1) for f in fields])
+    buf = flat.to(device)
+    views, pos = [], 0
+    for f in fields:
+        view = buf[pos:pos + f.numel()]
+        if f.is_floating_point():
+            view = view.view(torch.float32)
+        views.append(view.view(f.shape))
+        pos += f.numel()
+    if strength == "heavy":
+        return TierDraws(views[0], (views[1], views[2]), views[3],
+                         (views[4], views[5]))
+    return TierDraws(views[0], (views[1], views[2]), None, None)
+
+
+def _noise(x: torch.Tensor, noise_gen: torch.Generator) -> torch.Tensor:
+    return torch.randn(x.shape, generator=noise_gen, device=x.device,
+                       dtype=torch.float32)
+
+
+def apply_tier(x: torch.Tensor, draws: TierDraws,
+               noise_gen: torch.Generator) -> torch.Tensor:
+    """Warp (K4) → medium photometric block (K5), then for heavy a second
+    warp → heavy_extra block, with the two noise tensors drawn from
+    `noise_gen` on x's device."""
+    x = warp_bilinear(x, draws.warp1)
+    x = photometric_block(x, _noise(x, noise_gen), *draws.photo1,
+                          variant="medium")
+    if draws.warp2 is not None:
+        x = warp_bilinear(x, draws.warp2)
+        x = photometric_block(x, _noise(x, noise_gen), *draws.photo2,
+                              variant="heavy_extra")
+    return x
+
+
+def _light(gen: torch.Generator, x: torch.Tensor) -> torch.Tensor:
     b, h, w, _ = x.shape
     dev = x.device
     flip = _bernoulli(gen, 0.5, b).to(dev)
     x = torch.where(flip, x.flip(2), x)
     x = apply_brightness_contrast(
         x, *(t.to(dev) for t in _bc_draw(gen, b, 0.2, 0.1)))
-    x = apply_cutout(
+    return apply_cutout(
         x, *(t.to(dev) for t in _cutout_draw(gen, b, h, w, 0.2, (0.05, 0.051))))
-    return x
+
+
+def augment_batch(gen: torch.Generator, images: torch.Tensor,
+                  strength: str = "medium",
+                  noise_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One augmentation tier on a float [0,1] NHWC batch. The medium and
+    heavy tiers draw their noise from `noise_gen`, a generator on the
+    images' device (default: one made from `gen` for this call)."""
+    if strength not in STRENGTHS:
+        raise ValueError(f"strength must be one of {STRENGTHS}")
+    if strength == "light":
+        return _light(gen, images)
+    b, h, w, _ = images.shape
+    draws = draw_tier(gen, strength, b, h, w, images.device)
+    if noise_gen is None:
+        noise_gen = device_generator(gen, images.device)
+    return apply_tier(images.to(torch.float32), draws, noise_gen)
 
 
 def preprocess_batch(gen: torch.Generator, images: torch.Tensor,
-                     strength: str = "medium", augment: bool = True
+                     strength: str = "medium", augment: bool = True,
+                     noise_gen: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
     """augment (train only) → normalize, the device-side entry point of the
     train and eval loops."""
-    x = augment_batch(gen, images, strength) if augment else images
+    x = augment_batch(gen, images, strength, noise_gen) if augment else images
     return normalize_images(x)

@@ -1,10 +1,11 @@
-"""Bit-exact torch simulation of the int8 C++ inference engine (NNUE).
+"""Bit-exact torch simulation of the int8 C++ inference engine.
 
-Port of `nnue_vision_tpu/ops/engine_sim.py` (NNUE half). Given the arrays a
-`.nnue` file carries and a float image batch, `nnue_engine_forward` gives
-the logits and active-feature counts of the C++ `nnue_inference` binary, bit
-for bit. It is the plain oracle the Hopper kernels of `nnue_kernels.py` are
-held against, and the path a CPU tensor takes.
+Port of `nnue_vision_tpu/ops/engine_sim.py`. Given the arrays a `.nnue` or
+`.etiny` file carries and a float image batch, `nnue_engine_forward` gives
+the logits and active-feature counts of the C++ `nnue_inference` binary,
+and `etiny_engine_forward` the logits of `etinynet_inference`, bit for bit.
+They are the plain oracles the Hopper kernels of `nnue_kernels.py` and
+`etiny_kernels.py` are held against, and the paths a CPU tensor takes.
 
 The integer contract is the JAX module's (see its docstring for the engine
 citations): `int32(x * 64.0f)` input quantization, int32 conv accumulation
@@ -32,7 +33,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from nnue_vision_tpu.formats import QuantizedNNUE
+from nnue_vision_tpu.formats import QuantizedEtinyNet, QuantizedNNUE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,3 +271,161 @@ def nnue_engine_forward(
     buf = nnue_conv_buffer(params, images, cfg=cfg, image_h=image_h)
     logits, count = nnue_tail(params, buf, params["visual_threshold"], cfg)
     return logits, density_of(count, cfg.num_features), count
+
+
+# ---------------------------------------------------------------------------
+# EtinyNet
+# ---------------------------------------------------------------------------
+#
+# The engine's EtinyNetEvaluator (nnue_engine.cpp:1318-1419, the JAX sim's
+# `etiny_engine_forward`): stem conv on the raw float image at stride 2,
+# the LB chain with truncating requantization and ReLU6 as clamp[0, 6], an
+# integer global mean, a float classifier output. Every stage here is int64
+# (convs and matmuls as float64 products of integer-valued operands, exact
+# below 2^53), so the sim is exact for any model the format admits; the JAX
+# sim computes in integer-valued float32 and is exact within the engine's
+# value bounds.
+
+
+@dataclasses.dataclass(frozen=True)
+class EtinyBlockCfg:
+    stride: int
+    s_expand: int
+    s_dw: int
+    s_project: int
+    is_dense: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class EtinySimCfg:
+    stem_scale: int
+    cls_scale: float
+    num_classes: int
+    blocks: Tuple[EtinyBlockCfg, ...]
+
+
+def _check_pow2(scale: float, what: str) -> int:
+    """The JAX package's precondition: every requantization scale is a
+    power of two (both serializers emit only 64 and 4)."""
+    s = int(scale)
+    if s <= 0 or (s & (s - 1)) != 0:
+        raise ValueError(f"{what} scale {scale} is not a power of two; "
+                         "the bit-exact TPU fast path requires pow2 scales")
+    return s
+
+
+def etiny_sim_params(
+    q: QuantizedEtinyNet, device="cpu"
+) -> Tuple[Dict, EtinySimCfg]:
+    """Tensors on `device` + static config for `etiny_engine_forward`.
+
+    Weights keep the `.etiny` integer layouts: stem (C, 3, 3, 3) OIHW,
+    per block `pw_expand_w` (mid, in), `pw_expand_b` (mid,), `dw_w`
+    (mid, 3, 3), `pw_project_w` (out, mid), the classifier (classes, C)."""
+    def t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype).to(device).contiguous()
+
+    blocks, block_cfgs = [], []
+    for blk in q.blocks:
+        blocks.append({
+            "pw_expand_w": t(blk.pw_expand, torch.int8),
+            "pw_expand_b": t(blk.pw_expand_bias, torch.int32),
+            "dw_w": t(blk.dw, torch.int8),
+            "pw_project_w": t(blk.pw_project, torch.int8),
+        })
+        block_cfgs.append(EtinyBlockCfg(
+            stride=int(blk.stride),
+            s_expand=_check_pow2(blk.pw_expand_scale, "pw_expand"),
+            s_dw=_check_pow2(blk.dw_scale, "dw"),
+            s_project=_check_pow2(blk.pw_project_scale, "pw_project"),
+            is_dense=bool(blk.is_dense),
+        ))
+    params = {
+        "stem_w": t(q.stem.weight, torch.int32),
+        "stem_b": t(q.stem.bias, torch.int32),
+        "blocks": blocks,
+        "cls_w": t(q.classifier.weight, torch.int8),
+        "cls_b": t(q.classifier.bias, torch.int32),
+    }
+    cfg = EtinySimCfg(
+        stem_scale=_check_pow2(q.stem.scale, "stem"),
+        cls_scale=float(q.classifier.scale),
+        num_classes=q.num_classes,
+        blocks=tuple(block_cfgs),
+    )
+    return params, cfg
+
+
+def etiny_stem(params: Dict, images: torch.Tensor, cfg: EtinySimCfg
+               ) -> torch.Tensor:
+    """Stem conv (cpp:1341-1351): `int32(x·scale)`, 3×3 pad-1 stride 2,
+    + bias, truncating /scale, clamp ±127. (B, H, W, 3) float32 →
+    (B, oh, ow, C) int64."""
+    qin = _quantize_input(images, cfg.stem_scale)
+    acc = _int_conv3x3(qin, params["stem_w"], params["stem_b"], 2)
+    return torch.clamp(_tdiv(acc, cfg.stem_scale), -127, 127)
+
+
+def lb_block_plain(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg
+                   ) -> torch.Tensor:
+    """One LB block (cpp:906-973) at its stride: pw-expand + bias,
+    truncating /s_expand, clamp [0, 6] → depthwise 3×3 pad 1, /s_dw, clamp
+    [0, 6] → pw-project, /s_project, clamp ±127. (B, H, W, Cin) integers →
+    (B, oh, ow, Cout) int64."""
+    b, h, w, _ = x.shape
+    s = bs.stride
+    acc = _dot(x, blk["pw_expand_w"].T) + blk["pw_expand_b"].to(torch.int64)
+    hid = torch.clamp(_tdiv(acc, bs.s_expand), 0, 6)
+    oh, ow = conv_out_hw(h, w, s)
+    pad = torch.nn.functional.pad(hid, (0, 0, 1, 1, 1, 1))
+    dw = blk["dw_w"].to(torch.int64)
+    acc = torch.zeros((b, oh, ow, hid.shape[3]), dtype=torch.int64,
+                      device=x.device)
+    for kh in range(3):
+        for kw in range(3):
+            acc += pad[:, kh:kh + (oh - 1) * s + 1:s,
+                       kw:kw + (ow - 1) * s + 1:s] * dw[:, kh, kw]
+    hid = torch.clamp(_tdiv(acc, bs.s_dw), 0, 6)
+    acc = _dot(hid, blk["pw_project_w"].T)
+    return torch.clamp(_tdiv(acc, bs.s_project), -127, 127)
+
+
+def etiny_tail(params: Dict, x: torch.Tensor, cfg: EtinySimCfg
+               ) -> torch.Tensor:
+    """Global average pool (int sum, truncating /(H·W), clamp ±127;
+    cpp:1452-1463) and the classifier's float output acc / scale
+    (cpp:1028-1040). (B, H, W, C) integers → logits (B, classes) float32."""
+    hw = x.shape[1] * x.shape[2]
+    pooled = torch.clamp(_tdiv(x.to(torch.int64).sum(dim=(1, 2)), hw),
+                         -127, 127)
+    out = _dot(pooled, params["cls_w"].T) + params["cls_b"].to(torch.int64)
+    scale = torch.full((), cfg.cls_scale, dtype=torch.float32,
+                       device=out.device)
+    return out.to(torch.float32) / scale
+
+
+def etiny_engine_forward(
+    params: Dict, images: torch.Tensor, *, cfg: EtinySimCfg, image_h: int,
+    image_w: int,
+) -> torch.Tensor:
+    """Bit-exact EtinyNet int8 inference for a batch.
+
+    images: (B, H, W, 3) float32 NHWC, normalized. Returns logits
+    (B, num_classes) float32, identical to the `etinynet_inference` CLI's
+    RESULT lines. Dense blocks reproduce the engine's dim-preservation
+    quirk (cpp:1381-1397): the evaluator assumes a dense block keeps its
+    input's spatial dims, so a stride-2 dense block's real output lands
+    flat at the front of a zero-filled (in_h, in_w) buffer; the identity
+    at stride 1."""
+    del image_h, image_w  # read from the images, as in the JAX sim
+    x = etiny_stem(params, images, cfg)
+    for blk, bs in zip(params["blocks"], cfg.blocks):
+        b, in_h, in_w, _ = x.shape
+        x = lb_block_plain(x, blk, bs)
+        if bs.is_dense:
+            out_c = x.shape[3]
+            flat = x.reshape(b, -1)
+            x = torch.nn.functional.pad(
+                flat, (0, in_h * in_w * out_c - flat.shape[1])
+            ).reshape(b, in_h, in_w, out_c)
+    return etiny_tail(params, x, cfg)

@@ -1,0 +1,159 @@
+"""The composed-geometry bilinear warp of the medium and heavy augmentation
+tiers as one Hopper kernel per batch (K4).
+
+Port of `nnue_vision_tpu/ops/warp_kernel.py:46-195`. A per-sample inverse
+map src = M·dst_c + v (centered pixel coordinates) is factored on the host
+by `warp_coefficients` into an optional axis swap and two linear resample
+passes (Catmull–Smith): pass 1 along x, pass 2 along y on the transposed
+intermediate. The TPU ran each pass as a `lerp_pass` kernel with XLA
+transposes around them; `warp_kernel` (`csrc/warp.cu`) runs the swap, both
+passes and the transpose for one image in shared memory, in one launch,
+bit for bit equal to `warp_bilinear_reference`, the two passes in eager
+torch.
+
+The parameters travel as one (B, 8) float32 tensor per warp,
+`[swap, k1_row, k1_lane, k1_c, k2_row, k2_lane, k2_c, 0]`
+(`pack_warp_params`), so a step uploads them with the rest of its draws.
+Square images only: the swap is a transpose, undefined otherwise (the JAX
+package takes its gather path there; no shipped config is non-square).
+
+`warp_bilinear` dispatches on the device of the images: a CPU tensor takes
+the plain version, a CUDA tensor the kernel, which launches or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+# Launches since the last reset_launch_counts(); the wrapper adds one where
+# it launches the kernel, and nowhere else.
+LAUNCHES = {"warp_kernel": 0}
+PARAMS = 8
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def warp_coefficients(m: torch.Tensor, v: torch.Tensor, h: int, w: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Factor per-sample inverse maps m (B, 2, 2), v (B, 2) float32 into
+    (swap (B,) bool, coef1 (B, 3), coef2 (B, 3)) with the JAX package's
+    float32 expressions (warp_kernel.py:125-163): the axis swap where the
+    off-diagonal mass dominates, then pass 1 q = coef1·[yi, xo, 1] (along
+    x, extent W) and pass 2 p = coef2·[xo, yo, 1] (along y, extent H)."""
+    swap = (m[:, 0, 0].abs() + m[:, 1, 1].abs()) < (
+        m[:, 0, 1].abs() + m[:, 1, 0].abs())
+    ms = torch.where(swap[:, None, None], m.flip(1), m)
+    vs = torch.where(swap[:, None], v.flip(1), v)
+    a, bb, cc, d = ms[:, 0, 0], ms[:, 0, 1], ms[:, 1, 0], ms[:, 1, 1]
+    e, f = vs[:, 0], vs[:, 1]
+    a = torch.where(a.abs() < 1e-3,
+                    torch.where(a < 0, -1e-3, 1e-3).to(a.dtype), a)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    r = cc / a
+    q_lane = d - r * bb
+    q_c = (f - r * e) + cx - r * cy - q_lane * cx
+    p_c = e + cy - a * cy - bb * cx
+    coef1 = torch.stack([r, q_lane, q_c], dim=-1).to(torch.float32)
+    coef2 = torch.stack([bb, a, p_c], dim=-1).to(torch.float32)
+    return swap, coef1, coef2
+
+
+def pack_warp_params(swap: torch.Tensor, coef1: torch.Tensor,
+                     coef2: torch.Tensor) -> torch.Tensor:
+    """(B, 8) float32 [swap, coef1, coef2, 0], the kernel's layout."""
+    zero = torch.zeros_like(coef1[:, :1])
+    return torch.cat([swap.to(torch.float32)[:, None], coef1, coef2, zero],
+                     dim=1).contiguous()
+
+
+def lerp_pass_reference(x: torch.Tensor, coef: torch.Tensor, *, n: int,
+                        c: int) -> torch.Tensor:
+    """The TPU's `lerp_pass` in eager torch: x (B, R, N·C), coef (B, 3)
+    [k_row, k_lane, k_c]; lane l = x·C + ch reads row positions
+    pos = k_row·r + k_lane·x + k_c, zero outside [0, n)."""
+    b, r_dim, lanes = x.shape
+    dev = x.device
+    rows = torch.arange(r_dim, device=dev, dtype=torch.float32)[None, :, None]
+    lane = torch.arange(lanes, device=dev)
+    xcoord = torch.div(lane, c, rounding_mode="floor").to(torch.float32)
+    ch = (lane % c)[None, None, :]
+    pos = (coef[:, 0, None, None] * rows + coef[:, 1, None, None] * xcoord
+           + coef[:, 2, None, None])
+    i0f = torch.floor(pos)
+    fr = pos - i0f
+    i0 = i0f.to(torch.int64)
+    i1 = i0 + 1
+    g0 = torch.clamp(i0, 0, n - 1) * c + ch
+    g1 = torch.clamp(i1, 0, n - 1) * c + ch
+    v0 = torch.where((i0 >= 0) & (i0 < n), torch.gather(x, 2, g0), 0.0)
+    v1 = torch.where((i1 >= 0) & (i1 < n), torch.gather(x, 2, g1), 0.0)
+    return v0 * (1.0 - fr) + v1 * fr
+
+
+def _check(x: torch.Tensor, params: torch.Tensor) -> None:
+    if x.dim() != 4 or x.shape[1] != x.shape[2]:
+        raise ValueError(f"the warp takes square (B, H, W, C) images; got "
+                         f"{tuple(x.shape)}")
+    if tuple(params.shape) != (x.shape[0], PARAMS):
+        raise ValueError(f"params must be (B, {PARAMS}); got "
+                         f"{tuple(params.shape)}")
+
+
+def warp_bilinear_reference(x: torch.Tensor, params: torch.Tensor
+                            ) -> torch.Tensor:
+    """What warp_kernel computes, in plain torch: swap blend, pass 1 along
+    x, transpose, pass 2 along y, transpose back. (B, H, W, C) float32."""
+    _check(x, params)
+    b, h, w, c = x.shape
+    swap = params[:, 0] > 0.5
+    xs = torch.where(swap[:, None, None, None], x.transpose(1, 2), x)
+    tmp = lerp_pass_reference(xs.reshape(b, h, w * c), params[:, 1:4], n=w,
+                              c=c)
+    tmp_t = tmp.reshape(b, h, w, c).transpose(1, 2).reshape(b, w, h * c)
+    out_t = lerp_pass_reference(tmp_t, params[:, 4:7], n=h, c=c)
+    return out_t.reshape(b, w, h, c).transpose(1, 2).contiguous()
+
+
+def _launch(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    from nnue_vision_tpu_torch.ops._build import load_library
+
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"warp_kernel runs on CUDA tensors only (got {dev}); "
+                         "CPU tensors take the plain version")
+    for name, t in (("x", x), ("params", params)):
+        if (t.device != dev or t.dtype != torch.float32
+                or not t.is_contiguous() or t.data_ptr() % 4):
+            raise ValueError(
+                f"{name}: the kernel takes a contiguous float32 tensor on "
+                f"{dev}; got {t.dtype} on {t.device}")
+    b, n, _, c = x.shape
+    if 2 * n * n * c * 4 > 227 * 1024:
+        raise ValueError(f"a {n}x{n}x{c} image does not fit shared memory")
+    out = torch.empty_like(x)
+    if b == 0:
+        return out
+    lib = load_library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.warp_launch(x.data_ptr(), b, n, c, params.data_ptr(),
+                              out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"warp_kernel launch failed: {lib.nnue_error_string(err).decode()}")
+    LAUNCHES["warp_kernel"] += 1
+    return out
+
+
+def warp_bilinear(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """Per-sample affine warp of a square batch: x (B, H, W, C) float32,
+    params (B, 8) from `pack_warp_params`."""
+    if x.device.type == "cpu":
+        return warp_bilinear_reference(x, params)
+    _check(x, params)
+    return _launch(x.contiguous(), params.contiguous())

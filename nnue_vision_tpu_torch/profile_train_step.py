@@ -1,16 +1,23 @@
-"""Profile the port's fused train step: where a step's time goes.
+"""Profile the port's train step: where a step's time goes.
 
     python -m nnue_vision_tpu_torch.profile_train_step \\
         [--config config/train_nnue_hard.py] [--device cuda] [--out DIR]
+    python -m nnue_vision_tpu_torch.profile_train_step --model_type etinynet \\
+        --config config/train_etinynet.py --dataset_name synthetic-hard \\
+        --synthetic_size 50000
 
 Builds the config's model (its seed's random init), uploads its training
-set and runs the light-tier fused path of `train_model`
-(`scanned_train_steps_fused`: one K3 launch and one train step per step):
+set and runs the path `train_model` takes: for an NNUE the light-tier fused
+path (`scanned_train_steps_fused`: one K3 launch and one train step per
+step), for an EtinyNet `gathered_train_step` on the config's augmentation
+tier (medium and heavy: K4 and K5 once per block):
 
 1. chunk     after one warm-up chunk, one chunk of `steps_per_dispatch`
              steps on the host clock with one sync at the end: ms per step
 2. phases    each phase of one step alone, synced before and after, median
-             of 20: K3, forward + loss, backward, optimizer, weight clip
+             of 20: the input (K3, or the augmentation tier with its
+             draws), forward + loss, backward, optimizer, and an NNUE's
+             weight clip
 3. profile   one more chunk under torch.profiler: device operations per
              step, device busy time (the union of their intervals) against
              the chunk's wall time, and the ops by device time, written to
@@ -37,6 +44,7 @@ import torch
 from torch.nn import functional as F
 
 from config import load_config
+from nnue_vision_tpu_torch.data.augment import device_generator, preprocess_batch
 from nnue_vision_tpu_torch.data.loaders import create_data_loaders
 from nnue_vision_tpu_torch.models.nnue import nnue_clip_weights
 from nnue_vision_tpu_torch.ops.input_pipeline import (
@@ -47,6 +55,7 @@ from nnue_vision_tpu_torch.ops.input_pipeline import (
 from nnue_vision_tpu_torch.training.loop import build_model
 from nnue_vision_tpu_torch.training.optim import create_optimizer
 from nnue_vision_tpu_torch.training.step import (
+    gathered_train_step,
     make_train_state,
     scanned_train_steps_fused,
 )
@@ -67,8 +76,11 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile(config_path: str, device: str, out: Path) -> dict:
+def profile(config_path: str, device: str, out: Path, model_type: str = "nnue",
+            overrides=None) -> dict:
     cfg = load_config(config_path)
+    for key, value in (overrides or {}).items():
+        setattr(cfg, key, value)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     if cuda and not torch.cuda.is_available():
@@ -87,20 +99,31 @@ def profile(config_path: str, device: str, out: Path) -> dict:
     )
     ds = train_loader.dataset
     gen = torch.Generator().manual_seed(cfg.seed)
-    model, _ = build_model(cfg, "nnue", gen, dev)
+    model, _ = build_model(cfg, model_type, gen, dev)
+    fused = model_type == "nnue"  # the fused light-tier path, as in the loop
     steps = int(getattr(cfg, "steps_per_dispatch", 8))
     optimizer = create_optimizer(cfg, max(1, len(train_loader)))
     state = make_train_state(model, optimizer)
-    dataset = prepare_gather_dataset(torch.from_numpy(ds.images).to(dev))
+    images = torch.from_numpy(ds.images).to(dev)
+    dataset = prepare_gather_dataset(images) if fused else None
     labels = torch.from_numpy(ds.labels).to(dev)
     n, h, w = ds.images.shape[:3]
     batch = cfg.batch_size
+    strength = getattr(cfg, "augmentation_strength", "medium")
+    noise_gen = device_generator(gen, dev)
     rng = np.random.default_rng(cfg.seed)
 
     def chunk():
         idx = np.stack([rng.permutation(n)[:batch] for _ in range(steps)])
-        return scanned_train_steps_fused(state, dataset, labels, idx, gen,
-                                         optimizer=optimizer, height=h, width=w)
+        if fused:
+            return scanned_train_steps_fused(state, dataset, labels, idx, gen,
+                                             optimizer=optimizer, height=h,
+                                             width=w)
+        return {"loss": torch.stack([
+            gathered_train_step(state, images, labels, i, gen,
+                                optimizer=optimizer, strength=strength,
+                                noise_gen=noise_gen)["loss"]
+            for i in idx])}
 
     chunk()  # warm-up: cuDNN/cuBLAS choices, the kernel's build
     sync()
@@ -113,12 +136,22 @@ def profile(config_path: str, device: str, out: Path) -> dict:
 
     # each phase of one step alone
     params = dict(model.named_parameters())
-    lp = draw_light_params(gen, 1, batch, h, w)
     idx = torch.as_tensor(rng.permutation(n)[:batch])
-    idx_eff = (idx + n * lp.flip[0].to(torch.int64)).to(torch.int32).to(dev)
-    pf, pi = lp.pf[0].to(dev), lp.pi[0].to(dev)
     y = labels[idx.to(dev)]
-    x = fused_light_pipeline(dataset, idx_eff, pf, pi, h=h, w=w)
+    if fused:
+        lp = draw_light_params(gen, 1, batch, h, w)
+        idx_eff = (idx + n * lp.flip[0].to(torch.int64)).to(torch.int32).to(dev)
+        pf, pi = lp.pf[0].to(dev), lp.pi[0].to(dev)
+
+        def input_phase():
+            return fused_light_pipeline(dataset, idx_eff, pf, pi, h=h, w=w)
+    else:
+        idx_dev = idx.to(dev)
+
+        def input_phase():
+            return preprocess_batch(gen, images[idx_dev], strength=strength,
+                                    noise_gen=noise_gen)
+    x = input_phase()
     box = {}
 
     def forward():
@@ -140,15 +173,16 @@ def profile(config_path: str, device: str, out: Path) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
+    model.train()
     phase_ms = {
-        "k3": timed(lambda: fused_light_pipeline(dataset, idx_eff, pf, pi,
-                                                 h=h, w=w)),
+        "k3" if fused else "augment": timed(input_phase),
         "forward_loss": timed(forward),
         "backward": timed(backward, setup=forward),
         "optimizer": timed(lambda: optimizer.step(
             params, dict(zip(params, box["grads"])), state.opt_state)),
-        "weight_clip": timed(lambda: nnue_clip_weights(model)),
     }
+    if fused:
+        phase_ms["weight_clip"] = timed(lambda: nnue_clip_weights(model))
 
     # one chunk under the profiler
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -176,7 +210,8 @@ def profile(config_path: str, device: str, out: Path) -> dict:
             capture_output=True, text=True, check=True, timeout=60,
         ).stdout.strip().splitlines()[0]
     return {
-        "config": config_path, "device": str(dev), "card": card,
+        "config": config_path, "model_type": model_type, "device": str(dev),
+        "card": card,
         "batch": batch, "steps": steps,
         "step_ms": step_ms, "images_per_s": batch / step_ms * 1e3,
         "phase_ms": phase_ms,
@@ -191,11 +226,20 @@ def profile(config_path: str, device: str, out: Path) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", default="config/train_nnue_hard.py")
+    parser.add_argument("--model_type", choices=["nnue", "etinynet"],
+                        default="nnue")
+    parser.add_argument("--dataset_name", help="override the config's dataset")
+    parser.add_argument("--synthetic_size", type=int,
+                        help="override the config's synthetic training size")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--out", default="logs/profile",
                         help="directory for profile_table.txt")
     args = parser.parse_args(argv)
-    print(json.dumps(profile(args.config, args.device, Path(args.out))))
+    overrides = {k: v for k, v in (("dataset_name", args.dataset_name),
+                                   ("synthetic_size", args.synthetic_size))
+                 if v is not None}
+    print(json.dumps(profile(args.config, args.device, Path(args.out),
+                             args.model_type, overrides)))
     return 0
 
 

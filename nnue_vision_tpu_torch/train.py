@@ -4,11 +4,18 @@
         --config config/train_nnue_test.py            # on the CPU
     NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train nnue \\
         --config config/train_nnue_hard.py --device cuda
+    NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train etinynet \\
+        --config config/train_etinynet_test.py        # on the CPU
+    NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train etinynet \\
+        --config config/train_etinynet.py --dataset_name synthetic-hard \\
+        --synthetic_size 50000 --device cuda
 
-The port trains NNUE on one device. NV_SKIP_ENGINE=1 is required for now:
-the C++ engine start-up probe is not ported (ROADMAP Queue A item 4a).
-The overrides are the root CLI's that apply to this model; runs are
-tracked locally under --log_dir.
+The port trains NNUE and EtinyNet on one device. NV_SKIP_ENGINE=1 is
+required for now: the C++ engine start-up probe is not ported (ROADMAP
+Queue A item 4a). The overrides are the root CLI's that apply to these
+models, plus --synthetic_size, which sizes a synthetic training set (the
+EtinyNet production config names CIFAR-10, whose files the repository
+does not hold); runs are tracked locally under --log_dir.
 """
 
 from __future__ import annotations
@@ -22,18 +29,20 @@ from nnue_vision_tpu_torch.training.logging import early_log
 _OVERRIDES = (
     "batch_size", "max_epochs", "learning_rate", "note", "use_augmentation",
     "augmentation_strength", "num_classes", "dataset_name", "seed",
-    "synthetic_class_seed", "ef_warmup_epochs", "checkpoint_metric",
+    "synthetic_class_seed", "synthetic_size", "ef_warmup_epochs",
+    "checkpoint_metric",
     "eval_train_samples", "eval_batch_size",
 )
 
 
 def setup_argument_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="Train NNUE models with the PyTorch port",
+        description="Train NNUE and EtinyNet models with the PyTorch port",
         epilog="Set NV_SKIP_ENGINE=1: the C++ engine start-up probe is not "
                "ported yet.",
     )
-    parser.add_argument("model_type", choices=["nnue"], help="Model type to train")
+    parser.add_argument("model_type", choices=["nnue", "etinynet"],
+                        help="Model type to train")
     parser.add_argument("--config", type=str, help="Path to the configuration file")
     parser.add_argument("--device", type=str, default="cpu",
                         help="torch device to train on: cpu (default), cuda, "
@@ -47,9 +56,9 @@ def setup_argument_parser() -> argparse.ArgumentParser:
                         help="Directory for logs and checkpoints")
     parser.add_argument("--use_augmentation", type=lambda x: x.lower() == "true",
                         help="Enable data augmentation (true/false)")
-    parser.add_argument("--augmentation_strength", choices=["light"],
-                        help="Augmentation strength (medium and heavy come "
-                             "with the EtinyNet slice)")
+    parser.add_argument("--augmentation_strength",
+                        choices=["light", "medium", "heavy"],
+                        help="Augmentation strength")
     parser.add_argument("--dataset_name", type=str,
                         choices=["cifar10", "cifar100", "synthetic",
                                  "synthetic-hard"],
@@ -58,6 +67,8 @@ def setup_argument_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, help="Override training/data seed")
     parser.add_argument("--synthetic_class_seed", type=int,
                         help="Synthetic-hard generator variant")
+    parser.add_argument("--synthetic_size", type=int,
+                        help="Training images of a synthetic dataset")
     parser.add_argument("--ef_warmup_epochs", type=int,
                         help="Override progressive-QAT warmup epochs")
     parser.add_argument("--name_suffix", type=str,

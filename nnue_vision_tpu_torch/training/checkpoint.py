@@ -2,9 +2,11 @@
 `nnue_vision_tpu/training/checkpoint.py:32-133`).
 
 The payload is the one the JAX package writes and `serialize.py` reads:
-{"epoch", "model_type", "model_config" (dict), "params" (the JAX numpy
-params dict, via `bridge.py`), "batch_stats", "opt_state", "metrics",
-"config_name", "saved_at", "format_version"}. `opt_state` holds the step
+{"epoch", "model_type", "model_config" (dict), "params" and
+"batch_stats" (the JAX package's numpy pytrees, via `bridge.py`; an NNUE
+has no batch_stats, an EtinyNet's are its running norm statistics in the
+nested layout), "opt_state", "metrics", "config_name", "saved_at",
+"format_version"}. `opt_state` holds the step
 count and the optimizer's buffers as numpy, keyed by parameter name; no
 optax object is pickled or unpickled.
 """
@@ -17,22 +19,34 @@ import time
 from pathlib import Path
 from typing import Any, Dict, Optional
 
-from nnue_vision_tpu_torch.bridge import nnue_from_jax_params, nnue_to_numpy
+from torch import nn
+
+from nnue_vision_tpu_torch.bridge import (
+    etinynet_from_jax,
+    etinynet_to_numpy,
+    nnue_from_jax_params,
+    nnue_to_numpy,
+)
+from nnue_vision_tpu_torch.models.etinynet import EtinyNet, EtinyNetConfig
 from nnue_vision_tpu_torch.models.nnue import NNUE, GridFeatureSet, NNUEConfig
 from nnue_vision_tpu_torch.training.optim import OptState, opt_state_numpy
 
 
 def save_checkpoint(
-    path: Path, *, model_type: str, model_config: Any, model: NNUE,
+    path: Path, *, model_type: str, model_config: Any, model: nn.Module,
     epoch: int, metrics: Dict[str, float],
     opt_state: Optional[OptState] = None, config_name: str = "",
 ) -> None:
+    if model_type == "etinynet":
+        params, batch_stats = etinynet_to_numpy(model)
+    else:
+        params, batch_stats = nnue_to_numpy(model), None
     payload = {
         "epoch": epoch,
         "model_type": model_type,
         "model_config": dataclasses.asdict(model_config),
-        "params": nnue_to_numpy(model),
-        "batch_stats": None,
+        "params": params,
+        "batch_stats": batch_stats,
         "opt_state": opt_state_numpy(opt_state) if opt_state is not None else None,
         "metrics": metrics,
         "config_name": config_name,
@@ -64,3 +78,15 @@ def nnue_from_checkpoint(payload: Dict[str, Any], device=None) -> NNUE:
         **{k: v for k, v in mc.items() if k in fields},
     )
     return nnue_from_jax_params(payload["params"], cfg, device=device)
+
+
+def etinynet_from_checkpoint(payload: Dict[str, Any], device=None) -> EtinyNet:
+    """The EtinyNet of a loaded checkpoint payload (this package's or the
+    JAX package's), with its `model_config`."""
+    mc = dict(payload["model_config"])
+    if isinstance(mc.get("input_size"), (list, tuple)):
+        mc["input_size"] = mc["input_size"][0]
+    fields = {f.name for f in dataclasses.fields(EtinyNetConfig)}
+    cfg = EtinyNetConfig(**{k: v for k, v in mc.items() if k in fields})
+    return etinynet_from_jax(payload["params"], payload["batch_stats"], cfg,
+                             device=device)

@@ -1,15 +1,17 @@
-"""Evaluation of an NNUE: the float path and bit-exact int8 (port of
-`nnue_vision_tpu/training/evaluate.py:45-149` and the NNUE branch of
-`:152-265`).
+"""Evaluation of an NNUE or an EtinyNet: the float path and bit-exact int8
+(port of `nnue_vision_tpu/training/evaluate.py:45-265`).
 
-`evaluate_model` runs the float model over a loader: mean CE loss per batch
-and the metrics. `evaluate_int8_sim` quantizes the float model exactly as
-serialization does and computes the C++ engine's logits for every batch,
-so its accuracy/F1 equal the engine subprocess path's. Three backends give
-the same bits: `use_pallas=False` the plain torch sim, `True` the exact
-conv + head kernel (`nnue_engine_forward_fused`), `"mega"` the single
-kernel (`nnue_engine_forward_mega`). On a CPU device all three run their
-plain versions.
+`evaluate_model` runs the float model over a loader (an EtinyNet in eval
+mode, on its running statistics): mean CE loss per batch and the metrics.
+`evaluate_int8_sim` quantizes the float model exactly as serialization
+does and computes the C++ engine's logits for every batch, so its
+accuracy/F1 equal the engine subprocess path's. For an NNUE three backends
+give the same bits: `use_pallas=False` the plain torch sim, `True` the
+exact conv + head kernel (`nnue_engine_forward_fused`), `"mega"` the
+single kernel (`nnue_engine_forward_mega`); on a CPU device all three run
+their plain versions. An EtinyNet runs the engine sim
+(`etiny_engine_forward`), as in the JAX package, whatever `use_pallas`
+says; its `latent_density` is 0.
 
 Both take a loader of raw (images [0, 1], labels) numpy batches, or a
 `ResidentEvalLoader`, whose split sits normalized on the device.
@@ -22,14 +24,18 @@ from typing import Dict, Iterable, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from nnue_vision_tpu_torch.data.augment import (
     IMAGENET_MEAN,
     IMAGENET_STD,
     normalize_images,
 )
-from nnue_vision_tpu_torch.models.nnue import NNUE, nnue_quantize
+from nnue_vision_tpu_torch.models.etinynet import EtinyNet, etinynet_quantize
+from nnue_vision_tpu_torch.models.nnue import nnue_quantize
 from nnue_vision_tpu_torch.ops.engine_sim import (
+    etiny_engine_forward,
+    etiny_sim_params,
     nnue_engine_forward,
     nnue_sim_params,
 )
@@ -91,7 +97,7 @@ def _batches(loader, device):
         yield images.contiguous(), labels
 
 
-def evaluate_model(model: NNUE, loader, *, device=None
+def evaluate_model(model: nn.Module, loader, *, device=None
                    ) -> Tuple[float, Dict[str, float]]:
     """Float-path evaluation: (mean per-sample CE loss averaged over
     batches, metrics)."""
@@ -117,25 +123,8 @@ def evaluate_model(model: NNUE, loader, *, device=None
     return total_loss / max(1, n_batches), metrics
 
 
-def evaluate_int8_sim(
-    model: NNUE, loader: Iterable[Tuple[np.ndarray, np.ndarray]], *,
-    use_pallas=False, device=None,
-) -> Dict[str, float]:
-    """Metrics of the deployed int8 model over `loader`.
-
-    `loader` yields (images (B, H, W, 3) float in [0, 1], labels (B,)),
-    normalized here on `device` (default: the model's), or is a
-    `ResidentEvalLoader`.
-    Returns acc/f1/precision/recall, `ms_per_sample` (host clock over the
-    whole loop, which ends in a device-to-host copy of each batch's logits)
-    and `latent_density`.
-    """
-    if use_pallas not in (False, True, "mega"):
-        raise ValueError(f"use_pallas must be False, True or 'mega': {use_pallas!r}")
-    if device is None:
-        device = next(model.parameters()).device
-    q = nnue_quantize(model)
-    sim_params, cfg = nnue_sim_params(q, device=device)
+def _nnue_forward(sim_params, cfg, use_pallas):
+    """(x, h, w) → (logits, density, count) on the chosen NNUE backend."""
     if use_pallas == "mega":
         heads = {}
 
@@ -158,6 +147,37 @@ def evaluate_int8_sim(
             return nnue_engine_forward(
                 sim_params, x, cfg=cfg, image_h=h, image_w=w
             )
+    return fwd
+
+
+def evaluate_int8_sim(
+    model: nn.Module, loader: Iterable[Tuple[np.ndarray, np.ndarray]], *,
+    use_pallas=False, device=None,
+) -> Dict[str, float]:
+    """Metrics of the deployed int8 model over `loader`.
+
+    `loader` yields (images (B, H, W, 3) float in [0, 1], labels (B,)),
+    normalized here on `device` (default: the model's), or is a
+    `ResidentEvalLoader`.
+    Returns acc/f1/precision/recall, `ms_per_sample` (host clock over the
+    whole loop, which ends in a device-to-host copy of each batch's logits)
+    and `latent_density`.
+    """
+    if use_pallas not in (False, True, "mega"):
+        raise ValueError(f"use_pallas must be False, True or 'mega': {use_pallas!r}")
+    if device is None:
+        device = next(model.parameters()).device
+    if isinstance(model, EtinyNet):
+        sim_params, cfg = etiny_sim_params(etinynet_quantize(model),
+                                           device=device)
+
+        def fwd(x, h, w):
+            return etiny_engine_forward(sim_params, x, cfg=cfg, image_h=h,
+                                        image_w=w), None, None
+    else:
+        q = nnue_quantize(model)
+        sim_params, cfg = nnue_sim_params(q, device=device)
+        fwd = _nnue_forward(sim_params, cfg, use_pallas)
 
     outs, targets, densities = [], [], []
     n = 0
@@ -166,9 +186,9 @@ def evaluate_int8_sim(
         logits, _, count = fwd(x, x.shape[1], x.shape[2])
         outs.append(logits.cpu().numpy())
         targets.append(np.asarray(labels))
-        densities.append(
-            count.cpu().numpy().astype(np.float32) / np.float32(q.num_features)
-        )
+        if count is not None:
+            densities.append(count.cpu().numpy().astype(np.float32)
+                             / np.float32(q.num_features))
         n += len(labels)
     elapsed = time.perf_counter() - t0
     if not outs:
@@ -176,5 +196,6 @@ def evaluate_int8_sim(
 
     metrics = compute_metrics(np.concatenate(outs), np.concatenate(targets))
     metrics["ms_per_sample"] = (elapsed / max(1, n)) * 1000.0
-    metrics["latent_density"] = float(np.concatenate(densities).mean())
+    metrics["latent_density"] = (float(np.concatenate(densities).mean())
+                                 if densities else 0.0)
     return metrics

@@ -1,15 +1,18 @@
-"""The NNUE training loop on one device: train_model(config, "nnue").
+"""The training loop on one device: train_model(config, "nnue" |
+"etinynet").
 
 Port of `nnue_vision_tpu/training/loop.py:57-90, 103-668`, with the same
 control flow, so the same steps take the same path: a training set that
 fits `device_resident_max_bytes` is uploaded once and batches are gathered
-by index on the device; on the light augmentation tier, when 3× the
-dataset fits, full chunks of `steps_per_dispatch` steps run through
-`scanned_train_steps_fused` (one K3 launch per step) and every other
-step through `gathered_train_step`; the losses come back to the host once
-per chunk. Each epoch ends with the non-finite check, float train and val
-evals, and the int8 eval (`compiled_backend` "sim", "pallas" or "mega"),
-then best-model checkpointing on `checkpoint_metric`; `ef_warmup_epochs`
+by index on the device; for an NNUE on the light augmentation tier, when
+3× the dataset fits, full chunks of `steps_per_dispatch` steps run through
+`scanned_train_steps_fused` (one K3 launch per step), and every other
+step through `gathered_train_step` (the medium and heavy tiers: one warp
+(K4) and one photometric (K5) launch per block); the losses come back to
+the host once per chunk. Each epoch ends with the non-finite check, float
+train and val evals, and the int8 eval (`compiled_backend` "sim",
+"pallas" or "mega"), then best-model checkpointing on
+`checkpoint_metric`; `ef_warmup_epochs`
 trains the QAT model without rounding first and restarts the optimizer at
 the switch. A final test eval closes the run.
 
@@ -18,12 +21,15 @@ it raises. It sets `torch.backends.cudnn.allow_tf32` and
 `torch.backends.cuda.matmul.allow_tf32` to False, so the float conv and
 matmuls compute in float32 as the JAX reference does.
 
+An EtinyNet trains in float32 or bfloat16 (`dtype`); its int8 eval is the
+engine sim whatever `compiled_backend` says, as in the JAX package.
+
 Not ported yet, and raising NotImplementedError with the ROADMAP item: a
 mesh (`max_devices > 1`), `distill_from`, `checkpoint_backend="orbax"`,
-`profile_dir`, `model_type="etinynet"`, `dtype` other than float32,
-`compiled_backend="engine"`, and the C++ engine start-up probe, which the
-JAX loop runs unless NV_SKIP_ENGINE=1 (set it). Unlike the JAX loop,
-NV_SKIP_ENGINE=1 leaves `compiled_backend` as configured: "mega" and
+`profile_dir`, an NNUE `dtype` other than float32, an `engine_friendly`
+EtinyNet, `compiled_backend="engine"`, and the C++ engine start-up probe,
+which the JAX loop runs unless NV_SKIP_ENGINE=1 (set it). Unlike the JAX
+loop, NV_SKIP_ENGINE=1 leaves `compiled_backend` as configured: "mega" and
 "pallas" run the card's kernels and need no engine build.
 """
 
@@ -38,15 +44,19 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from nnue_vision_tpu_torch.data.augment import preprocess_batch
+from nnue_vision_tpu_torch.data.augment import device_generator, preprocess_batch
 from nnue_vision_tpu_torch.data.loaders import (
     create_data_loaders,
     head_subset_loader,
 )
+from nnue_vision_tpu_torch.models.etinynet import (
+    EtinyNetConfig,
+    count_parameters,
+    etinynet_init,
+)
 from nnue_vision_tpu_torch.models.nnue import (
     GridFeatureSet,
     NNUEConfig,
-    count_parameters,
     nnue_init,
 )
 from nnue_vision_tpu_torch.ops.input_pipeline import prepare_gather_dataset
@@ -76,11 +86,22 @@ _USE_PALLAS = {"sim": False, "pallas": True, "mega": "mega"}
 def build_model(config: Any, model_type: str, generator: torch.Generator,
                 device):
     """(model, model_cfg) from an executable config module."""
-    if model_type != "nnue":
-        raise ValueError(f"unknown model type: {model_type}")
     input_size = config.input_size
     if isinstance(input_size, (tuple, list)):
         input_size = input_size[0]
+    if model_type == "etinynet":
+        model_cfg = EtinyNetConfig(
+            variant=config.etinynet_variant,
+            num_classes=config.num_classes,
+            input_size=input_size,
+            use_asq=getattr(config, "use_asq", False),
+            asq_bits=getattr(config, "asq_bits", 4),
+            engine_friendly=getattr(config, "engine_friendly", False),
+            dtype=getattr(config, "dtype", "float32"),
+        )
+        return etinynet_init(model_cfg, generator, device=device), model_cfg
+    if model_type != "nnue":
+        raise ValueError(f"unknown model type: {model_type}")
     model_cfg = NNUEConfig(
         feature_set=GridFeatureSet(
             grid_size=config.grid_size,
@@ -99,15 +120,18 @@ def build_model(config: Any, model_type: str, generator: torch.Generator,
 def _refuse_unported(config: Any, model_type: str) -> None:
     """NotImplementedError for what the port cannot train yet."""
     backend = getattr(config, "compiled_backend", "sim")
+    dtype = getattr(config, "dtype", "float32")
     checks = (
-        (model_type == "etinynet", "model_type='etinynet'", "5 (EtinyNet)"),
+        (model_type == "etinynet"
+         and bool(getattr(config, "engine_friendly", False)),
+         "EtinyNet engine_friendly=True", "5a (EtinyNet engine_friendly QAT)"),
         (os.environ.get("NV_SKIP_ENGINE") != "1",
          "the C++ engine start-up probe (set NV_SKIP_ENGINE=1)",
          "4a (engine-subprocess backend and probe)"),
         (backend == "engine", "compiled_backend='engine'",
          "4a (engine-subprocess backend and probe)"),
-        (getattr(config, "dtype", "float32") != "float32",
-         f"dtype={getattr(config, 'dtype', None)!r}", "4b (bf16 compute)"),
+        (model_type == "nnue" and dtype != "float32",
+         f"NNUE dtype={dtype!r}", "4b (bf16 compute)"),
         (int(getattr(config, "max_devices", 0) or 0) > 1,
          "max_devices > 1 (a data-parallel mesh)", "4c (mesh / DDP)"),
         (bool(getattr(config, "distill_from", None)), "distill_from",
@@ -187,12 +211,12 @@ def train_model(config: Any, model_type: str,
     # on with a fresh optimizer over the remaining epochs
     ef_warmup = int(getattr(config, "ef_warmup_epochs", 0))
     warm_cfg = model_cfg
-    if ef_warmup > 0 and model_cfg.qat:
+    if ef_warmup > 0 and getattr(model_cfg, "qat", False):
         warm_cfg = dataclasses.replace(model_cfg, qat_rounding=False)
     else:
         ef_warmup = 0
 
-    def cfg_for(epoch: int) -> NNUEConfig:
+    def cfg_for(epoch: int):
         return warm_cfg if epoch < ef_warmup else model_cfg
 
     ft_optimizer = optimizer
@@ -224,6 +248,7 @@ def train_model(config: Any, model_type: str,
     if (
         device_data is not None
         and 3 * dataset_bytes <= max_resident
+        and model_type == "nnue"
         and use_aug
         and strength == "light"
         and bool(getattr(config, "fused_input_pipeline", True))
@@ -246,6 +271,9 @@ def train_model(config: Any, model_type: str,
 
     steps_per_dispatch = int(getattr(config, "steps_per_dispatch", 8))
     height, width = int(ds.images.shape[1]), int(ds.images.shape[2])
+    # the medium and heavy tiers' noise tensors are drawn on the device
+    noise_gen = (device_generator(gen, dev)
+                 if use_aug and strength in ("medium", "heavy") else None)
 
     try:
         for epoch in range(max_epochs):
@@ -277,7 +305,7 @@ def train_model(config: Any, model_type: str,
                             gathered_train_step(
                                 state, device_data[0], device_data[1], idx, gen,
                                 optimizer=opt_for(epoch), strength=strength,
-                                augment=use_aug,
+                                augment=use_aug, noise_gen=noise_gen,
                             )["loss"]
                             for idx in chunk
                         ])
@@ -293,6 +321,7 @@ def train_model(config: Any, model_type: str,
                     x = preprocess_batch(
                         gen, torch.from_numpy(images).to(dev),
                         strength=strength, augment=use_aug,
+                        noise_gen=noise_gen,
                     )
                     metrics = train_step(
                         state, x, torch.from_numpy(labels).to(dev),

@@ -1,10 +1,13 @@
-"""The NNUE train and eval steps (port of
+"""The train and eval steps of both model families (port of
 `nnue_vision_tpu/training/step.py:23-112, 178-328`).
 
 The JAX package's steps are jitted pure functions over a TrainState
-pytree; here a step runs eagerly and updates the model's parameters and
-the optimizer state in place. The loss is cross-entropy; after every
-optimizer step the FT and classifier weights are clipped to [-1, 1].
+pytree; here a step runs eagerly and updates the model's parameters, its
+norm statistics (an EtinyNet's running mean and variance, which a
+training-mode forward updates in place: JAX's `new_stats`) and the
+optimizer state in place. The loss is cross-entropy; after every optimizer
+step an NNUE's FT and classifier weights are clipped to [-1, 1] (an
+EtinyNet's are not, as in JAX).
 
 `scanned_train_steps_fused` is the fused light-tier path: one host draw of
 the augmentation parameters for all K steps of a chunk, one upload, then
@@ -15,10 +18,11 @@ losses come back as one (K,) tensor, so the chunk syncs with the host once.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 from torch.nn import functional as F
 
 from nnue_vision_tpu_torch.data.augment import preprocess_batch
@@ -32,28 +36,30 @@ from nnue_vision_tpu_torch.training.optim import Optimizer, OptState
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (its parameters), the optimizer state and the step count."""
-    model: NNUE
+    """The model (its parameters and norm statistics), the optimizer state
+    and the step count."""
+    model: nn.Module
     opt_state: OptState
     step: int = 0
 
 
-def make_train_state(model: NNUE, optimizer: Optimizer) -> TrainState:
+def make_train_state(model: nn.Module, optimizer: Optimizer) -> TrainState:
     return TrainState(model, optimizer.init(dict(model.named_parameters())))
 
 
 def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                *, optimizer: Optimizer) -> Dict[str, torch.Tensor]:
     """One optimizer step on normalized images (B, H, W, 3) and labels (B,),
-    then the FT and classifier weights clipped to [-1, 1]. Returns {"loss",
-    "accuracy"} as device scalars."""
-    model = state.model
+    then, for an NNUE, the FT and classifier weights clipped to [-1, 1].
+    Returns {"loss", "accuracy"} as device scalars."""
+    model = state.model.train()
     params = dict(model.named_parameters())
     logits = model(images)
     loss = F.cross_entropy(logits, labels)
     grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     optimizer.step(params, dict(zip(params, grads)), state.opt_state)
-    nnue_clip_weights(model)
+    if isinstance(model, NNUE):
+        nnue_clip_weights(model)
     state.step += 1
     acc = (logits.detach().argmax(dim=-1) == labels).to(torch.float32).mean()
     return {"loss": loss.detach(), "accuracy": acc}
@@ -67,15 +73,17 @@ def _check_indices(idx: np.ndarray, n: int) -> None:
 def gathered_train_step(state: TrainState, device_images: torch.Tensor,
                         device_labels: torch.Tensor, idx: np.ndarray,
                         gen: torch.Generator, *, optimizer: Optimizer,
-                        strength: str = "medium", augment: bool = True
+                        strength: str = "medium", augment: bool = True,
+                        noise_gen: Optional[torch.Generator] = None
                         ) -> Dict[str, torch.Tensor]:
     """Gather a batch by index from the device-resident dataset, augment,
-    normalize, train one step."""
+    normalize, train one step. The medium and heavy tiers draw their noise
+    from `noise_gen`, a generator on the dataset's device."""
     idx = np.asarray(idx)
     _check_indices(idx, device_labels.shape[0])
     i = torch.as_tensor(idx, dtype=torch.int64).to(device_images.device)
     x = preprocess_batch(gen, device_images[i], strength=strength,
-                         augment=augment)
+                         augment=augment, noise_gen=noise_gen)
     return train_step(state, x, device_labels[i], optimizer=optimizer)
 
 
@@ -109,8 +117,9 @@ def scanned_train_steps_fused(state: TrainState, gather_dataset: torch.Tensor,
 
 
 @torch.no_grad()
-def eval_step(model: NNUE, images: torch.Tensor, labels: torch.Tensor
+def eval_step(model: nn.Module, images: torch.Tensor, labels: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(summed CE loss over the batch, logits)."""
-    logits = model(images)
+    """(summed CE loss over the batch, logits), the model in eval mode (an
+    EtinyNet normalizes with its running statistics)."""
+    logits = model.eval()(images)
     return F.cross_entropy(logits, labels, reduction="sum"), logits

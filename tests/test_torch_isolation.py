@@ -18,11 +18,15 @@ MODULES = [
     "nnue_vision_tpu_torch.data.augment",
     "nnue_vision_tpu_torch.data.datasets",
     "nnue_vision_tpu_torch.data.loaders",
+    "nnue_vision_tpu_torch.models.etinynet",
     "nnue_vision_tpu_torch.models.nnue",
     "nnue_vision_tpu_torch.ops._build",
     "nnue_vision_tpu_torch.ops.engine_sim",
+    "nnue_vision_tpu_torch.ops.etiny_kernels",
     "nnue_vision_tpu_torch.ops.input_pipeline",
     "nnue_vision_tpu_torch.ops.nnue_kernels",
+    "nnue_vision_tpu_torch.ops.photometric_kernel",
+    "nnue_vision_tpu_torch.ops.warp_kernel",
     "nnue_vision_tpu_torch.profile_train_step",
     "nnue_vision_tpu_torch.training.checkpoint",
     "nnue_vision_tpu_torch.training.evaluate",
