@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's int8 NNUE serving path, its NNUE training path,
-its EtinyNet int8 serving path and its EtinyNet training path once on one
-CUDA card.
+its EtinyNet int8 serving path, its EtinyNet training path and its
+profiling path once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -53,9 +53,26 @@ Phases, one line each (any failure raises and exits non-zero):
 17. timing   K4, K5 (each variant) and K6 (the whole int8 forward, and its 12
              LB blocks alone) vs plain at batch 1024 and 8192; ms per EtinyNet train step at batch 1024
              over 48 steps (host clock, one sync at the end)
+18. mega-bisect  the cut mega kernel (K7) at levels 0-3 on the flagship and
+             the stress model (negative threshold: the padding sum is on) at
+             batch 8192 and 37, each torch.equal to nnue_mega_stage_reference;
+             then profile_mega_bisect's timing at batch 8192 (counted)
+19. warp-split  lerp_pass and nogather_pass (K8) on drawn heavy-tier maps and
+             out-of-frame maps (zero fill) at batch 1024 and 37, each
+             torch.equal to its plain version, and the five-stage
+             composition equal to warp_bilinear; then profile_warp_split's
+             variants at batch 1024 (counted)
+20. trace    train_model on config/train_nnue_test.py with the light tier on
+             (the fused K3 path) and profile_dir: the trace file names
+             light_pipeline_kernel among its CUDA kernels
+21. launches the three probe kernels launched on their paths (18, 19); the
+             counts are host calls: a CUDA graph's replays add none
 
-Then one JSON line with each kernel's launches, error and times, the card's
-name and power limit, and the last line {"ok": true, "device": {...}}.
+Then one JSON line with each kernel's launches, error and times (kernel,
+plain version, the card's bound for the same work and, where one PyTorch
+call computes the same function, that call; K6's are its 12 LB blocks
+alone at batch 8192, K7's level 3), the card's name and power limit, and
+the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -86,6 +103,7 @@ from nnue_vision_tpu_torch import (
     write_nnue,
 )
 from config import load_config
+from nnue_vision_tpu_torch import profile_mega_bisect, profile_warp_split
 from nnue_vision_tpu_torch.bridge import nnue_from_jax_params
 from nnue_vision_tpu_torch.data import augment as aug
 from nnue_vision_tpu_torch.data.augment import normalize_images
@@ -106,6 +124,7 @@ from nnue_vision_tpu_torch.ops import nnue_kernels as nk
 from nnue_vision_tpu_torch.ops import photometric_kernel as pk
 from nnue_vision_tpu_torch.ops import warp_kernel as wk
 from nnue_vision_tpu_torch.ops._build import load_library
+from nnue_vision_tpu_torch.ops.timing import HBM_BYTES_PER_S, nbytes
 from nnue_vision_tpu_torch.ops.engine_sim import (
     conv_out_hw,
     engine_conv_stride,
@@ -157,6 +176,9 @@ SOURCES = {
     "warp_kernel": "nnue_vision_tpu_torch/csrc/warp.cu",
     "photometric_kernel": "nnue_vision_tpu_torch/csrc/photometric.cu",
     "etiny_block_kernel": "nnue_vision_tpu_torch/csrc/etiny_block.cu",
+    "nnue_mega_stage_kernel": "nnue_vision_tpu_torch/csrc/nnue_head.cu",
+    "lerp_pass_kernel": "nnue_vision_tpu_torch/csrc/warp.cu",
+    "nogather_pass_kernel": "nnue_vision_tpu_torch/csrc/warp.cu",
 }
 REPLACES = {
     "nnue_mega_kernel": "nnue_vision_tpu/ops/pallas_kernels.py:161",
@@ -165,7 +187,19 @@ REPLACES = {
     "warp_kernel": "nnue_vision_tpu/ops/warp_kernel.py:46",
     "photometric_kernel": "nnue_vision_tpu/ops/photometric_kernel.py:114",
     "etiny_block_kernel": "nnue_vision_tpu/ops/etiny_pallas.py:105",
+    "nnue_mega_stage_kernel": "scripts/profile_mega_bisect.py:96",
+    "lerp_pass_kernel": "nnue_vision_tpu/ops/warp_kernel.py:46",
+    "nogather_pass_kernel": "scripts/profile_warp_split.py:51",
 }
+# The card's published rates (NVIDIA's data sheet; H100 SXM, 700 W) beside
+# HBM_BYTES_PER_S: dense int8 tensor-core operations (the highest integer
+# rate, so a time from it is a lower bound) and float32 outside the tensor
+# cores.
+INT_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
+BISECT_REPS = 100
+WARP_SPLIT_REPS = "100"
+TRACE_CONFIG = "config/train_nnue_test.py"
 
 
 def say(phase: str, msg: str) -> None:
@@ -315,6 +349,38 @@ def time_pair(kernel_fn, plain_fn) -> tuple:
         for sink, fn in order:
             sink.append(time_ms(fn))
     return statistics.median(k), statistics.median(p)
+
+
+def time_median(fn) -> float:
+    """Median ms of one call over TIMING_RUNS, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    return statistics.median(time_ms(fn) for _ in range(TIMING_RUNS))
+
+
+def bound(moved: int, int_ops: float = 0.0, f32_ops: float = 0.0) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move `moved` bytes (each input read once, each output written once) and
+    do the operations, at the published rates."""
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = int_ops / INT_OPS_PER_S + f32_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def head_int_ops(cfg, batch: int, n_act: int) -> int:
+    """Integer operations of the NNUE head: the sparse FT row sum over the
+    `n_act` active features of the batch, and the three dense layers."""
+    dense = cfg.l1 * cfg.l2 + cfg.l2 * cfg.l3 + cfg.l3 * cfg.num_classes
+    return n_act * cfg.l1 + 2 * batch * dense
+
+
+def active_rows(count: torch.Tensor, head: dict, cfg) -> int:
+    """Active features the FT sums in rows for this batch: the counts less
+    the padding features, which the padding sum covers."""
+    oh, ow = conv_out_hw(H, W, engine_conv_stride(H, cfg.grid_size))
+    n_pad = cfg.num_features - oh * ow * cfg.channels
+    pad = n_pad if head["thresh"] < 0 else 0
+    return int(count.sum()) - pad * count.numel()
 
 
 def pipeline(errs: Errors, dataset: torch.Tensor, gen: torch.Generator,
@@ -587,7 +653,7 @@ def main() -> int:
         + json.dumps({k: results["mega"][k] for k in keys}))
 
     # 7. launches
-    launches = dict(nk.LAUNCHES)
+    launches = {k: nk.LAUNCHES[k] for k in ("nnue_mega_kernel", "nnue_head_kernel")}
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the path never launched: {launches}")
     say("launches", json.dumps(launches))
@@ -630,6 +696,21 @@ def main() -> int:
         say("timing", f"B={batch} {name}: kernel {k:.4f} ms "
             f"({batch / k * 1e3:,.0f} img/s), plain {p:.4f} ms "
             f"({batch / p * 1e3:,.0f} img/s) on {smi}")
+    # the card's bound for the timed calls; no single PyTorch call computes
+    # the int8 engine, so neither kernel has a library time
+    n_act = active_rows(nk.nnue_engine_forward_mega(mega, flat, **kw)[2], mega, cfg)
+    head_bytes = nbytes(*(mega[k] for k in nk._HEAD_KEYS), mega["padsum"])
+    out_bytes = TIMING_BATCH * (cfg.num_classes + 1) * 4  # logits, count
+    head_ops = head_int_ops(cfg, TIMING_BATCH, n_act)
+    conv_ops = 2 * 27 * acc.numel()
+    bounds = {
+        "nnue_mega_kernel": bound(
+            nbytes(flat, mega["conv_w"], mega["conv_b"]) + head_bytes + out_bytes,
+            int_ops=conv_ops + head_ops, f32_ops=flat.numel()),
+        "nnue_head_kernel": bound(nbytes(acc) + head_bytes + out_bytes,
+                                  int_ops=head_ops),
+    }
+    library = {"nnue_mega_kernel": None, "nnue_head_kernel": None}
 
     # 9. pipeline
     ds = GenericVisionDataset("synthetic-hard", split="train",
@@ -696,6 +777,12 @@ def main() -> int:
             lambda a=args: ip.fused_light_pipeline_reference(dataset, *a, h=H, w=W))
         if batch == 512:
             ms["light_pipeline_kernel"] = (k, p)
+            # the gathered rows read and the output written; per value a
+            # multiply-add, two clamps, a subtract and a divide
+            values = batch * H * W * 3
+            bounds["light_pipeline_kernel"] = bound(
+                2 * 4 * values + nbytes(*args), f32_ops=6 * values)
+            library["light_pipeline_kernel"] = None  # gather + affine + cutout
         say("timing", f"K3 B={batch}: kernel {k:.4f} ms ({batch / k * 1e3:,.0f} "
             f"img/s), plain {p:.4f} ms ({batch / p * 1e3:,.0f} img/s) on {smi}")
     cfg = tr["cfg"]
@@ -845,8 +932,30 @@ def main() -> int:
         if batch == 1024:
             for name in ("warp_kernel", "photometric_kernel"):
                 ms[name] = rows[name]
+            # per value: two passes of a position (two multiplies, two adds)
+            # and a lerp (floor, three subtracts, two multiplies, an add)
+            bounds["warp_kernel"] = bound(
+                2 * nbytes(images) + nbytes(draws.warp1),
+                f32_ops=18 * images.numel())
+            # ~60 float operations per value (csrc/photometric.cu)
+            bounds["photometric_kernel"] = bound(
+                2 * nbytes(images) + nbytes(noise, *draws.photo1),
+                f32_ops=60 * images.numel())
+            # grid_sample is a one-pass bilinear warp, not the two-pass
+            # result; no single call runs the gated photometric chain
+            library["warp_kernel"] = library["photometric_kernel"] = None
         else:
-            ms["etiny_block_kernel"] = rows["etiny_block_kernel"]
+            ms["etiny_block_kernel"] = rows["etiny_block_kernel, the LB blocks alone"]
+            moved, ops = 0, 0
+            for a, blk, bs in blocks:
+                b, h, w, cin = a.shape
+                oh, ow = conv_out_hw(h, w, bs.stride)
+                mid, cout = blk["dw"].shape[0], blk["wp"].shape[0]
+                moved += nbytes(a, blk["we"], blk["be"], blk["dw"], blk["wp"])
+                moved += b * oh * ow * cout  # the int8 output
+                ops += 2 * b * (h * w * mid * cin + oh * ow * mid * (9 + cout))
+            bounds["etiny_block_kernel"] = bound(moved, int_ops=ops)
+            library["etiny_block_kernel"] = None  # expand, depthwise, project
     ecfg_t = et["cfg"]
     eopt = create_optimizer(ecfg_t, steps)
     estate = make_train_state(trained_e, eopt)
@@ -870,11 +979,154 @@ def main() -> int:
             f"({ecfg_t.batch_size / step_ms * 1e3:,.0f} img/s), host clock, one "
             f"sync, on {smi}")
 
+    # 18. mega-bisect — the profiling path's cut kernel, counted in the probe
+    _, fcfg = nnue_sim_params(q, device="cuda")
+    for tag, hd, c in (("flagship", heads[0], fcfg), ("stress", sheads[0], scfg)):
+        for batch in (TIMING_BATCH, 37):
+            xb = normalize_images(torch.rand((batch, H, W, 3), generator=gen,
+                                             device="cuda"))
+            xb = xb.reshape(batch, -1).contiguous()
+            for level in range(len(nk.STAGES)):
+                skw = dict(cfg=c, image_h=H, image_w=W, level=level)
+                got = nk.nnue_mega_stage(hd, xb, **skw)
+                check(got.shape == (batch, nk.STAGE_OUT), "stage output shape")
+                errs.equal("nnue_mega_stage_kernel",
+                           f"{tag} B={batch} level {level}", got,
+                           nk.nnue_mega_stage_reference(hd, xb, **skw))
+        torch.cuda.synchronize()
+    say("mega-bisect", "levels 0-3 (" + ", ".join(nk.STAGES) + ") on the "
+        "flagship and the stress model at B=8192 and 37: kernel equal to "
+        "plain (tolerance: none, torch.equal)")
+    nk.reset_launch_counts()
+    bis = profile_mega_bisect.run(TIMING_BATCH, "cuda", reps=BISECT_REPS)
+    probe_launches = {"nnue_mega_stage_kernel": nk.LAUNCHES["nnue_mega_stage_kernel"]}
+    check(all(bis[v + "_ms"] > 0 for v in profile_mega_bisect.VARIANTS),
+          f"a probe time is not positive: {bis}")
+    say("mega-bisect", "profile_mega_bisect " + json.dumps(bis))
+    skw = dict(cfg=fcfg, image_h=H, image_w=W, level=3)
+    ms["nnue_mega_stage_kernel"] = time_pair(
+        lambda: nk.nnue_mega_stage(mega, flat, **skw),
+        lambda: nk.nnue_mega_stage_reference(mega, flat, **skw))
+    bounds["nnue_mega_stage_kernel"] = bound(
+        nbytes(flat, mega["conv_w"], mega["conv_b"], mega["ft_w"], mega["ft_b"],
+               mega["padsum"]) + TIMING_BATCH * nk.STAGE_OUT * 4,
+        int_ops=conv_ops + n_act * fcfg.l1, f32_ops=flat.numel())
+    library["nnue_mega_stage_kernel"] = None  # no call stops the engine at the FT
+    say("timing", f"B={TIMING_BATCH} cut mega kernel, level 3 (ft): kernel "
+        f"{ms['nnue_mega_stage_kernel'][0]:.4f} ms, plain "
+        f"{ms['nnue_mega_stage_kernel'][1]:.4f} ms on {smi}")
+
+    # 19. warp-split — the single passes, counted in the probe
+    for batch in AUGMENT_BATCHES:
+        images = torch.from_numpy(ds.images[:batch]).cuda()
+        packed = images.reshape(batch, H, W * 3)
+        draws = aug.draw_tier(agen, "heavy", batch, H, W, "cuda")
+        frame_out = wk.pack_warp_params(*wk.warp_coefficients(
+            torch.eye(2).expand(batch, 2, 2).contiguous(),
+            torch.tensor([70.0, -90.0]).expand(batch, 2).contiguous(), H, W))
+        cases = {"heavy-tier maps (block 1)": draws.warp1,
+                 "heavy-tier maps (block 2)": draws.warp2,
+                 "out-of-frame maps": frame_out.cuda()}
+        for name, params in cases.items():
+            zero_fill = False
+            for coef in (params[:, 1:4].contiguous(), params[:, 4:7].contiguous()):
+                for kernel, fn, ref in (
+                        ("lerp_pass_kernel", wk.lerp_pass, wk.lerp_pass_reference),
+                        ("nogather_pass_kernel", wk.nogather_pass,
+                         wk.nogather_pass_reference)):
+                    got = fn(packed, coef, n=W, c=3)
+                    errs.equal(kernel, f"B={batch} {name} {fn.__name__}", got,
+                               ref(packed, coef, n=W, c=3))
+                    zero_fill |= torch.equal(got, torch.zeros_like(got))
+            check(zero_fill or name != "out-of-frame maps",
+                  "no pass of the out-of-frame maps is zero")
+        w1 = draws.warp1
+        check(torch.equal(profile_warp_split.five_stage_warp(
+            images, w1[:, 0] > 0.5, w1[:, 1:4].contiguous(), w1[:, 4:7].contiguous()),
+            wk.warp_bilinear(images, w1)), "five-stage warp differs from warp_kernel")
+        torch.cuda.synchronize()
+        if batch != 1024:
+            continue
+        coef1 = w1[:, 1:4].contiguous()
+        for kernel, fn, ref in (
+                ("lerp_pass_kernel", wk.lerp_pass, wk.lerp_pass_reference),
+                ("nogather_pass_kernel", wk.nogather_pass,
+                 wk.nogather_pass_reference)):
+            ms[kernel] = time_pair(lambda f=fn: f(packed, coef1, n=W, c=3),
+                                   lambda f=ref: f(packed, coef1, n=W, c=3))
+            # per value: a position (two multiplies, two adds) and a lerp
+            # (floor, three subtracts, two multiplies, an add)
+            bounds[kernel] = bound(2 * nbytes(packed) + nbytes(coef1),
+                                   f32_ops=9 * packed.numel())
+        # one library call computes a single pass: grid_sample on the rows
+        # as a (B, C, R, N) image, its grid holding the same positions
+        rows = torch.arange(H, device="cuda", dtype=torch.float32)[None, :, None]
+        cols = torch.arange(W, device="cuda", dtype=torch.float32)[None, None, :]
+        pos = (coef1[:, 0, None, None] * rows + coef1[:, 1, None, None] * cols
+               + coef1[:, 2, None, None])
+        grid = torch.stack([pos * (2.0 / (W - 1)) - 1.0,
+                            (rows * (2.0 / (H - 1)) - 1.0).expand_as(pos)], dim=-1)
+        src = images.permute(0, 3, 1, 2)
+
+        def sample():
+            return torch.nn.functional.grid_sample(
+                src, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True)
+        check(torch.allclose(sample().permute(0, 2, 3, 1).reshape(packed.shape),
+                             wk.lerp_pass(packed, coef1, n=W, c=3), atol=1e-4),
+              "grid_sample does not compute the lerp pass")
+        library["lerp_pass_kernel"] = time_median(sample)
+        library["nogather_pass_kernel"] = None  # no call reads in place of taps
+    say("warp-split", f"B={AUGMENT_BATCHES}: lerp_pass and nogather_pass on "
+        "heavy-tier and out-of-frame maps equal to plain (tolerance: none, "
+        "torch.equal); the five-stage composition equal to warp_kernel")
+    for kernel in ("lerp_pass_kernel", "nogather_pass_kernel"):
+        k, p = ms[kernel]
+        say("timing", f"B=1024 {kernel}: kernel {k:.4f} ms, plain {p:.4f} ms"
+            + (f", grid_sample {library[kernel]:.4f} ms" if library[kernel]
+               else "") + f" on {smi}")
+    os.environ["WARP_SPLIT_REPS"] = WARP_SPLIT_REPS
+    wk.reset_launch_counts()
+    split = profile_warp_split.run(AUGMENT_BATCHES[0], "cuda")
+    for kernel in ("lerp_pass_kernel", "nogather_pass_kernel"):
+        probe_launches[kernel] = wk.LAUNCHES[kernel]
+    check(all(v > 0 for v in split["ms"].values()),
+          f"a probe time is not positive: {split}")
+    say("warp-split", "profile_warp_split " + json.dumps(split))
+
+    # 20. trace
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = load_config(TRACE_CONFIG)
+        tcfg.use_augmentation = True  # the light tier: the fused K3 path
+        tcfg.log_dir = str(Path(tmp) / "logs")
+        tcfg.profile_dir = str(Path(tmp) / "trace")
+        os.environ["NV_SKIP_ENGINE"] = "1"
+        check(train_model(tcfg, "nnue", device="cuda") == 0,
+              "train_model with profile_dir failed")
+        trace = Path(tcfg.profile_dir) / "train_epoch0.trace.json"
+        events = json.loads(trace.read_text())["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        check(any("light_pipeline_kernel" in k for k in kernels),
+              f"light_pipeline_kernel is not in the trace's kernels: {kernels}")
+        say("trace", f"{TRACE_CONFIG} with the light tier: {trace.name}, "
+            f"{trace.stat().st_size} bytes, {len(events)} events, "
+            f"{len(kernels)} distinct CUDA kernels, light_pipeline_kernel "
+            "among them")
+
+    # 21. launches
+    check(all(n > 0 for n in probe_launches.values()),
+          f"a probe kernel never launched: {probe_launches}")
+    say("launches", "profiling " + json.dumps(probe_launches) + " (host calls "
+        "in the probes: each warm-up and each call captured in a CUDA graph; "
+        "the graph's replays add none)")
+    launches.update(probe_launches)
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs.max[name], "ms": ms[name][0],
-         "plain_ms": ms[name][1]}
+         "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": library[name]}
         for name in SOURCES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

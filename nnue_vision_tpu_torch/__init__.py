@@ -22,13 +22,19 @@ training of both model families (NNUE and EtinyNet) on one device:
   tier's fused input kernel (`ops/input_pipeline.py`), and `training/`
   with `train_model` and its CLI, `python -m nnue_vision_tpu_torch.train`.
 
-The `.nnue` / `.etiny` readers and writers and their records are the
-framework-free `nnue_vision_tpu.formats`, shared by both packages.
+* `profile_mega_bisect.py` and `profile_warp_split.py`: the profiling
+  probes, on the stage-cut mega kernel and the single warp passes
+  (`ops/timing.py` times them in CUDA graphs), and `train_model`'s
+  `profile_dir` trace.
+
+The `.nnue` / `.etiny` readers and writers and their records are
+`formats.py` and `quantize.py`, numpy-only copies of the JAX package's
+modules: the port imports nothing of `nnue_vision_tpu`.
 """
 
 __version__ = "0.1.0"
 
-from nnue_vision_tpu.formats import (  # noqa: F401
+from nnue_vision_tpu_torch.formats import (  # noqa: F401
     QConv,
     QFeatureTransformer,
     QLBBlock,

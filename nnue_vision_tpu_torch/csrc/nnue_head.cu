@@ -9,6 +9,19 @@
 //                     behind nnue_engine_forward_fused and fused_nnue_head):
 //                     int32 conv accumulator -> logits (+ active count).
 //
+// nnue_mega_kernel is a template on the last stage it runs (Stage below).
+// The full instantiation is the serving kernel. The cut ones,
+// nnue_mega_stage_kernel in the launch counts, replace the profiling probe
+// scripts/profile_mega_bisect.py make_stage_call (its inner `kernel`): they
+// run the same code up to the end of one stage, for every feature, and
+// write the first 128 values that stage left in shared memory as float32
+// (exact: every integer there is below 2^24). A cut kernel is bound like
+// the full one, by the image read and then by the head's L2 reads; the
+// stage split measures where the full kernel's time goes, one block of 256
+// threads per image, not the TPU's tiled matmul form. Every stage writes
+// shared memory that later threads read after a barrier, so nvcc cannot
+// drop a cut stage's work.
+//
 // Both compute the engine's integers directly in int32, as the C++ engine
 // does. The TPU version lifted the conv to a dense (H*W*3, FR) matrix
 // (conv_as_matrix, ~100x FLOP padding, 3 MB operand) and fed every dot in
@@ -44,6 +57,20 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxStaticSmem = 48 * 1024;
+
+// The stages of nnue_mega_kernel, in order; the template argument names the
+// last one run. kStage stages the raw image, kQuant quantizes it as it is
+// staged, kConv adds the conv, kFT the epilogue, threshold and FT, kFull the
+// pairwise and dense layers (the serving kernel).
+enum Stage : int { kStage = 0, kQuant = 1, kConv = 2, kFT = 3, kFull = 4 };
+constexpr int kStageOut = 128;  // values a cut kernel writes per image
+
+// out[img, :kStageOut] = float(v[:kStageOut]) for a cut kernel.
+template <typename T>
+__device__ inline void write_stage(const T* v, int img, float* out) {
+  for (int t = threadIdx.x; t < kStageOut; t += blockDim.x)
+    out[static_cast<size_t>(img) * kStageOut + t] = static_cast<float>(v[t]);
+}
 
 struct HeadArgs {
   float thresh;          // engine threshold as float32
@@ -112,7 +139,9 @@ __device__ inline int dense_row(const int8_t* x, const int8_t* w, int n_in, int 
 
 // The engine's post-conv pipeline for one image (block). `acc` holds the FR
 // int32 conv accumulators (shared or global memory); `smem` has
-// head_smem_bytes() of 16-byte aligned scratch.
+// head_smem_bytes() of 16-byte aligned scratch. With kStop == kFT it stops
+// after the FT and writes the clipped FT to `logits` as (B, kStageOut).
+template <int kStop>
 __device__ void head_routine(const HeadArgs& a, const int* acc, unsigned char* smem,
                              int img, float* logits, int* count) {
   const int tid = threadIdx.x;
@@ -164,6 +193,10 @@ __device__ void head_routine(const HeadArgs& a, const int* acc, unsigned char* s
     s_ft[j + 3] = wrap16_relu(s3, a.qone);
   }
   __syncthreads();
+  if constexpr (kStop == kFT) {
+    write_stage(s_ft, img, logits);
+    return;
+  }
 
   // 6. pairwise: clamp((a*b)/128, 0, 127) || clamp(a, 0, 127), as int8.
   const int half = a.l1 / 2;
@@ -221,42 +254,12 @@ __device__ inline int bf16_int(uint32_t bits) {
   return static_cast<int>(__uint_as_float((bits & 0xFFFFu) << 16));
 }
 
-__global__ void __launch_bounds__(kThreads)
-nnue_mega_kernel(ConvArgs c, HeadArgs a, float* logits, int* count) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int img = blockIdx.x;
-  const int hw3 = c.h * c.w * 3;
-  int* s_q = reinterpret_cast<int*>(smem);  // quantized image, (H, W, 3)
-  int* s_cw = s_q + hw3;                    // conv weights
-  int* s_acc = s_cw + c.channels * 27;      // FR conv accumulators
-
-  // Stage the quantized image in shared memory, 16 bytes per thread and
-  // load where the image is a multiple of 4 values.
-  const float* xf = static_cast<const float*>(c.images) + static_cast<size_t>(img) * hw3;
-  const uint16_t* xb = static_cast<const uint16_t*>(c.images) + static_cast<size_t>(img) * hw3;
-  if ((hw3 & 3) == 0) {
-    for (int v = threadIdx.x; v < (hw3 >> 2); v += blockDim.x) {
-      int4 q;
-      if (c.bf16_input) {
-        const uint2 b = __ldg(reinterpret_cast<const uint2*>(xb) + v);
-        q = make_int4(bf16_int(b.x), bf16_int(b.x >> 16), bf16_int(b.y), bf16_int(b.y >> 16));
-      } else {
-        const float4 f = __ldg(reinterpret_cast<const float4*>(xf) + v);
-        q = make_int4(quantize(f.x, c.in_scale), quantize(f.y, c.in_scale),
-                      quantize(f.z, c.in_scale), quantize(f.w, c.in_scale));
-      }
-      reinterpret_cast<int4*>(s_q)[v] = q;
-    }
-  } else {
-    for (int v = threadIdx.x; v < hw3; v += blockDim.x)
-      s_q[v] = c.bf16_input ? bf16_int(xb[v]) : quantize(xf[v], c.in_scale);
-  }
-  for (int t = threadIdx.x; t < c.channels * 27; t += blockDim.x) s_cw[t] = c.conv_w[t];
-  __syncthreads();
-
-  // 3x3 pad-1 strided conv + bias in int32, feature f = (i*ow + j)*C + ch
-  // (NHWC flat order of the engine's conv buffer).
-  for (int f = threadIdx.x; f < a.fr; f += blockDim.x) {
+// 3x3 pad-1 strided conv + bias in int32 from the staged image `s_q` and
+// weights `s_cw` into `s_acc`, feature f = (i*ow + j)*C + ch (NHWC flat
+// order of the engine's conv buffer).
+__device__ inline void conv_stage(const ConvArgs& c, int fr, const int* s_q,
+                                  const int* s_cw, int* s_acc) {
+  for (int f = threadIdx.x; f < fr; f += blockDim.x) {
     const int ch = f % c.channels, pos = f / c.channels;
     const int i = pos / c.ow, j = pos % c.ow;
     const int* wc = s_cw + ch * 27;  // [cin][kh][kw]
@@ -274,16 +277,67 @@ nnue_mega_kernel(ConvArgs c, HeadArgs a, float* logits, int* count) {
     }
     s_acc[f] = acc;
   }
+}
+
+template <int kStop>
+__global__ void __launch_bounds__(kThreads)
+nnue_mega_kernel(ConvArgs c, HeadArgs a, float* logits, int* count) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int img = blockIdx.x;
+  const int hw3 = c.h * c.w * 3;
+  int* s_q = reinterpret_cast<int*>(smem);  // quantized image, (H, W, 3)
+  int* s_cw = s_q + hw3;                    // conv weights
+  int* s_acc = s_cw + c.channels * 27;      // FR conv accumulators
+
+  // Stage the quantized image in shared memory, 16 bytes per thread and
+  // load where the image is a multiple of 4 values (kStage: the raw float
+  // bits, unquantized).
+  const float* xf = static_cast<const float*>(c.images) + static_cast<size_t>(img) * hw3;
+  const uint16_t* xb = static_cast<const uint16_t*>(c.images) + static_cast<size_t>(img) * hw3;
+  if ((hw3 & 3) == 0) {
+    for (int v = threadIdx.x; v < (hw3 >> 2); v += blockDim.x) {
+      int4 q;
+      if (c.bf16_input) {
+        const uint2 b = __ldg(reinterpret_cast<const uint2*>(xb) + v);
+        q = make_int4(bf16_int(b.x), bf16_int(b.x >> 16), bf16_int(b.y), bf16_int(b.y >> 16));
+      } else {
+        const float4 f = __ldg(reinterpret_cast<const float4*>(xf) + v);
+        if constexpr (kStop == kStage)
+          q = make_int4(__float_as_int(f.x), __float_as_int(f.y),
+                        __float_as_int(f.z), __float_as_int(f.w));
+        else
+          q = make_int4(quantize(f.x, c.in_scale), quantize(f.y, c.in_scale),
+                        quantize(f.z, c.in_scale), quantize(f.w, c.in_scale));
+      }
+      reinterpret_cast<int4*>(s_q)[v] = q;
+    }
+  } else {
+    for (int v = threadIdx.x; v < hw3; v += blockDim.x)
+      s_q[v] = c.bf16_input ? bf16_int(xb[v])
+               : kStop == kStage ? __float_as_int(xf[v]) : quantize(xf[v], c.in_scale);
+  }
+  for (int t = threadIdx.x; t < c.channels * 27; t += blockDim.x) s_cw[t] = c.conv_w[t];
   __syncthreads();
-  head_routine(a, s_acc, smem + align16(4 * (hw3 + c.channels * 27 + a.fr)), img,
-               logits, count);
+  if constexpr (kStop == kStage) {
+    write_stage(reinterpret_cast<const float*>(s_q), img, logits);
+  } else if constexpr (kStop == kQuant) {
+    write_stage(s_q, img, logits);
+  } else {
+    conv_stage(c, a.fr, s_q, s_cw, s_acc);
+    __syncthreads();
+    if constexpr (kStop == kConv)
+      write_stage(s_acc, img, logits);
+    else
+      head_routine<kStop>(a, s_acc, smem + align16(4 * (hw3 + c.channels * 27 + a.fr)),
+                          img, logits, count);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
 nnue_head_kernel(const int* acc, HeadArgs a, float* logits, int* count) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int img = blockIdx.x;
-  head_routine(a, acc + static_cast<size_t>(img) * a.fr, smem, img, logits, count);
+  head_routine<kFull>(a, acc + static_cast<size_t>(img) * a.fr, smem, img, logits, count);
 }
 
 HeadArgs make_head(float thresh, int n_pad, int fr, int l1, int l2, int l3, int nc,
@@ -308,17 +362,11 @@ HeadArgs make_head(float thresh, int n_pad, int fr, int l1, int l2, int l3, int 
   return a;
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* nnue_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-int nnue_mega_launch(
-    const void* images, int bf16_input, int batch, int h, int w, int stride,
-    int oh, int ow, int channels, float in_scale, const void* conv_w,
+// nnue_mega_kernel<stop> on `stream`: its shared memory and argument checks,
+// then cudaGetLastError().
+int mega_launch(
+    int stop, const void* images, int bf16_input, int batch, int h, int w,
+    int stride, int oh, int ow, int channels, float in_scale, const void* conv_w,
     const void* conv_b,
     float thresh, int n_pad, int fr, int l1, int l2, int l3, int nc,
     int qone, int s1, int s2, int conv_scale, float out_scale,
@@ -337,9 +385,63 @@ int nnue_mega_launch(
   const HeadArgs a = make_head(thresh, n_pad, fr, l1, l2, l3, nc, qone, s1, s2,
                                conv_scale, out_scale, padsum, ft_w, ft_b, fc1_w,
                                fc1_b, fc2_w, fc2_b, out_w, out_b);
-  nnue_mega_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      c, a, static_cast<float*>(logits), static_cast<int*>(count));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(logits);
+  int* cnt = static_cast<int*>(count);
+  switch (stop) {
+    case kStage: nnue_mega_kernel<kStage><<<batch, kThreads, smem, s>>>(c, a, out, cnt); break;
+    case kQuant: nnue_mega_kernel<kQuant><<<batch, kThreads, smem, s>>>(c, a, out, cnt); break;
+    case kConv: nnue_mega_kernel<kConv><<<batch, kThreads, smem, s>>>(c, a, out, cnt); break;
+    case kFT: nnue_mega_kernel<kFT><<<batch, kThreads, smem, s>>>(c, a, out, cnt); break;
+    case kFull: nnue_mega_kernel<kFull><<<batch, kThreads, smem, s>>>(c, a, out, cnt); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* nnue_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int nnue_mega_launch(
+    const void* images, int bf16_input, int batch, int h, int w, int stride,
+    int oh, int ow, int channels, float in_scale, const void* conv_w,
+    const void* conv_b,
+    float thresh, int n_pad, int fr, int l1, int l2, int l3, int nc,
+    int qone, int s1, int s2, int conv_scale, float out_scale,
+    const void* padsum, const void* ft_w, const void* ft_b,
+    const void* fc1_w, const void* fc1_b, const void* fc2_w,
+    const void* fc2_b, const void* out_w, const void* out_b,
+    void* logits, void* count, void* stream) {
+  return mega_launch(kFull, images, bf16_input, batch, h, w, stride, oh, ow, channels,
+                     in_scale, conv_w, conv_b, thresh, n_pad, fr, l1, l2, l3, nc, qone,
+                     s1, s2, conv_scale, out_scale, padsum, ft_w, ft_b, fc1_w, fc1_b,
+                     fc2_w, fc2_b, out_w, out_b, logits, count, stream);
+}
+
+// The cut kernel nnue_mega_kernel<level>, level 0..3, on float32 images:
+// out (B, 128) float32. Needs H*W*3, FR and L1 all >= 128.
+int nnue_mega_stage_launch(
+    int level, const void* images, int batch, int h, int w, int stride,
+    int oh, int ow, int channels, float in_scale, const void* conv_w,
+    const void* conv_b,
+    float thresh, int n_pad, int fr, int l1, int l2, int l3, int nc,
+    int qone, int s1, int s2, int conv_scale, float out_scale,
+    const void* padsum, const void* ft_w, const void* ft_b,
+    const void* fc1_w, const void* fc1_b, const void* fc2_w,
+    const void* fc2_b, const void* out_w, const void* out_b,
+    void* out, void* stream) {
+  if (level < kStage || level >= kFull || h * w * 3 < kStageOut || fr < kStageOut ||
+      l1 < kStageOut)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return mega_launch(level, images, 0, batch, h, w, stride, oh, ow, channels,
+                     in_scale, conv_w, conv_b, thresh, n_pad, fr, l1, l2, l3, nc, qone,
+                     s1, s2, conv_scale, out_scale, padsum, ft_w, ft_b, fc1_w, fc1_b,
+                     fc2_w, fc2_b, out_w, out_b, out, nullptr, stream);
 }
 
 int nnue_head_launch(

@@ -1,8 +1,19 @@
 // The composed-geometry bilinear warp for Hopper (sm_90a).
 //
-//   warp_kernel  replaces nnue_vision_tpu/ops/warp_kernel.py
-//                _lerp_pass_kernel (lerp_pass, driven by warp_bilinear):
-//                the whole two-pass warp of one image in one launch.
+//   warp_kernel       replaces nnue_vision_tpu/ops/warp_kernel.py
+//                     _lerp_pass_kernel (lerp_pass, driven by
+//                     warp_bilinear): the whole two-pass warp of one image
+//                     in one launch.
+//   lerp_pass_kernel  one pass alone, the TPU kernel at its own
+//     <true>          granularity (lerp_pass): for the profiling probe.
+//   lerp_pass_kernel  replaces scripts/profile_warp_split.py
+//     <false>         _nogather_kernel (_nogather_pass): the same pass with
+//                     the two reads at the computed positions replaced by a
+//                     read of the output's own position, to price the
+//                     gather.
+//
+// All three run one index arithmetic (taps() below) and one blend, so the
+// probe prices the arithmetic the shipped kernel runs.
 //
 // What it computes, for a square (n, n, c) image and its packed parameters
 // p = [swap, k1_row, k1_lane, k1_c, k2_row, k2_lane, k2_c, 0]
@@ -29,8 +40,15 @@
 // ~6k gathers from shared memory, so at this size launch and latency weigh
 // as much as the bytes.
 //
-// C interface (ctypes): the launcher returns cudaGetLastError() after the
-// launch. The kernel launches on the caller's stream and allocates nothing.
+// lerp_pass_kernel runs one thread per output value of a (B, R, N*C)
+// float32 batch, 256 threads a block over the flattened batch (about 2.7
+// packed 96-value rows per block at 32x32x3). What bounds it: bytes, 12.6
+// MB read and 12.6 MB written at B = 1024, ~7.5 us at 3.35 TB/s; its reads
+// at the computed positions hit the rows its own block just brought into
+// L1, which is what the no-gather control shows.
+//
+// C interface (ctypes): each launcher returns cudaGetLastError() after the
+// launch. The kernels launch on the caller's stream and allocate nothing.
 
 #include <cuda_runtime.h>
 
@@ -39,14 +57,34 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kParams = 8;
 
+// The two taps of a linear resample at `pos` along an axis of extent n:
+// i0 = floor(pos), its weight fraction, and which taps lie inside [0, n).
+struct Taps {
+  int i0;
+  float fr;
+  bool in0, in1;
+};
+
+__device__ inline Taps taps(float pos, int n) {
+  const float i0f = floorf(pos);
+  Taps t;
+  t.i0 = static_cast<int>(i0f);
+  t.fr = __fsub_rn(pos, i0f);
+  t.in0 = t.i0 >= 0 && t.i0 < n;
+  t.in1 = t.i0 + 1 >= 0 && t.i0 + 1 < n;
+  return t;
+}
+
+// v0*(1 - fr) + v1*fr; the caller reads 0 for a tap outside the axis.
+__device__ inline float blend(const Taps& t, float v0, float v1) {
+  return __fadd_rn(__fmul_rn(v0, __fsub_rn(1.0f, t.fr)), __fmul_rn(v1, t.fr));
+}
+
 __device__ inline float lerp_at(const float* base, int stride, int n,
                                 float pos) {
-  const float i0f = floorf(pos);
-  const float fr = __fsub_rn(pos, i0f);
-  const int i0 = static_cast<int>(i0f);
-  const float v0 = (i0 >= 0 && i0 < n) ? base[i0 * stride] : 0.0f;
-  const float v1 = (i0 + 1 >= 0 && i0 + 1 < n) ? base[(i0 + 1) * stride] : 0.0f;
-  return __fadd_rn(__fmul_rn(v0, __fsub_rn(1.0f, fr)), __fmul_rn(v1, fr));
+  const Taps t = taps(pos, n);
+  return blend(t, t.in0 ? base[t.i0 * stride] : 0.0f,
+               t.in1 ? base[(t.i0 + 1) * stride] : 0.0f);
 }
 
 __device__ inline float position(float k_row, float row, float k_lane,
@@ -103,6 +141,35 @@ warp_kernel(const float* __restrict__ x, const float* __restrict__ params,
   }
 }
 
+// One resample pass over (B, rows, n*c) packed rows: lane l = x*c + ch of
+// row r reads positions k_row*r + k_lane*x + k_c of its row (kGather), or
+// its own value in their place (the no-gather control).
+template <bool kGather>
+__global__ void __launch_bounds__(kThreads)
+lerp_pass_kernel(const float* __restrict__ x, const float* __restrict__ coef,
+                 int batch, int rows, int n, int c, float* __restrict__ out) {
+  const int lanes = n * c;
+  const int per_img = rows * lanes;
+  const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<size_t>(batch) * per_img) return;
+  const int b = static_cast<int>(e / per_img);
+  const int rem = static_cast<int>(e - static_cast<size_t>(b) * per_img);
+  const int r = rem / lanes;
+  const int l = rem - r * lanes;
+  const int xo = l / c;
+  const int ch = l - xo * c;
+  const float* k = coef + 3 * b;
+  const float pos = position(k[0], static_cast<float>(r), k[1],
+                             static_cast<float>(xo), k[2]);
+  if constexpr (kGather) {
+    out[e] = lerp_at(x + (e - l) + ch, c, n, pos);
+  } else {
+    const float v = __ldg(x + e);
+    const Taps t = taps(pos, n);
+    out[e] = blend(t, t.in0 ? v : 0.0f, t.in1 ? v : 0.0f);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -119,6 +186,22 @@ int warp_launch(const void* x, int batch, int n, int c, const void* params,
   warp_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(params), n, c,
       static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int lerp_pass_launch(const void* x, int batch, int rows, int n, int c,
+                     const void* coef, int gather, void* out, void* stream) {
+  if (batch <= 0 || rows <= 0 || n <= 0 || c <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t total = static_cast<size_t>(batch) * rows * n * c;
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* cf = static_cast<const float*>(coef);
+  float* o = static_cast<float*>(out);
+  if (gather)
+    lerp_pass_kernel<true><<<blocks, kThreads, 0, s>>>(xf, cf, batch, rows, n, c, o);
+  else
+    lerp_pass_kernel<false><<<blocks, kThreads, 0, s>>>(xf, cf, batch, rows, n, c, o);
   return static_cast<int>(cudaGetLastError());
 }
 

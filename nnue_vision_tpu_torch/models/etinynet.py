@@ -42,9 +42,14 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from nnue_vision_tpu.formats import QConv, QLBBlock, QLinear, QuantizedEtinyNet
-from nnue_vision_tpu.quantize import quantize_bias_i32, quantize_weight_i8
+from nnue_vision_tpu_torch.formats import (
+    QConv,
+    QLBBlock,
+    QLinear,
+    QuantizedEtinyNet,
+)
 from nnue_vision_tpu_torch.models.nnue import _clip
+from nnue_vision_tpu_torch.quantize import quantize_bias_i32, quantize_weight_i8
 
 ETINYNET_VARIANTS = {
     "1.0": {

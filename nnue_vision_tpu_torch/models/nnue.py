@@ -27,13 +27,13 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from nnue_vision_tpu.formats import (
+from nnue_vision_tpu_torch.formats import (
     QConv,
     QFeatureTransformer,
     QLinear,
     QuantizedNNUE,
 )
-from nnue_vision_tpu.quantize import (
+from nnue_vision_tpu_torch.quantize import (
     QUANT_SCALE,
     clip_unit,
     quantize_bias_i32,

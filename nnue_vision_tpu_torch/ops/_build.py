@@ -42,11 +42,17 @@ SIGNATURES = {
         + [_P, _P, _P],
         _I,
     ),
+    "nnue_mega_stage_launch": (
+        [_I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P] + _HEAD_ARGS
+        + [_P, _P],
+        _I,
+    ),
     "nnue_head_launch": ([_P, _I] + _HEAD_ARGS + [_P, _P, _P], _I),
     "light_pipeline_launch": (
         [_P, _I, _I, _I, _P, _P, _P, _I] + [_F] * 6 + [_P, _P], _I,
     ),
     "warp_launch": ([_P, _I, _I, _I, _P, _P, _P], _I),
+    "lerp_pass_launch": ([_P, _I, _I, _I, _I, _P, _I, _P, _P], _I),
     "photometric_launch": ([_P, _P, _P, _P] + [_I] * 6 + [_P, _P], _I),
     "etiny_block_smem": ([_I] * 7, _I),
     "etiny_block_launch": ([_P] + [_I] * 12 + [_P] * 6, _I),

@@ -33,7 +33,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from nnue_vision_tpu.formats import QuantizedEtinyNet, QuantizedNNUE
+from nnue_vision_tpu_torch.formats import QuantizedEtinyNet, QuantizedNNUE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,23 +187,30 @@ def grid_buffer(conv_out_flat: torch.Tensor, num_features: int) -> torch.Tensor:
     return torch.nn.functional.pad(conv_out_flat.to(torch.int64), (0, pad))
 
 
+def feature_transform(
+    params: Dict[str, torch.Tensor], buf: torch.Tensor,
+    thresh: torch.Tensor, cfg: NNUESimCfg,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Threshold → FT → int16 wrap → clipped ReLU from the (B, F) grid
+    buffer: (ft (B, L1) int64 in [0, quantized_one], active mask (B, F)).
+    `thresh` is a float32 scalar tensor (nnue_engine.h:246 compares floats).
+    """
+    mask = buf.to(torch.float32) > thresh
+    # Feature transformer: int16 accumulator with wraparound
+    # (simd_scalar.cpp:78-95) == exact sum reduced mod 2^16.
+    ft = _dot(mask, params["ft_w"]) + params["ft_b"].to(torch.int64)
+    return torch.clamp(_wrap_i16(ft), 0, cfg.quantized_one), mask
+
+
 def nnue_tail(
     params: Dict[str, torch.Tensor], buf: torch.Tensor,
     thresh: torch.Tensor, cfg: NNUESimCfg,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Engine from the (B, F) grid buffer to (logits, active_count).
-
-    Threshold → FT → int16 wrap → clipped ReLU → pairwise → dense stack,
-    with the weights in `.nnue` layout: `ft_w` (F, L1), `fc*_w` (out, in).
-    `thresh` is a float32 scalar tensor (nnue_engine.h:246 compares floats).
-    """
-    mask = buf.to(torch.float32) > thresh
+    """Engine from the (B, F) grid buffer to (logits, active_count):
+    `feature_transform`, then pairwise and the dense stack, with the
+    weights in `.nnue` layout: `ft_w` (F, L1), `fc*_w` (out, in)."""
+    ft, mask = feature_transform(params, buf, thresh, cfg)
     active_count = mask.sum(dim=1, dtype=torch.int32)
-
-    # Feature transformer: int16 accumulator with wraparound
-    # (simd_scalar.cpp:78-95) == exact sum reduced mod 2^16.
-    ft = _dot(mask, params["ft_w"]) + params["ft_b"].to(torch.int64)
-    ft = torch.clamp(_wrap_i16(ft), 0, cfg.quantized_one)
 
     # Pairwise interaction (nnue_engine.cpp:491-500).
     half = cfg.l1 // 2

@@ -11,6 +11,11 @@ Port of `nnue_vision_tpu/ops/pallas_kernels.py:236-599`. Two CUDA kernels
   package likewise leaves this conv to XLA.
 * `fused_nnue_head`: the head kernel from an already clipped, zero-padded
   (B, F) grid buffer.
+* `nnue_mega_stage`: the mega kernel cut off after stage 0-3 (the
+  profiling probe `scripts/profile_mega_bisect.py` `make_stage_call`;
+  `nnue_vision_tpu_torch.profile_mega_bisect` times it). The cut kernels
+  are instantiations of the serving kernel's template, so they split the
+  time of the kernel that serves.
 
 Each has a plain `*_reference` beside it, which `chip_smoke.py` and the
 tests hold the kernels against. The public functions dispatch on the
@@ -37,15 +42,19 @@ from nnue_vision_tpu_torch.ops.engine_sim import (
     conv_out_hw,
     density_of,
     engine_conv_stride,
+    feature_transform,
     grid_buffer,
     nnue_tail,
 )
 
 # Launches of each kernel since the last reset_launch_counts(); each wrapper
 # adds one where it launches its kernel, and nowhere else.
-LAUNCHES = {"nnue_mega_kernel": 0, "nnue_head_kernel": 0}
+LAUNCHES = {"nnue_mega_kernel": 0, "nnue_head_kernel": 0,
+            "nnue_mega_stage_kernel": 0}
 
 _MAX_SMEM = 48 * 1024  # static shared-memory limit of a block
+STAGE_OUT = 128  # values a cut mega kernel writes per image
+STAGES = ("stage", "quantize", "conv", "ft")  # levels 0-3 of nnue_mega_stage
 _INPUT_MODES = ("f32", "qbf16")
 _HEAD_KEYS = ("ft_w", "ft_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b", "out_w",
               "out_b")
@@ -226,9 +235,9 @@ def _require_cuda(x: torch.Tensor, what: str) -> None:
         )
 
 
-def _mega_launch(head, images_flat, *, cfg, image_h, image_w, with_count,
-                 input_mode):
-    """nnue_mega_kernel on CUDA tensors: (logits, count or None)."""
+def _mega_args(head, images_flat, *, cfg, image_h, image_w, input_mode):
+    """The mega kernels' image, conv and head arguments, after checking
+    them (CUDA tensors only); None for an empty batch."""
     _require_cuda(images_flat, "nnue_mega_kernel")
     dev = images_flat.device
     stride, oh, ow, fr = _geometry(cfg, image_h, image_w)
@@ -238,17 +247,52 @@ def _mega_launch(head, images_flat, *, cfg, image_h, image_w, with_count,
     _check_mega_smem(image_h, image_w, cfg, fr)
     _require(head["conv_w"], "conv_w", torch.int32, (cfg.channels, 3, 3, 3), dev)
     _require(head["conv_b"], "conv_b", torch.int32, (cfg.channels,), dev)
-    logits, count = _outputs_like(images_flat, cfg, with_count)
+    head_args = _head_args(head, head["padsum"], cfg, fr, cfg.num_features - fr,
+                           cfg.conv_scale, dev)
     if b == 0:
+        return None
+    return ([images_flat.data_ptr(), b, image_h, image_w, stride, oh, ow,
+             cfg.channels, float(cfg.conv_scale), head["conv_w"].data_ptr(),
+             head["conv_b"].data_ptr()] + head_args)
+
+
+def _mega_launch(head, images_flat, *, cfg, image_h, image_w, with_count,
+                 input_mode):
+    """nnue_mega_kernel on CUDA tensors: (logits, count or None)."""
+    args = _mega_args(head, images_flat, cfg=cfg, image_h=image_h,
+                      image_w=image_w, input_mode=input_mode)
+    logits, count = _outputs_like(images_flat, cfg, with_count)
+    if args is None:
         return logits, count
-    args = [images_flat.data_ptr(), int(input_mode == "qbf16"), b, image_h,
-            image_w, stride, oh, ow, cfg.channels, float(cfg.conv_scale),
-            head["conv_w"].data_ptr(), head["conv_b"].data_ptr()]
-    args += _head_args(head, head["padsum"], cfg, fr, cfg.num_features - fr,
-                       cfg.conv_scale, dev)
+    args.insert(1, int(input_mode == "qbf16"))
     args += [logits.data_ptr(), count.data_ptr() if with_count else None]
-    _launch("nnue_mega_launch", "nnue_mega_kernel", args, dev)
+    _launch("nnue_mega_launch", "nnue_mega_kernel", args, images_flat.device)
     return logits, count
+
+
+def _check_stage(level: int, cfg: NNUESimCfg, image_h: int, image_w: int):
+    _, _, _, fr = _geometry(cfg, image_h, image_w)
+    if level not in range(len(STAGES)):
+        raise ValueError(f"level must be 0..{len(STAGES) - 1}, not {level}")
+    sizes = {"H*W*3": image_h * image_w * 3, "FR": fr, "L1": cfg.l1}
+    small = {k: v for k, v in sizes.items() if v < STAGE_OUT}
+    if small:
+        raise ValueError(f"a cut mega kernel writes {STAGE_OUT} values per "
+                         f"image and needs each of H*W*3, FR, L1 >= "
+                         f"{STAGE_OUT}; got {small}")
+
+
+def _stage_launch(head, images_flat, *, cfg, image_h, image_w, level):
+    """nnue_mega_kernel<level> on CUDA tensors: (B, 128) float32."""
+    args = _mega_args(head, images_flat, cfg=cfg, image_h=image_h,
+                      image_w=image_w, input_mode="f32")
+    out = torch.empty((images_flat.shape[0], STAGE_OUT), dtype=torch.float32,
+                      device=images_flat.device)
+    if args is None:
+        return out
+    _launch("nnue_mega_stage_launch", "nnue_mega_stage_kernel",
+            [level] + args + [out.data_ptr()], images_flat.device)
+    return out
 
 
 def _head_launch(head, acc, *, cfg, n_pad, conv_scale, with_count):
@@ -300,6 +344,28 @@ def _mega_plain(head, images_flat, *, cfg, image_h, image_w, with_count,
     return _head_plain(head, acc.reshape(b, fr), cfg=cfg,
                        n_pad=cfg.num_features - fr,
                        conv_scale=cfg.conv_scale, with_count=with_count)
+
+
+def _stage_plain(head, images_flat, *, cfg, image_h, image_w, level):
+    """What nnue_mega_kernel<level> computes, in plain torch: the first 128
+    values of the quantized image (1), the conv accumulator (2) or the
+    clipped FT (3), or of the raw image (0), as float32."""
+    stride, _, _, fr = _geometry(cfg, image_h, image_w)
+    b = images_flat.shape[0]
+    if level == 0:
+        return images_flat[:, :STAGE_OUT].clone()
+    qin = _quantize_input(images_flat, cfg.conv_scale)
+    if level == 1:
+        return qin[:, :STAGE_OUT].to(torch.float32)
+    acc = _int_conv3x3(qin.reshape(b, image_h, image_w, 3), head["conv_w"],
+                       head["conv_b"], stride).reshape(b, fr)
+    if level == 2:
+        return acc[:, :STAGE_OUT].to(torch.float32)
+    buf = grid_buffer(conv_epilogue(acc, cfg.conv_scale), cfg.num_features)
+    thresh = torch.full((), head["thresh"], dtype=torch.float32,
+                        device=acc.device)
+    ft, _ = feature_transform(head, buf, thresh, cfg)
+    return ft[:, :STAGE_OUT].to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -411,3 +477,29 @@ def fused_nnue_head_reference(
     """`fused_nnue_head` in plain torch, on any device."""
     return _head_plain(head_params, conv_buf.to(torch.int32), cfg=cfg,
                        n_pad=0, conv_scale=1, with_count=True)
+
+
+def nnue_mega_stage(
+    head_params: Dict, images_flat: torch.Tensor, *, cfg: NNUESimCfg,
+    image_h: int, image_w: int, level: int,
+) -> torch.Tensor:
+    """The mega kernel cut off after stage `level` (see `STAGES`): (B, 128)
+    float32, the first 128 values that stage leaves (level 0 the raw image,
+    1 the quantized image, 2 the conv accumulator with bias, 3 the clipped
+    FT). `images_flat` is (B, H·W·3) float32; H·W·3, FR and L1 must each be
+    at least 128, as the JAX probe's slices need. Level 4 is
+    `nnue_engine_forward_mega` itself."""
+    _check_stage(level, cfg, image_h, image_w)
+    core = _stage_plain if images_flat.device.type == "cpu" else _stage_launch
+    return core(head_params, images_flat, cfg=cfg, image_h=image_h,
+                image_w=image_w, level=level)
+
+
+def nnue_mega_stage_reference(
+    head_params: Dict, images_flat: torch.Tensor, *, cfg: NNUESimCfg,
+    image_h: int, image_w: int, level: int,
+) -> torch.Tensor:
+    """`nnue_mega_stage` in plain torch, on any device."""
+    _check_stage(level, cfg, image_h, image_w)
+    return _stage_plain(head_params, images_flat, cfg=cfg, image_h=image_h,
+                        image_w=image_w, level=level)

@@ -17,8 +17,17 @@ The parameters travel as one (B, 8) float32 tensor per warp,
 Square images only: the swap is a transpose, undefined otherwise (the JAX
 package takes its gather path there; no shipped config is non-square).
 
-`warp_bilinear` dispatches on the device of the images: a CPU tensor takes
-the plain version, a CUDA tensor the kernel, which launches or raises.
+`lerp_pass` is one pass alone, the TPU kernel at its own granularity, and
+`nogather_pass` the same pass with its two reads at the computed positions
+replaced by the output's own value (the probe
+`scripts/profile_warp_split.py` `_nogather_pass`): the gap between the two
+is the gather's price, which `nnue_vision_tpu_torch.profile_warp_split`
+measures. Both are `lerp_pass_kernel` in `csrc/warp.cu`, on the index
+arithmetic `warp_kernel` runs.
+
+`warp_bilinear`, `lerp_pass` and `nogather_pass` dispatch on the device of
+their input: a CPU tensor takes the plain version, a CUDA tensor the
+kernel, which launches or raises.
 """
 
 from __future__ import annotations
@@ -29,7 +38,8 @@ import torch
 
 # Launches since the last reset_launch_counts(); the wrapper adds one where
 # it launches the kernel, and nowhere else.
-LAUNCHES = {"warp_kernel": 0}
+LAUNCHES = {"warp_kernel": 0, "lerp_pass_kernel": 0,
+            "nogather_pass_kernel": 0}
 PARAMS = 8
 
 
@@ -71,12 +81,10 @@ def pack_warp_params(swap: torch.Tensor, coef1: torch.Tensor,
                      dim=1).contiguous()
 
 
-def lerp_pass_reference(x: torch.Tensor, coef: torch.Tensor, *, n: int,
-                        c: int) -> torch.Tensor:
-    """The TPU's `lerp_pass` in eager torch: x (B, R, N·C), coef (B, 3)
-    [k_row, k_lane, k_c]; lane l = x·C + ch reads row positions
-    pos = k_row·r + k_lane·x + k_c, zero outside [0, n)."""
-    b, r_dim, lanes = x.shape
+def _taps(x: torch.Tensor, coef: torch.Tensor, n: int, c: int):
+    """Per output value of x (B, R, N·C): the lower tap i0, the fraction fr
+    and the lane's channel, at pos = k_row·r + k_lane·x + k_c."""
+    _, r_dim, lanes = x.shape
     dev = x.device
     rows = torch.arange(r_dim, device=dev, dtype=torch.float32)[None, :, None]
     lane = torch.arange(lanes, device=dev)
@@ -85,14 +93,35 @@ def lerp_pass_reference(x: torch.Tensor, coef: torch.Tensor, *, n: int,
     pos = (coef[:, 0, None, None] * rows + coef[:, 1, None, None] * xcoord
            + coef[:, 2, None, None])
     i0f = torch.floor(pos)
-    fr = pos - i0f
-    i0 = i0f.to(torch.int64)
+    return i0f.to(torch.int64), pos - i0f, ch
+
+
+def _blend(i0, fr, v0, v1, n: int) -> torch.Tensor:
+    """v0·(1 − fr) + v1·fr, a tap outside [0, n) reading 0."""
     i1 = i0 + 1
-    g0 = torch.clamp(i0, 0, n - 1) * c + ch
-    g1 = torch.clamp(i1, 0, n - 1) * c + ch
-    v0 = torch.where((i0 >= 0) & (i0 < n), torch.gather(x, 2, g0), 0.0)
-    v1 = torch.where((i1 >= 0) & (i1 < n), torch.gather(x, 2, g1), 0.0)
+    v0 = torch.where((i0 >= 0) & (i0 < n), v0, 0.0)
+    v1 = torch.where((i1 >= 0) & (i1 < n), v1, 0.0)
     return v0 * (1.0 - fr) + v1 * fr
+
+
+def lerp_pass_reference(x: torch.Tensor, coef: torch.Tensor, *, n: int,
+                        c: int) -> torch.Tensor:
+    """The TPU's `lerp_pass` in eager torch: x (B, R, N·C), coef (B, 3)
+    [k_row, k_lane, k_c]; lane l = x·C + ch reads row positions
+    pos = k_row·r + k_lane·x + k_c, zero outside [0, n)."""
+    i0, fr, ch = _taps(x, coef, n, c)
+    g0 = torch.clamp(i0, 0, n - 1) * c + ch
+    g1 = torch.clamp(i0 + 1, 0, n - 1) * c + ch
+    return _blend(i0, fr, torch.gather(x, 2, g0), torch.gather(x, 2, g1), n)
+
+
+def nogather_pass_reference(x: torch.Tensor, coef: torch.Tensor, *, n: int,
+                            c: int) -> torch.Tensor:
+    """`lerp_pass_reference` with the output's own value read in place of
+    both taps: where(valid0, x, 0)·(1 − fr) + where(valid1, x, 0)·fr
+    (`scripts/profile_warp_split.py` `_nogather_kernel`)."""
+    i0, fr, _ = _taps(x, coef, n, c)
+    return _blend(i0, fr, x, x, n)
 
 
 def _check(x: torch.Tensor, params: torch.Tensor) -> None:
@@ -148,6 +177,63 @@ def _launch(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
             f"warp_kernel launch failed: {lib.nnue_error_string(err).decode()}")
     LAUNCHES["warp_kernel"] += 1
     return out
+
+
+def _pass_launch(x: torch.Tensor, coef: torch.Tensor, n: int, c: int,
+                 gather: bool) -> torch.Tensor:
+    from nnue_vision_tpu_torch.ops._build import load_library
+
+    kernel = "lerp_pass_kernel" if gather else "nogather_pass_kernel"
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors only (got {dev}); "
+                         "CPU tensors take the plain version")
+    b, rows = x.shape[:2]
+    for name, t, shape in (("x", x, (b, rows, n * c)), ("coef", coef, (b, 3))):
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: the kernel takes a contiguous float32 {shape} tensor "
+                f"on {dev}; got {t.dtype}{tuple(t.shape)} on {t.device}")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    lib = load_library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lerp_pass_launch(x.data_ptr(), b, rows, n, c, coef.data_ptr(),
+                                   int(gather), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel} launch failed: {lib.nnue_error_string(err).decode()}")
+    LAUNCHES[kernel] += 1
+    return out
+
+
+def _check_pass(x: torch.Tensor, coef: torch.Tensor, n: int, c: int) -> None:
+    if x.dim() != 3 or x.shape[2] != n * c:
+        raise ValueError(f"x must be (B, R, {n}·{c}); got {tuple(x.shape)}")
+    if tuple(coef.shape) != (x.shape[0], 3):
+        raise ValueError(f"coef must be (B, 3); got {tuple(coef.shape)}")
+
+
+def lerp_pass(x: torch.Tensor, coef: torch.Tensor, *, n: int, c: int
+              ) -> torch.Tensor:
+    """One linear resample pass: x (B, R, N·C) float32, coef (B, 3)."""
+    _check_pass(x, coef, n, c)
+    if x.device.type == "cpu":
+        return lerp_pass_reference(x, coef, n=n, c=c)
+    return _pass_launch(x.contiguous(), coef.contiguous(), n, c, gather=True)
+
+
+def nogather_pass(x: torch.Tensor, coef: torch.Tensor, *, n: int, c: int
+                  ) -> torch.Tensor:
+    """`lerp_pass` with identity reads in place of the gather (the probe's
+    control): x (B, R, N·C) float32, coef (B, 3)."""
+    _check_pass(x, coef, n, c)
+    if x.device.type == "cpu":
+        return nogather_pass_reference(x, coef, n=n, c=c)
+    return _pass_launch(x.contiguous(), coef.contiguous(), n, c, gather=False)
 
 
 def warp_bilinear(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:

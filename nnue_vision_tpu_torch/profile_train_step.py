@@ -34,7 +34,6 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -52,6 +51,7 @@ from nnue_vision_tpu_torch.ops.input_pipeline import (
     fused_light_pipeline,
     prepare_gather_dataset,
 )
+from nnue_vision_tpu_torch.ops.timing import card
 from nnue_vision_tpu_torch.training.loop import build_model
 from nnue_vision_tpu_torch.training.optim import create_optimizer
 from nnue_vision_tpu_torch.training.step import (
@@ -202,16 +202,9 @@ def profile(config_path: str, device: str, out: Path, model_type: str = "nnue",
         sort_by="self_device_time_total" if cuda else "self_cpu_time_total",
         row_limit=60))
 
-    card = None
-    if cuda:
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip().splitlines()[0]
     return {
         "config": config_path, "model_type": model_type, "device": str(dev),
-        "card": card,
+        "card": card(dev),
         "batch": batch, "steps": steps,
         "step_ms": step_ms, "images_per_s": batch / step_ms * 1e3,
         "phase_ms": phase_ms,

@@ -1,16 +1,19 @@
 """Training CLI of the PyTorch port (port of the root `train.py:22-161`).
 
     NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train nnue \\
-        --config config/train_nnue_test.py            # on the CPU
+        --config config/train_nnue_hard.py            # on the card
     NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train nnue \\
-        --config config/train_nnue_hard.py --device cuda
-    NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train etinynet \\
-        --config config/train_etinynet_test.py        # on the CPU
+        --config config/train_nnue_test.py --device cpu
     NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train etinynet \\
         --config config/train_etinynet.py --dataset_name synthetic-hard \\
-        --synthetic_size 50000 --device cuda
+        --synthetic_size 50000                        # on the card
+    NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train etinynet \\
+        --config config/train_etinynet_test.py --device cpu
 
-The port trains NNUE and EtinyNet on one device. NV_SKIP_ENGINE=1 is
+The port trains NNUE and EtinyNet on one device: the CUDA card unless
+--device names another (the root CLI likewise trains on JAX's default
+device, the accelerator); without a card, --device cuda raises rather
+than train on the CPU. NV_SKIP_ENGINE=1 is
 required for now: the C++ engine start-up probe is not ported (ROADMAP
 Queue A item 4a). The overrides are the root CLI's that apply to these
 models, plus --synthetic_size, which sizes a synthetic training set (the
@@ -44,9 +47,9 @@ def setup_argument_parser() -> argparse.ArgumentParser:
     parser.add_argument("model_type", choices=["nnue", "etinynet"],
                         help="Model type to train")
     parser.add_argument("--config", type=str, help="Path to the configuration file")
-    parser.add_argument("--device", type=str, default="cpu",
-                        help="torch device to train on: cpu (default), cuda, "
-                             "cuda:N; cuda raises where there is no card")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to train on: cuda (default), "
+                             "cuda:N, cpu; cuda raises where there is no card")
     parser.add_argument("--batch_size", type=int, help="Override batch size")
     parser.add_argument("--max_epochs", type=int, help="Override max epochs")
     parser.add_argument("--learning_rate", type=float, help="Override learning rate")

@@ -16,17 +16,22 @@ train and val evals, and the int8 eval (`compiled_backend` "sim",
 trains the QAT model without rounding first and restarts the optimizer at
 the switch. A final test eval closes the run.
 
-The trainer runs on an explicit device; asking for CUDA on a host without
-it raises. It sets `torch.backends.cudnn.allow_tf32` and
-`torch.backends.cuda.matmul.allow_tf32` to False, so the float conv and
-matmuls compute in float32 as the JAX reference does.
+The trainer runs on the CUDA card unless `device` names another; asking
+for CUDA on a host without it raises. It sets
+`torch.backends.cudnn.allow_tf32` and `torch.backends.cuda.matmul.allow_tf32`
+to False, so the float conv and matmuls compute in float32 as the JAX
+reference does. With `profile_dir` set, the training steps of the first
+epoch run under `torch.profiler` (CPU and, on the card, CUDA activities;
+the JAX loop traces the same span with `jax.profiler`), and the trace is
+written to `profile_dir/train_epoch0.trace.json` for chrome://tracing or
+Perfetto.
 
 An EtinyNet trains in float32 or bfloat16 (`dtype`); its int8 eval is the
 engine sim whatever `compiled_backend` says, as in the JAX package.
 
 Not ported yet, and raising NotImplementedError with the ROADMAP item: a
 mesh (`max_devices > 1`), `distill_from`, `checkpoint_backend="orbax"`,
-`profile_dir`, an NNUE `dtype` other than float32, an `engine_friendly`
+an NNUE `dtype` other than float32, an `engine_friendly`
 EtinyNet, `compiled_backend="engine"`, and the C++ engine start-up probe,
 which the JAX loop runs unless NV_SKIP_ENGINE=1 (set it). Unlike the JAX
 loop, NV_SKIP_ENGINE=1 leaves `compiled_backend` as configured: "mega" and
@@ -138,8 +143,6 @@ def _refuse_unported(config: Any, model_type: str) -> None:
          "4d (distillation)"),
         (getattr(config, "checkpoint_backend", "pickle") == "orbax",
          "checkpoint_backend='orbax'", "4e (orbax resume)"),
-        (bool(getattr(config, "profile_dir", None)), "profile_dir",
-         "4f (profiler)"),
     )
     for hit, what, item in checks:
         if hit:
@@ -161,8 +164,29 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def _start_trace(dev: torch.device) -> torch.profiler.profile:
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    trace = torch.profiler.profile(activities=activities)
+    trace.start()
+    return trace
+
+
+def _stop_trace(trace: torch.profiler.profile, profile_dir: Path,
+                dev: torch.device) -> None:
+    """Wait for the traced work, stop, and write the Chrome trace."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    trace.stop()
+    profile_dir.mkdir(parents=True, exist_ok=True)
+    path = profile_dir / "train_epoch0.trace.json"
+    trace.export_chrome_trace(str(path))
+    early_log(f"profiler trace written to {path}")
+
+
 def train_model(config: Any, model_type: str,
-                wandb_run_id: Optional[str] = None, *, device="cpu") -> int:
+                wandb_run_id: Optional[str] = None, *, device="cuda") -> int:
     """Train per `config` on `device`; returns 0. `wandb_run_id` names the
     local run."""
     _refuse_unported(config, model_type)
@@ -270,6 +294,7 @@ def train_model(config: Any, model_type: str,
     eval_test_loader = maybe_resident(test_loader, max_resident, dev, eval_bs)
 
     steps_per_dispatch = int(getattr(config, "steps_per_dispatch", 8))
+    profile_dir = getattr(config, "profile_dir", None)
     height, width = int(ds.images.shape[1]), int(ds.images.shape[2])
     # the medium and heavy tiers' noise tensors are drawn on the device
     noise_gen = (device_generator(gen, dev)
@@ -285,6 +310,7 @@ def train_model(config: Any, model_type: str,
                 )
             model.cfg = cfg_for(epoch)
             epoch_start = time.perf_counter()
+            trace = _start_trace(dev) if profile_dir and epoch == 0 else None
             losses = []
 
             if device_data is not None:
@@ -331,6 +357,9 @@ def train_model(config: Any, model_type: str,
                     losses.append(loss)
                     run.log({"train/loss": loss},
                             step=epoch * steps_per_epoch + batch_idx)
+
+            if trace is not None:
+                _stop_trace(trace, Path(profile_dir), dev)
 
             if losses and not np.isfinite(losses[-1]):
                 detail = check_for_nonfinite(model, where="params")

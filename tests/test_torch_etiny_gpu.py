@@ -13,7 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from nnue_vision_tpu.formats import QConv, QLBBlock, QLinear, QuantizedEtinyNet
+from nnue_vision_tpu_torch.formats import (
+    QConv,
+    QLBBlock,
+    QLinear,
+    QuantizedEtinyNet,
+)
 from nnue_vision_tpu_torch.data.augment import normalize_images
 from nnue_vision_tpu_torch.models.etinynet import (
     EtinyNetConfig,

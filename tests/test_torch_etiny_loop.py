@@ -73,7 +73,7 @@ def test_train_model_heavy_bf16(env, monkeypatch):
 
     monkeypatch.setattr(taug, "warp_bilinear", warp)
     monkeypatch.setattr(taug, "photometric_block", photo)
-    assert tloop.train_model(cfg, "etinynet") == 0
+    assert tloop.train_model(cfg, "etinynet", device="cpu") == 0
     assert calls == {"warp": 32, "medium": 16, "heavy_extra": 16}
     records = _records(tmp_path)
     losses = [r["train/loss"] for r in records if "train/loss" in r]
@@ -111,7 +111,7 @@ def test_f3_light_tier_etinynet_takes_the_gathered_step(env, monkeypatch):
     monkeypatch.setattr(tloop, "gathered_train_step",
                         lambda *a, **k: gathered.append(1) or real(*a, **k))
     before = dict(ip.LAUNCHES)
-    assert tloop.train_model(cfg, "etinynet") == 0
+    assert tloop.train_model(cfg, "etinynet", device="cpu") == 0
     assert fused == [] and len(gathered) == 8
     assert ip.LAUNCHES == before
 
@@ -140,7 +140,8 @@ def test_cli_trains_etinynet(env, capsys):
     _, tmp_path = env
     rc = tcli.main(["etinynet", "--config", TEST_CONFIG, "--log_dir",
                     str(tmp_path / "logs"), "--augmentation_strength", "medium",
-                    "--use_augmentation", "true", "--seed", "3"])
+                    "--use_augmentation", "true", "--seed", "3",
+                    "--device", "cpu"])
     assert rc == 0
     out = capsys.readouterr().out
     assert "Model: etinynet" in out and "Test: loss" in out

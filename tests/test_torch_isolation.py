@@ -1,6 +1,7 @@
-"""The port stands alone: it imports no jax, optax or ml_dtypes, a request
-for CUDA on a host without it raises instead of falling back, and
-`chip_smoke.py` fails without a card or without the repository."""
+"""The port stands alone: it imports no jax, optax or ml_dtypes and no
+module of the JAX package `nnue_vision_tpu`, a request for CUDA on a host
+without it raises instead of falling back, and `chip_smoke.py` fails
+without a card or without the repository."""
 
 import os
 import shutil
@@ -18,6 +19,7 @@ MODULES = [
     "nnue_vision_tpu_torch.data.augment",
     "nnue_vision_tpu_torch.data.datasets",
     "nnue_vision_tpu_torch.data.loaders",
+    "nnue_vision_tpu_torch.formats",
     "nnue_vision_tpu_torch.models.etinynet",
     "nnue_vision_tpu_torch.models.nnue",
     "nnue_vision_tpu_torch.ops._build",
@@ -26,8 +28,12 @@ MODULES = [
     "nnue_vision_tpu_torch.ops.input_pipeline",
     "nnue_vision_tpu_torch.ops.nnue_kernels",
     "nnue_vision_tpu_torch.ops.photometric_kernel",
+    "nnue_vision_tpu_torch.ops.timing",
     "nnue_vision_tpu_torch.ops.warp_kernel",
+    "nnue_vision_tpu_torch.profile_mega_bisect",
     "nnue_vision_tpu_torch.profile_train_step",
+    "nnue_vision_tpu_torch.profile_warp_split",
+    "nnue_vision_tpu_torch.quantize",
     "nnue_vision_tpu_torch.training.checkpoint",
     "nnue_vision_tpu_torch.training.evaluate",
     "nnue_vision_tpu_torch.training.logging",
@@ -53,6 +59,9 @@ def test_port_imports_no_jax():
         f"for m in {MODULES!r}: __import__(m)\n"
         "bad = [m for m in ('jax', 'optax', 'ml_dtypes') if m in sys.modules]\n"
         "assert not bad, bad\n"
+        "ref = [m for m in sys.modules if m == 'nnue_vision_tpu'\n"
+        "       or m.startswith('nnue_vision_tpu.')]\n"
+        "assert not ref, ref\n"
         "import nnue_vision_tpu_torch as p; assert p.read_nnue and p.write_nnue\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

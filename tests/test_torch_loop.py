@@ -54,7 +54,7 @@ def test_train_model_runs(env, monkeypatch, capsys, fused):
         real = tstep.fused_light_pipeline
         monkeypatch.setattr(tstep, "fused_light_pipeline",
                             lambda *a, **k: calls.append(1) or real(*a, **k))
-    assert tloop.train_model(cfg, "nnue") == 0
+    assert tloop.train_model(cfg, "nnue", device="cpu") == 0
     out = capsys.readouterr().out
     assert ("fused input pipeline active" in out) == fused
     assert len(calls) == (8 if fused else 0)
@@ -79,7 +79,7 @@ def test_serialize_reads_the_port_checkpoint(env):
     cfg, tmp_path = env
     cfg.qat = True
     cfg.weight_decay = 2e-4
-    assert tloop.train_model(cfg, "nnue") == 0
+    assert tloop.train_model(cfg, "nnue", device="cpu") == 0
     ckpt = _best(tmp_path)
     sys.path.insert(0, str(REPO))
     try:
@@ -112,7 +112,7 @@ def test_best_model_follows_checkpoint_metric(env, monkeypatch, metric,
     monkeypatch.setattr(tloop, "evaluate_int8_sim", lambda *a, **k: {
         "f1": next(compiled_f1), "acc": 0.5, "ms_per_sample": 0.0,
         "latent_density": 0.1})
-    assert tloop.train_model(cfg, "nnue") == 0
+    assert tloop.train_model(cfg, "nnue", device="cpu") == 0
     payload = load_checkpoint(_best(tmp_path))
     assert payload["epoch"] == best_epoch
 
@@ -120,7 +120,8 @@ def test_best_model_follows_checkpoint_metric(env, monkeypatch, metric,
 def test_cli_trains(env, capsys):
     _, tmp_path = env
     rc = tcli.main(["nnue", "--config", TEST_CONFIG, "--log_dir",
-                    str(tmp_path / "logs"), "--max_epochs", "1", "--seed", "3"])
+                    str(tmp_path / "logs"), "--max_epochs", "1", "--seed", "3",
+                    "--device", "cpu"])
     assert rc == 0
     assert "Test: loss" in capsys.readouterr().out
     assert _best(tmp_path).is_file()
@@ -130,7 +131,6 @@ def test_cli_trains(env, capsys):
     ("max_devices", 4, "mesh"),
     ("distill_from", "teacher.ckpt", "distill_from"),
     ("checkpoint_backend", "orbax", "orbax"),
-    ("profile_dir", "trace", "profile_dir"),
     ("compiled_backend", "engine", "engine"),
     ("dtype", "bfloat16", "dtype"),
 ])
@@ -138,7 +138,7 @@ def test_unported_options_raise(env, attr, value, match):
     cfg, tmp_path = env
     setattr(cfg, attr, value)
     with pytest.raises(NotImplementedError, match=match):
-        tloop.train_model(cfg, "nnue")
+        tloop.train_model(cfg, "nnue", device="cpu")
     assert not (tmp_path / "logs").exists()  # raised before any work
 
 
@@ -149,11 +149,11 @@ def test_engine_probe_and_etinynet_raise(env, monkeypatch):
     cfg = load_config(str(REPO / "config" / "train_etinynet_test.py"))
     cfg.engine_friendly = True
     with pytest.raises(NotImplementedError, match="engine_friendly"):
-        tloop.train_model(cfg, "etinynet")
+        tloop.train_model(cfg, "etinynet", device="cpu")
     cfg, _ = env
     monkeypatch.delenv("NV_SKIP_ENGINE")
     with pytest.raises(NotImplementedError, match="NV_SKIP_ENGINE=1"):
-        tloop.train_model(cfg, "nnue")
+        tloop.train_model(cfg, "nnue", device="cpu")
 
 
 def test_cuda_request_raises_without_cuda(env):

@@ -175,7 +175,8 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     nk.nnue_engine_forward_fused(tp, nk.pallas_head_params(tp),
                                  torch.zeros(2, 12, 12, 3), cfg=tcfg,
                                  image_h=12, image_w=12)
-    assert nk.LAUNCHES == {"nnue_mega_kernel": 0, "nnue_head_kernel": 0}
+    assert nk.LAUNCHES == {"nnue_mega_kernel": 0, "nnue_head_kernel": 0,
+                           "nnue_mega_stage_kernel": 0}
 
 
 def test_kernel_wrappers_raise_off_cuda():

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from nnue_vision_tpu.formats import (
+from nnue_vision_tpu_torch.formats import (
     QConv,
     QFeatureTransformer,
     QLinear,
