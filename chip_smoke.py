@@ -8,18 +8,22 @@ profiling path once on one CUDA card.
 Phases, one line each (any failure raises and exits non-zero):
 
 1. device    require CUDA; print the card (nvidia-smi), torch and CUDA versions
-2. build     nvcc-build the kernels from nnue_vision_tpu_torch/csrc
+2. build     nvcc-build the kernels from nnue_vision_tpu_torch/csrc; ptxas
+             registers per kernel, and in the built library's SASS the count
+             of int8 tensor-core (IMMA) and cp.async (LDGSTS) instructions of
+             the serving kernels (K1, K2, K6, K7), which must reach both
 3. model     flagship-width NNUE (config/train_nnue.py widths) from a numpy
              seed → nnue_quantize → write_nnue → read_nnue → nnue_sim_params
 4. serve     batches of 1, 37, 512 and 8192 normalized 32×32 images through
              every entry point; each result torch.equal to its plain version
-5. stress    phase 4 at batch 512 for a random int model at full width, with
-             a negative threshold and int16 FT weights (padding features
-             active, FT sums wrap)
+5. stress    phase 4 at the same batches for a random int model at full
+             width, with a negative threshold and int16 FT weights (padding
+             features active, FT sums wrap)
 6. evaluate  evaluate_int8_sim with use_pallas="mega" and True equal to False
 7. launches  both kernels launched during phases 4-6 (the main path)
 8. timing    kernel vs plain version at batch 8192 (and the mega kernel at 1
-             and 512), CUDA events, median of 20 in turns
+             and 512), CUDA events, median of 20 in turns; the mega kernel at
+             8192 also graph-timed (ops/timing.py)
 9. pipeline  the light-pipeline kernel (K3) on the 20,000 synthetic-hard
              training images at batch 512 and 37, with flips, holes and
              brightness/contrast drawn, torch.equal to its plain version;
@@ -51,8 +55,9 @@ Phases, one line each (any failure raises and exits non-zero):
 16. launches the three kernels launched on their paths (serving: 13,
              training: 15)
 17. timing   K4, K5 (each variant) and K6 (the whole int8 forward, and its 12
-             LB blocks alone) vs plain at batch 1024 and 8192; ms per EtinyNet train step at batch 1024
-             over 48 steps (host clock, one sync at the end)
+             LB blocks alone) vs plain at batch 1024 and 8192, the 12 blocks
+             at 8192 also graph-timed; ms per EtinyNet train step at batch
+             1024 over 48 steps (host clock, one sync at the end)
 18. mega-bisect  the cut mega kernel (K7) at levels 0-3 on the flagship and
              the stress model (negative threshold: the padding sum is on) at
              batch 8192 and 37, each torch.equal to nnue_mega_stage_reference;
@@ -77,9 +82,11 @@ the last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -123,8 +130,12 @@ from nnue_vision_tpu_torch.ops import input_pipeline as ip
 from nnue_vision_tpu_torch.ops import nnue_kernels as nk
 from nnue_vision_tpu_torch.ops import photometric_kernel as pk
 from nnue_vision_tpu_torch.ops import warp_kernel as wk
-from nnue_vision_tpu_torch.ops._build import load_library
-from nnue_vision_tpu_torch.ops.timing import HBM_BYTES_PER_S, nbytes
+from nnue_vision_tpu_torch.ops._build import _nvcc, load_library
+from nnue_vision_tpu_torch.ops.timing import (
+    HBM_BYTES_PER_S,
+    chained_best_ms,
+    nbytes,
+)
 from nnue_vision_tpu_torch.ops.engine_sim import (
     conv_out_hw,
     engine_conv_stride,
@@ -198,6 +209,9 @@ REPLACES = {
 INT_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 BISECT_REPS = 100
+GRAPH_REPS = 50  # calls per CUDA graph in the graph-timed rows
+# the tensor-core kernels, as their names appear (mangled) in the SASS
+TENSOR_CORE_KERNELS = ("etiny_block_kernel", "nnue_mega_kernel", "nnue_head_kernel")
 WARP_SPLIT_REPS = "100"
 TRACE_CONFIG = "config/train_nnue_test.py"
 
@@ -255,6 +269,28 @@ def stress_model(rng: np.random.Generator, q):
         fc2=QLinear(weight=i8(l3, l2), bias=i32(l3)),
         out=QLinear(weight=i8(c, l3), bias=i32(c)),
     ).validate()
+
+
+def sass_counts(lib_path: Path) -> dict:
+    """{kernel<args>: (IMMA, LDGSTS)} for the tensor-core kernels in the
+    built library's SASS (cuobjdump -sass): int8 tensor-core products and
+    asynchronous global-to-shared copies."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            name = next((k for k in TENSOR_CORE_KERNELS if k in mangled), None)
+            if name is not None:
+                args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[1])
+                name += f"<{','.join(args)}>" if args else ""
+                counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += "IMMA" in line
+            counts[name][1] += "LDGSTS" in line
+    return {k: tuple(v) for k, v in sorted(counts.items())}
 
 
 class Errors:
@@ -592,6 +628,12 @@ def main() -> int:
              if "registers" in ln or "Compiling entry" in ln]
     say("build", f"{built.path.name} built in {built.seconds:.1f} s; "
         + " | ".join(ptxas))
+    sass = sass_counts(built.path)
+    say("build", "SASS (IMMA, LDGSTS) per tensor-core kernel: " + json.dumps(sass))
+    for name in ("etiny_block_kernel", "nnue_mega_kernel<4,2,2>",
+                 "nnue_mega_kernel<4,1,1>", "nnue_head_kernel<2,2>"):
+        check(name in sass and min(sass[name]) > 0,
+              f"{name}: no int8 tensor-core or cp.async instruction in its SASS")
 
     # 3. model
     rng = np.random.default_rng(SEED)
@@ -627,13 +669,15 @@ def main() -> int:
     qs = stress_model(np.random.default_rng(SEED + 1), q)
     ssim, scfg = nnue_sim_params(qs, device="cuda")
     sheads = (nk.mega_head_params(ssim, scfg, H, W), nk.pallas_head_params(ssim))
-    serve(errs, ssim, scfg, 512, gen, sheads, "stress")
+    for batch in SERVE_BATCHES:
+        serve(errs, ssim, scfg, batch, gen, sheads, f"stress B={batch}")
     x = normalize_images(torch.rand((512, H, W, 3), generator=gen, device="cuda"))
     _, _, count = nnue_engine_forward(ssim, x, cfg=scfg, image_h=H, image_w=W)
     oh, ow = conv_out_hw(H, W, engine_conv_stride(H, scfg.grid_size))
     n_pad = scfg.num_features - oh * ow * scfg.channels
     check(int(count.min()) >= n_pad, "padding features not active")
-    say("stress", f"negative threshold, int16 FT weights: all equal; "
+    say("stress", f"B={SERVE_BATCHES}, negative threshold, int16 FT weights: "
+        f"all equal; "
         f"counts {int(count.min())}..{int(count.max())} (n_pad {n_pad})")
 
     # 6. evaluate
@@ -696,6 +740,19 @@ def main() -> int:
         say("timing", f"B={batch} {name}: kernel {k:.4f} ms "
             f"({batch / k * 1e3:,.0f} img/s), plain {p:.4f} ms "
             f"({batch / p * 1e3:,.0f} img/s) on {smi}")
+    graph_ms = chained_best_ms(
+        lambda: nk.nnue_engine_forward_mega(mega, flat, **kw)[0], GRAPH_REPS)
+    say("timing", f"B={TIMING_BATCH} mega f32, graph-timed ({GRAPH_REPS} calls "
+        f"per CUDA graph, best of 3): {graph_ms:.4f} ms on {smi}")
+    info = (ctypes.c_int * 6)()
+    for batch in (TIMING_BATCH, 512, 1):
+        check(load_library().lib.nnue_mega_tile(
+            batch, acc.shape[1], cfg.l1, cfg.l2, cfg.l3, cfg.channels, H, W,
+            info) == 0, "no mega kernel tile fits")
+        say("timing", f"B={batch} mega kernel tile: {info[0]} images, "
+            f"{info[1]} product rows, {info[2]} ring slots, {info[3]} staged "
+            f"image pairs, {info[4]} block(s) per tile, {info[5]} bytes of "
+            "shared memory per block")
     # the card's bound for the timed calls; no single PyTorch call computes
     # the int8 engine, so neither kernel has a library time
     n_act = active_rows(nk.nnue_engine_forward_mega(mega, flat, **kw)[2], mega, cfg)
@@ -923,6 +980,26 @@ def main() -> int:
         rows["etiny_block_kernel, the LB blocks alone"] = time_pair(
             lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in blocks],
             lambda: [ek.lb_block_reference(a, blk, bs) for a, blk, bs in blocks])
+        if batch == TIMING_BATCH:
+            lib = load_library().lib
+            block_ms = chained_best_ms(
+                lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in blocks][-1],
+                GRAPH_REPS)
+            tiles = []
+            for a, blk, bs in blocks:
+                one_ms = chained_best_ms(lambda a=a, blk=blk, bs=bs: ek.lb_block(a, blk, bs),
+                                         GRAPH_REPS)
+                b_, h_, w_, cin_ = a.shape
+                oh_, ow_ = conv_out_hw(h_, w_, bs.stride)
+                mid_, cout_ = blk["dw"].shape[0], blk["pw_project_w"].shape[0]
+                shape = (h_, w_, cin_, mid_, cout_, oh_, ow_)
+                t_ = lib.etiny_block_tile(b_, *shape)
+                tiles.append(f"{h_}x{w_}x{cin_}->{mid_}: T={t_}, "
+                             f"{lib.etiny_block_smem(t_, *shape)} B with 2 ring "
+                             f"slots, {one_ms:.4f} ms")
+            say("timing", f"B={batch} the 12 LB blocks, graph-timed ({GRAPH_REPS} "
+                f"calls per CUDA graph, best of 3): {block_ms:.4f} ms on {smi}; "
+                "tile, shared memory and graph-timed ms per block: " + "; ".join(tiles))
         for name, (k, p) in rows.items():
             what = ("the whole int8 forward (12 K6 launches + plain stem/tail) "
                     "vs the sim" if name == "etiny_block_kernel" else name)
@@ -950,8 +1027,10 @@ def main() -> int:
             for a, blk, bs in blocks:
                 b, h, w, cin = a.shape
                 oh, ow = conv_out_hw(h, w, bs.stride)
-                mid, cout = blk["dw"].shape[0], blk["wp"].shape[0]
-                moved += nbytes(a, blk["we"], blk["be"], blk["dw"], blk["wp"])
+                mid, cout = blk["pw_expand_w"].shape[0], blk["pw_project_w"].shape[0]
+                # the weights as the model holds them, not the kernel's padded tiles
+                moved += nbytes(a, blk["pw_expand_w"], blk["be"], blk["dw"],
+                                blk["pw_project_w"])
                 moved += b * oh * ow * cout  # the int8 output
                 ops += 2 * b * (h * w * mid * cin + oh * ow * mid * (9 + cout))
             bounds["etiny_block_kernel"] = bound(moved, int_ops=ops)

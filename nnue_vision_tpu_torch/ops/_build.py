@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_HEAD_ARGS = [_F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F] + [_P] * 9
+_HEAD_ARGS = [_F] + [_I] * 10 + [_F, _I] + [_P] * 9
 SIGNATURES = {
     "nnue_error_string": ([_I], ctypes.c_char_p),
     "nnue_mega_launch": (
@@ -48,13 +48,15 @@ SIGNATURES = {
         _I,
     ),
     "nnue_head_launch": ([_P, _I] + _HEAD_ARGS + [_P, _P, _P], _I),
+    "nnue_mega_tile": ([_I] * 8 + [_P], _I),
     "light_pipeline_launch": (
         [_P, _I, _I, _I, _P, _P, _P, _I] + [_F] * 6 + [_P, _P], _I,
     ),
     "warp_launch": ([_P, _I, _I, _I, _P, _P, _P], _I),
     "lerp_pass_launch": ([_P, _I, _I, _I, _I, _P, _I, _P, _P], _I),
     "photometric_launch": ([_P, _P, _P, _P] + [_I] * 6 + [_P, _P], _I),
-    "etiny_block_smem": ([_I] * 7, _I),
+    "etiny_block_smem": ([_I] * 8, _I),
+    "etiny_block_tile": ([_I] * 8, _I),
     "etiny_block_launch": ([_P] + [_I] * 12 + [_P] * 6, _I),
 }
 

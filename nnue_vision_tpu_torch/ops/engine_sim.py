@@ -57,6 +57,20 @@ class NNUESimCfg:
         return self.grid_size * self.grid_size * self.channels
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; "cuda" means the current card and raises
+    where there is none (entry points default to the card: a caller who
+    wants the CPU says so)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} asked for, but CUDA is not "
+                               "available on this host")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _tdiv(a: torch.Tensor, b: int) -> torch.Tensor:
     """C-style truncating integer division (toward zero), b > 0."""
     return torch.div(a, b, rounding_mode="trunc")
@@ -127,13 +141,16 @@ def conv_inputs_bf16_safe(images, scale) -> bool:
 
 
 def nnue_sim_params(
-    q: QuantizedNNUE, device="cpu"
+    q: QuantizedNNUE, device="cuda"
 ) -> Tuple[Dict[str, torch.Tensor], NNUESimCfg]:
-    """Tensors on `device` + static config for `nnue_engine_forward`.
+    """Tensors on `device` (the card unless the caller names another; raises
+    without one) + static config for `nnue_engine_forward`.
 
     Weights keep the `.nnue` integer types (int16 FT, int8 dense, int32
     biases); `visual_threshold` is the float32 the engine compares against.
     """
+    device = resolve_device(device)
+
     def t(a, dtype):
         return torch.as_tensor(a, dtype=dtype).to(device).contiguous()
 
@@ -322,13 +339,16 @@ def _check_pow2(scale: float, what: str) -> int:
 
 
 def etiny_sim_params(
-    q: QuantizedEtinyNet, device="cpu"
+    q: QuantizedEtinyNet, device="cuda"
 ) -> Tuple[Dict, EtinySimCfg]:
-    """Tensors on `device` + static config for `etiny_engine_forward`.
+    """Tensors on `device` (the card unless the caller names another; raises
+    without one) + static config for `etiny_engine_forward`.
 
     Weights keep the `.etiny` integer layouts: stem (C, 3, 3, 3) OIHW,
     per block `pw_expand_w` (mid, in), `pw_expand_b` (mid,), `dw_w`
     (mid, 3, 3), `pw_project_w` (out, mid), the classifier (classes, C)."""
+    device = resolve_device(device)
+
     def t(a, dtype):
         return torch.as_tensor(a, dtype=dtype).to(device).contiguous()
 

@@ -35,12 +35,11 @@ from nnue_vision_tpu_torch.ops.engine_sim import (
     etiny_tail,
     lb_block_plain,
 )
+from nnue_vision_tpu_torch.ops.nnue_kernels import mma_tiles
 
 # Launches since the last reset_launch_counts(); the wrapper adds one where
 # it launches the kernel, and nowhere else.
 LAUNCHES = {"etiny_block_kernel": 0}
-
-_MAX_SMEM = 227 * 1024
 
 
 def reset_launch_counts() -> None:
@@ -52,16 +51,16 @@ def _is_pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
 
 
-def _pad_cols(w: torch.Tensor) -> torch.Tensor:
-    """(rows, k) int8 → (rows, k rounded up to 4), zero filled, contiguous."""
-    k = w.shape[1]
-    return torch.nn.functional.pad(w, (0, -k % 4)).contiguous()
+def _tiles_shape(n: int, k: int) -> tuple:
+    """Shape of `mma_tiles` of an (n, k) weight."""
+    return (-(-n // 128), -(-k // 128), 128, 128)
 
 
 def etiny_kernel_params(sim_params: Dict, cfg: EtinySimCfg) -> Dict:
-    """`etiny_sim_params` arrays plus the kernel's layouts per block:
-    `we` (mid, in→4k) and `wp` (out, mid→4k) int8, zero padded so every
-    row is whole int32 words for `__dp4a`; `be` int32; `dw` (mid, 3, 3)
+    """`etiny_sim_params` arrays plus the kernel's layouts per block, built
+    once per model: `we` (pw-expand, (mid, in)) and `wp` (pw-project,
+    (out, mid)) as `mma_tiles`, K zero padded to a multiple of 128, in the
+    operand order of the tensor-core products; `be` int32; `dw` (mid, 3, 3)
     int8. Raises ValueError for a stride-2 dense block."""
     blocks = []
     for blk, bs in zip(sim_params["blocks"], cfg.blocks):
@@ -72,10 +71,10 @@ def etiny_kernel_params(sim_params: Dict, cfg: EtinySimCfg) -> Dict:
             )
         blocks.append({
             **blk,
-            "we": _pad_cols(blk["pw_expand_w"]),
+            "we": mma_tiles(blk["pw_expand_w"]),
             "be": blk["pw_expand_b"].to(torch.int32).contiguous(),
             "dw": blk["dw_w"].contiguous(),
-            "wp": _pad_cols(blk["pw_project_w"]),
+            "wp": mma_tiles(blk["pw_project_w"]),
         })
     return {**sim_params, "blocks": blocks}
 
@@ -95,9 +94,9 @@ def _launch(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg) -> torch.Tensor:
         raise ValueError(f"etiny_block_kernel runs on CUDA tensors only (got "
                          f"{dev}); CPU tensors take the plain version")
     b, h, w, cin = x.shape
-    mid, cout = blk["we"].shape[0], blk["wp"].shape[0]
-    if (tuple(blk["we"].shape) != (mid, cin + (-cin % 4))
-            or tuple(blk["wp"].shape) != (cout, mid + (-mid % 4))
+    mid, cout = blk["dw"].shape[0], blk["pw_project_w"].shape[0]
+    if (tuple(blk["we"].shape) != _tiles_shape(mid, cin)
+            or tuple(blk["wp"].shape) != _tiles_shape(cout, mid)
             or tuple(blk["dw"].shape) != (mid, 3, 3)
             or tuple(blk["be"].shape) != (mid,)):
         raise ValueError("block weights do not match the input's channels")
@@ -115,11 +114,11 @@ def _launch(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg) -> torch.Tensor:
     if b == 0:
         return out
     lib = load_library().lib
-    smem = lib.etiny_block_smem(h, w, cin + (-cin % 4), mid, mid + (-mid % 4),
-                                oh, ow)
-    if smem > _MAX_SMEM:
+    if lib.etiny_block_tile(b, h, w, cin, mid, cout, oh, ow) < 1:
+        smem = lib.etiny_block_smem(1, h, w, cin, mid, cout, oh, ow)
         raise ValueError(f"block of {h}x{w}x{mid} needs {smem} bytes of "
-                         f"shared memory; the card gives a block {_MAX_SMEM}")
+                         "shared memory for one image; the card gives a "
+                         "block 232448")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.etiny_block_launch(

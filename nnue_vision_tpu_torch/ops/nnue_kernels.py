@@ -1,8 +1,9 @@
 """Hopper kernels of the int8 NNUE serving path, with their plain versions.
 
 Port of `nnue_vision_tpu/ops/pallas_kernels.py:236-599`. Two CUDA kernels
-(`csrc/nnue_head.cu`) compute what the TPU's `_mega_kernel` and
-`_head_kernel` compute, bit for bit:
+(`csrc/nnue_head.cu`; a tile of images per block of threads, the FT and fc1
+as int8 tensor-core products through `csrc/int8_mma.cuh`) compute what the
+TPU's `_mega_kernel` and `_head_kernel` compute, bit for bit:
 
 * `nnue_engine_forward_mega`: flat HWC image → logits (+ density, count),
   the whole engine in one kernel (`nnue_mega_kernel`).
@@ -30,6 +31,7 @@ itself holds no larger integers exactly.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -52,7 +54,8 @@ from nnue_vision_tpu_torch.ops.engine_sim import (
 LAUNCHES = {"nnue_mega_kernel": 0, "nnue_head_kernel": 0,
             "nnue_mega_stage_kernel": 0}
 
-_MAX_SMEM = 48 * 1024  # static shared-memory limit of a block
+_MAX_SMEM = 232448  # the shared memory a block may use on sm_90
+_SLOT_BYTES = 128 * 144  # csrc/int8_mma.cuh kSlotBytes
 STAGE_OUT = 128  # values a cut mega kernel writes per image
 STAGES = ("stage", "quantize", "conv", "ft")  # levels 0-3 of nnue_mega_stage
 _INPUT_MODES = ("f32", "qbf16")
@@ -72,41 +75,99 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
+def mma_tiles(w: torch.Tensor) -> torch.Tensor:
+    """(N, K) int8 or uint8 weights → the tensor-core kernels' layout
+    (csrc/int8_mma.cuh): zero padded to N and K multiples of 128, as
+    (N/128, K/128, 128, 128) bytes, so that the 128 K-bytes of 128 columns
+    (one 16 KB stage) lie together. Built once per model."""
+    n, k = w.shape
+    w = torch.nn.functional.pad(w, (0, -k % 128, 0, -n % 128))
+    nc, ks = w.shape[0] // 128, w.shape[1] // 128
+    return w.reshape(nc, 128, ks, 128).permute(0, 2, 1, 3).contiguous()
+
+
+def ft_byte_planes(ft_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int16 FT table as two byte planes, `lo = w & 0xFF` (uint8) and
+    `hi = w >> 8` (int8): w = 256·hi + lo exactly for every int16."""
+    w = ft_w.to(torch.int32)
+    return (w & 0xFF).to(torch.uint8), (w >> 8).to(torch.int8)
+
+
+def ft_tiles(ft_w: torch.Tensor) -> torch.Tensor:
+    """The FT planes in the order the kernels' product reads them: chunk c
+    holds the lo plane of L1 columns 32c..32c+31 and half+32c..half+32c+31
+    (half = L1/2; zero past half), then the hi plane of the same columns,
+    each the (F, 128) K × N block of a chunk; as `mma_tiles`."""
+    f, l1 = ft_w.shape
+    half = l1 // 2
+    lo, hi = ft_byte_planes(ft_w)
+    cols = torch.arange(-(-half // 32) * 32, device=ft_w.device)
+    valid = cols < half
+    first = cols.clamp(max=half - 1)
+
+    def pick(plane, base):
+        out = plane.view(torch.uint8)[:, base + first] * valid
+        return out.reshape(f, -1, 32)
+
+    chunks = torch.cat([pick(lo, 0), pick(lo, half), pick(hi, 0),
+                        pick(hi, half)], dim=2)  # (F, chunks, 128)
+    return mma_tiles(chunks.reshape(f, -1).T)
+
+
 def pallas_head_params(sim_params: Dict[str, torch.Tensor]) -> Dict:
     """Head params for the kernels: the `.nnue`-layout integer weights of
     `nnue_sim_params` (int16 FT (F, L1), int8 dense (out, in), int32
-    biases) and the threshold as a host float32 value. Reads the threshold
-    to the host once."""
+    biases), the threshold as a host float32 value, and the tensor-core
+    layouts of the FT planes (`ft_tiles`) and of fc1 (`fc1_tiles`).
+    Reads the threshold to the host once. `padsums` holds the FT sum of
+    the padding rows per FR, each made at the first call with that FR."""
     head = {k: sim_params[k].contiguous() for k in _HEAD_KEYS}
     head["thresh"] = float(sim_params["visual_threshold"])
+    head["ft_tiles"] = ft_tiles(head["ft_w"])
+    head["fc1_tiles"] = mma_tiles(head["fc1_w"])
+    head["padsums"] = {}
     return head
 
 
-def _padsum(ft_w: torch.Tensor, fr: int) -> torch.Tensor:
+def _padsum(head: Dict, fr: int) -> torch.Tensor:
     """FT contribution of the zero-valued padding features FR..F-1, active
-    together iff the threshold is negative; int32 (low bits exact)."""
-    return ft_w[fr:].sum(dim=0, dtype=torch.int64).to(torch.int32)
+    together iff the threshold is negative; int32 (low bits exact). Made
+    once per model and FR, and kept in the params."""
+    if fr not in head["padsums"]:
+        head["padsums"][fr] = head["ft_w"][fr:].sum(
+            dim=0, dtype=torch.int64).to(torch.int32)
+    return head["padsums"][fr]
 
 
-def _align16(nbytes: int) -> int:
-    return (nbytes + 15) // 16 * 16
+def _align(nbytes: int, to: int) -> int:
+    return -(-nbytes // to) * to
 
 
-def _head_smem_bytes(fr: int, cfg: NNUESimCfg) -> int:
-    """Shared memory of the head routine (csrc/nnue_head.cu head_smem_bytes)."""
-    return (_align16(4 * (fr + cfg.l1 + 1)) + _align16(cfg.l1)
-            + _align16(cfg.l2) + _align16(cfg.l3))
-
-
-def _mega_smem_bytes(image_h, image_w, cfg: NNUESimCfg, fr: int) -> int:
-    """Shared memory of the mega kernel: the staged image, conv weights and
-    accumulators, then the head's (csrc/nnue_head.cu mega_smem_bytes)."""
-    staged = image_h * image_w * 3 + cfg.channels * 27 + fr
-    return _align16(4 * staged) + _head_smem_bytes(fr, cfg)
+def _smem_bytes(fr: int, cfg: NNUESimCfg, channels: int = 0,
+                hw3: int = 0) -> int:
+    """Shared memory of the kernels' smallest tile (csrc/nnue_head.cu
+    HeadSmem at 16 product rows, 2 ring slots and, in the mega kernel, one
+    staged pair of f32 images of `hw3` values): conv weights, biases and
+    feature geometry, the FT and fc1 biases, the mask (rows of FR padded to
+    128, + 16 bytes), the pairwise activations (rows of L1 padded to 32,
+    + 16, + 128 bytes of slack), and an area for the staged and quantized
+    pair or the FT sums, the dense outputs and the weight ring. The
+    launcher takes a larger tile where one fits."""
+    a128 = functools.partial(_align, to=128)
+    rows, l1, l2, l3 = 16, cfg.l1, cfg.l2, cfg.l3
+    sums = max(a128(4 * rows * 136), a128(rows * (_align(l2, 16) + 4))
+               + a128(rows * (_align(l3, 16) + 4)))
+    ft_stages = -(-l1 // 64) * -(-fr // 128)
+    fc1_stages = -(-l2 // 128) * -(-l1 // 128)
+    ring = min(max(ft_stages, fc1_stages), 2) * _SLOT_BYTES
+    area = max(sums + ring, 4 * a128(4 * hw3))
+    return (a128(4 * channels * 28) + (a128(4 * fr) if channels else 0)
+            + a128(4 * (l1 + l2)) + a128(rows * (_align(fr, 128) + 16))
+            + a128(rows * (_align(l1, 32) + 16) + 128) + area)
 
 
 def _check_mega_smem(image_h: int, image_w: int, cfg: NNUESimCfg, fr: int):
-    smem = _mega_smem_bytes(image_h, image_w, cfg, fr)
+    smem = _smem_bytes(fr, cfg, cfg.channels, image_h * image_w * 3)
     if smem > _MAX_SMEM:
         raise ValueError(
             f"a {image_h}x{image_w} image needs {smem} bytes of shared memory "
@@ -131,15 +192,16 @@ def mega_head_params(
     """Head params + the conv weights and padding constant of the mega
     kernel at this image size.
 
-    Raises if the image staged in shared memory would exceed the 48 KB a
-    block may use; `nnue_engine_forward_fused` serves such sizes.
+    Raises if two staged images, their quantized copies and a tile of 16
+    rows would not fit in the shared memory a block may use;
+    `nnue_engine_forward_fused` serves such sizes.
     """
     _, _, _, fr = _geometry(cfg, image_h, image_w)
     _check_mega_smem(image_h, image_w, cfg, fr)
     head = pallas_head_params(sim_params)
     head["conv_w"] = sim_params["conv_w"].to(torch.int32).contiguous()
     head["conv_b"] = sim_params["conv_b"].to(torch.int32).contiguous()
-    head["padsum"] = _padsum(head["ft_w"], fr)
+    head["padsum"] = _padsum(head, fr)
     return head
 
 
@@ -176,21 +238,24 @@ def _head_args(head: Dict, padsum: torch.Tensor, cfg: NNUESimCfg, fr: int,
                n_pad: int, conv_scale: int, device) -> list:
     """The head's scalar and pointer arguments, after checking every weight."""
     l1, l2, l3, nc = cfg.l1, cfg.l2, cfg.l3, cfg.num_classes
-    if fr + n_pad != cfg.num_features:
-        raise ValueError(f"FR {fr} + n_pad {n_pad} != F {cfg.num_features}")
+    f = cfg.num_features
+    if fr + n_pad != f:
+        raise ValueError(f"FR {fr} + n_pad {n_pad} != F {f}")
     if l1 % 4:
         raise ValueError(f"the kernels take L1 divisible by 4, not {l1}")
-    smem = _head_smem_bytes(fr, cfg)
+    smem = _smem_bytes(fr, cfg)
     if smem > _MAX_SMEM:
         raise ValueError(
             f"the head needs {smem} bytes of shared memory (limit {_MAX_SMEM})"
         )
-    i8, i32 = torch.int8, torch.int32
+    i8, i32, u8 = torch.int8, torch.int32, torch.uint8
+    ft_steps = -(-f // 128)
     specs = (
         ("padsum", padsum, i32, (l1,)),
-        ("ft_w", head["ft_w"], torch.int16, (cfg.num_features, l1)),
+        ("ft_tiles", head["ft_tiles"], u8, (-(-l1 // 64), ft_steps, 128, 128)),
         ("ft_b", head["ft_b"], i32, (l1,)),
-        ("fc1_w", head["fc1_w"], i8, (l2, l1)),
+        ("fc1_tiles", head["fc1_tiles"], i8,
+         (-(-l2 // 128), -(-l1 // 128), 128, 128)),
         ("fc1_b", head["fc1_b"], i32, (l2,)),
         ("fc2_w", head["fc2_w"], i8, (l3, l2)),
         ("fc2_b", head["fc2_b"], i32, (l3,)),
@@ -200,7 +265,8 @@ def _head_args(head: Dict, padsum: torch.Tensor, cfg: NNUESimCfg, fr: int,
     for name, t, dtype, shape in specs:
         _require(t, name, dtype, shape, device)
     scalars = [head["thresh"], n_pad, fr, l1, l2, l3, nc, cfg.quantized_one,
-               cfg.fc1_scale, cfg.fc2_scale, conv_scale, cfg.out_scale]
+               cfg.fc1_scale, cfg.fc2_scale, conv_scale, cfg.out_scale,
+               ft_steps]
     return scalars + [t.data_ptr() for _, t, _, _ in specs]
 
 
@@ -306,9 +372,9 @@ def _head_launch(head, acc, *, cfg, n_pad, conv_scale, with_count):
     logits, count = _outputs_like(acc, cfg, with_count)
     if b == 0:
         return logits, count
-    padsum = _padsum(head["ft_w"], fr)
     args = [acc.data_ptr(), b]
-    args += _head_args(head, padsum, cfg, fr, n_pad, conv_scale, dev)
+    args += _head_args(head, _padsum(head, fr), cfg, fr, n_pad, conv_scale,
+                       dev)
     args += [logits.data_ptr(), count.data_ptr() if with_count else None]
     _launch("nnue_head_launch", "nnue_head_kernel", args, dev)
     return logits, count

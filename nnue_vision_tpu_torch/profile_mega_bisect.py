@@ -8,15 +8,17 @@ widths of `config/train_nnue.py` (800 features, L1 1024, L2 128, L3 32, 10
 classes, 32×32 images) with weights from `nnue_init` (torch generator, seed
 0) through `nnue_quantize`:
 
-  v0_dma    stage the image in shared memory, write 128 values of it
-  v1_quant  + trunc(x·64) as it is staged
-  v2_conv   + the 3×3 strided conv and bias for all FR features
-  v3_ft     + epilogue, threshold compare, padding sum, FT, int16 wrap, clip
+  v0_dma    stage the images in shared memory, write 128 values of each
+  v1_quant  the same, writing trunc(x·64) of those 128 values
+  v2_conv   + the 3×3 strided conv (each tap quantized as it is read), its
+            epilogue and the threshold compare: the tile's 0/1 mask
+  v3_ft     + the FT product on the tensor cores (padding sum, int16 wrap,
+            clip) and the pairwise layer
   v4_full   the serving kernel, `nnue_engine_forward_mega(with_count=False)`
 
 v0–v3 are `nnue_mega_stage` (cut instantiations of the serving kernel's
 template), so the deltas split the time of the kernel that serves: image
-read, quantize, conv, FT, and the pairwise and dense layers. The inputs
+read, conv and mask, FT, and fc1, fc2 and the output layer. The inputs
 are four buffers of `normalize_images` of numpy-random images (seed 0),
 cycled through by the reps so that each rep reads its images from device
 memory; being normalized, every |trunc(x·64)| ≤ 256, as the JAX probe's

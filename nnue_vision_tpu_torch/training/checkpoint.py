@@ -29,6 +29,7 @@ from nnue_vision_tpu_torch.bridge import (
 )
 from nnue_vision_tpu_torch.models.etinynet import EtinyNet, EtinyNetConfig
 from nnue_vision_tpu_torch.models.nnue import NNUE, GridFeatureSet, NNUEConfig
+from nnue_vision_tpu_torch.ops.engine_sim import resolve_device
 from nnue_vision_tpu_torch.training.optim import OptState, opt_state_numpy
 
 
@@ -68,25 +69,29 @@ def load_checkpoint(path: Path) -> Dict[str, Any]:
         return pickle.load(f)
 
 
-def nnue_from_checkpoint(payload: Dict[str, Any], device=None) -> NNUE:
+def nnue_from_checkpoint(payload: Dict[str, Any], device="cuda") -> NNUE:
     """The NNUE of a loaded checkpoint payload, with its `model_config`
-    (fields the port's NNUEConfig does not have are dropped)."""
+    (fields the port's NNUEConfig does not have are dropped), on `device`
+    (the card unless the caller names another; raises without one)."""
     mc = dict(payload["model_config"])
     fields = {f.name for f in dataclasses.fields(NNUEConfig)}
     cfg = NNUEConfig(
         feature_set=GridFeatureSet(**mc.pop("feature_set")),
         **{k: v for k, v in mc.items() if k in fields},
     )
-    return nnue_from_jax_params(payload["params"], cfg, device=device)
+    return nnue_from_jax_params(payload["params"], cfg,
+                                device=resolve_device(device))
 
 
-def etinynet_from_checkpoint(payload: Dict[str, Any], device=None) -> EtinyNet:
+def etinynet_from_checkpoint(payload: Dict[str, Any], device="cuda"
+                             ) -> EtinyNet:
     """The EtinyNet of a loaded checkpoint payload (this package's or the
-    JAX package's), with its `model_config`."""
+    JAX package's), with its `model_config`, on `device` (the card unless
+    the caller names another; raises without one)."""
     mc = dict(payload["model_config"])
     if isinstance(mc.get("input_size"), (list, tuple)):
         mc["input_size"] = mc["input_size"][0]
     fields = {f.name for f in dataclasses.fields(EtinyNetConfig)}
     cfg = EtinyNetConfig(**{k: v for k, v in mc.items() if k in fields})
     return etinynet_from_jax(payload["params"], payload["batch_stats"], cfg,
-                             device=device)
+                             device=resolve_device(device))

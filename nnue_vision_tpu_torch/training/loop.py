@@ -64,6 +64,7 @@ from nnue_vision_tpu_torch.models.nnue import (
     NNUEConfig,
     nnue_init,
 )
+from nnue_vision_tpu_torch.ops.engine_sim import resolve_device
 from nnue_vision_tpu_torch.ops.input_pipeline import prepare_gather_dataset
 from nnue_vision_tpu_torch.training import checkpoint as ckpt
 from nnue_vision_tpu_torch.training.evaluate import (
@@ -153,17 +154,6 @@ def _refuse_unported(config: Any, model_type: str) -> None:
         raise ValueError(f"unknown compiled_backend {backend!r}")
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} asked for, but CUDA is not "
-                               "available on this host")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def _start_trace(dev: torch.device) -> torch.profiler.profile:
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
@@ -190,7 +180,7 @@ def train_model(config: Any, model_type: str,
     """Train per `config` on `device`; returns 0. `wandb_run_id` names the
     local run."""
     _refuse_unported(config, model_type)
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     early_log(f"Using device {dev}"

@@ -34,7 +34,7 @@ def _both(q, imgs):
     jp, jcfg = jsim.nnue_sim_params(q)
     jl, jd, jc = jsim.nnue_engine_forward(jp, imgs, cfg=jcfg, image_h=h,
                                           image_w=w)
-    tp, tcfg = tsim.nnue_sim_params(q)
+    tp, tcfg = tsim.nnue_sim_params(q, device="cpu")
     tl, td, tc = tsim.nnue_engine_forward(tp, torch.from_numpy(imgs),
                                           cfg=tcfg, image_h=h, image_w=w)
     return (np.asarray(jl), np.asarray(jd), np.asarray(jc)), (
@@ -67,7 +67,7 @@ def test_sim_matches_numpy_oracle(h, thresh, n_pad):
     q = random_quantized_nnue(rng, grid=4, ch=6, l1=16,
                               visual_threshold=thresh)
     imgs = _images(rng, 5, h)
-    p, cfg = tsim.nnue_sim_params(q)
+    p, cfg = tsim.nnue_sim_params(q, device="cpu")
     logits, density, _ = tsim.nnue_engine_forward(
         p, torch.from_numpy(imgs), cfg=cfg, image_h=h, image_w=h)
     for i in range(len(imgs)):
@@ -167,7 +167,7 @@ def test_threshold_compared_as_float32():
     q = random_quantized_nnue(rng, grid=4, ch=6, l1=16,
                               visual_threshold=126.99999999)
     imgs = _images(rng, 8, 12)
-    p, cfg = tsim.nnue_sim_params(q)
+    p, cfg = tsim.nnue_sim_params(q, device="cpu")
     buf = tsim.nnue_conv_buffer(p, torch.from_numpy(imgs), cfg=cfg, image_h=12)
     assert bool((buf == 127).any()), "no conv output hits the edge case"
     (jl, _, jc), (tl, _, tc) = _both(q, imgs)
@@ -184,7 +184,7 @@ def test_conv_buffer_matches_jax_feature_mask():
     jp, jcfg = jsim.nnue_sim_params(q)
     mask = np.asarray(jsim.nnue_feature_mask(jp, imgs, cfg=jcfg, image_h=12,
                                              image_w=12))
-    p, cfg = tsim.nnue_sim_params(q)
+    p, cfg = tsim.nnue_sim_params(q, device="cpu")
     buf = tsim.nnue_conv_buffer(p, torch.from_numpy(imgs), cfg=cfg, image_h=12)
     assert buf.shape == (4, q.num_features)
     np.testing.assert_array_equal(
@@ -201,7 +201,7 @@ def test_ft_sums_beyond_2_24_stay_exact():
                               visual_threshold=-200.0)
     q.ft.weight[:] = rng.integers(20000, 32767, q.ft.weight.shape)
     imgs = _images(rng, 2, 32)
-    p, cfg = tsim.nnue_sim_params(q)
+    p, cfg = tsim.nnue_sim_params(q, device="cpu")
     logits, _, count = tsim.nnue_engine_forward(
         p, torch.from_numpy(imgs), cfg=cfg, image_h=32, image_w=32)
     assert int(count.min()) == q.num_features
@@ -213,7 +213,7 @@ def test_ft_sums_beyond_2_24_stay_exact():
 
 def test_sim_params_keep_nnue_dtypes():
     q = random_quantized_nnue(np.random.default_rng(17))
-    p, cfg = tsim.nnue_sim_params(q)
+    p, cfg = tsim.nnue_sim_params(q, device="cpu")
     assert p["ft_w"].dtype == torch.int16
     assert p["fc1_w"].dtype == torch.int8
     assert p["visual_threshold"].dtype == torch.float32

@@ -85,7 +85,7 @@ def test_train_model_heavy_bf16(env, monkeypatch):
     assert payload["model_type"] == "etinynet"
     assert payload["model_config"]["dtype"] == "bfloat16"
     assert set(payload["batch_stats"]) == {"stem_bn", "blocks", "final_bn"}
-    model = etinynet_from_checkpoint(payload)
+    model = etinynet_from_checkpoint(payload, device="cpu")
     assert next(model.parameters()).dtype == torch.float32
     loader = tloop.create_data_loaders(
         dataset_name=cfg.dataset_name, batch_size=cfg.batch_size,

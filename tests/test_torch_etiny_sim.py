@@ -59,7 +59,7 @@ def _images(rng, b, h=32):
 
 
 def _port_logits(q, imgs, fn=tsim.etiny_engine_forward, kernel=False):
-    params, cfg = tsim.etiny_sim_params(q)
+    params, cfg = tsim.etiny_sim_params(q, device="cpu")
     if kernel:
         params = ek.etiny_kernel_params(params, cfg)
     h, w = imgs.shape[1:3]
@@ -127,7 +127,7 @@ def test_lb_block_plain_matches_lb_block_pallas():
     stride-1 `lb_block_pallas` subsampled as its caller does."""
     rng = np.random.default_rng(8)
     q = _random_etiny(rng)
-    params, cfg = tsim.etiny_sim_params(q)
+    params, cfg = tsim.etiny_sim_params(q, device="cpu")
     kp = ek.etiny_kernel_params(params, cfg)
     jp, jcfg = jsim.etiny_sim_params(q)
     pp = jpallas.etiny_pallas_params(jp, jcfg)
@@ -150,7 +150,7 @@ def test_kernel_path_refusals():
     block with non-power-of-two dims at the forward; the sim takes both."""
     rng = np.random.default_rng(13)
     q = _random_etiny(rng, dense_stride2=True)
-    params, cfg = tsim.etiny_sim_params(q)
+    params, cfg = tsim.etiny_sim_params(q, device="cpu")
     with pytest.raises(ValueError, match="stride-2 dense"):
         ek.etiny_kernel_params(params, cfg)
     q = _random_etiny(rng)
@@ -165,4 +165,4 @@ def test_non_pow2_scale_refused():
     q = _random_etiny(rng)
     q.blocks[0].dw_scale = 48.0
     with pytest.raises(ValueError, match="power of two"):
-        tsim.etiny_sim_params(q)
+        tsim.etiny_sim_params(q, device="cpu")

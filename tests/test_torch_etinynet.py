@@ -229,5 +229,6 @@ def test_serialize_reads_a_port_checkpoint(tmp_path):
                                            tmp_path / f"{n}.etiny", force=True)
             for n in ("port", "jax")]
     assert outs[0].read_bytes() == outs[1].read_bytes()
-    back = tckpt.etinynet_from_checkpoint(tckpt.load_checkpoint(tmp_path / "port.ckpt"))
+    back = tckpt.etinynet_from_checkpoint(
+        tckpt.load_checkpoint(tmp_path / "port.ckpt"), device="cpu")
     _assert_tree_close(bridge.etinynet_to_numpy(back)[1], stats, atol=0)

@@ -89,7 +89,7 @@ def test_serialize_reads_the_port_checkpoint(env):
     model_type, params, _, jcfg = serialize.load_checkpoint_auto(ckpt)
     assert model_type == "nnue" and jcfg.l1_size == 32
     out = serialize.serialize_checkpoint(ckpt, tmp_path / "jax.nnue")
-    model = nnue_from_checkpoint(load_checkpoint(ckpt))
+    model = nnue_from_checkpoint(load_checkpoint(ckpt), device="cpu")
     assert float(model.nnue2score.detach()) < 600.0  # decayed (F1)
     formats.write_nnue(nnue_quantize(model), tmp_path / "port.nnue")
     assert out.read_bytes() == (tmp_path / "port.nnue").read_bytes()

@@ -55,7 +55,8 @@ def _setup(tmp_path, thresh, seed=31):
     q = random_quantized_nnue(rng, grid=5, ch=8, l1=128, l2=16, l3=8,
                               num_classes=4, visual_threshold=thresh)
     jformats.write_nnue(q, tmp_path / "m.nnue")
-    tp, tcfg = tsim.nnue_sim_params(tformats.read_nnue(tmp_path / "m.nnue"))
+    tp, tcfg = tsim.nnue_sim_params(tformats.read_nnue(tmp_path / "m.nnue"),
+                                    device="cpu")
     jp, jcfg = jsim.nnue_sim_params(q)
     raw = rng.random((B, HW, HW, 3), dtype=np.float32)
     flat = np.array(jnormalize(jnp.asarray(raw))).reshape(B, -1)
@@ -89,7 +90,7 @@ def test_stage_plain_equals_jax_probe(tmp_path, jax_probe, level, thresh):
 
 def test_stage_wrapper_refuses_small_shapes():
     q = random_quantized_nnue(np.random.default_rng(5), grid=4, ch=6, l1=16)
-    tp, tcfg = tsim.nnue_sim_params(q)
+    tp, tcfg = tsim.nnue_sim_params(q, device="cpu")
     head = nk.mega_head_params(tp, tcfg, 12, 12)  # FR 96, L1 16
     x = torch.zeros((2, 12 * 12 * 3))
     with pytest.raises(ValueError, match="FR"):

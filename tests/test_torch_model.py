@@ -178,7 +178,7 @@ def test_whole_slice_matches_jax_chain(tmp_path):
     model = bridge.nnue_from_jax_params(p, tcfg)
     formats.write_nnue(tnnue.nnue_quantize(model), tmp_path / "t.nnue")
     tq = formats.read_nnue(tmp_path / "t.nnue")
-    tp, tc = tsim.nnue_sim_params(tq)
+    tp, tc = tsim.nnue_sim_params(tq, device="cpu")
     got = nk.nnue_engine_forward_mega(
         nk.mega_head_params(tp, tc, 12, 12), torch.from_numpy(flat), cfg=tc,
         image_h=12, image_w=12)

@@ -29,7 +29,7 @@ def _setup(seed, h, thresh):
     imgs = (rng.random((B, h, h, 3), dtype=np.float32) * 2 - 0.5).astype(
         np.float32)
     jp, jcfg = jsim.nnue_sim_params(q)
-    tp, tcfg = tsim.nnue_sim_params(q)
+    tp, tcfg = tsim.nnue_sim_params(q, device="cpu")
     return q, imgs, (jp, jcfg), (tp, tcfg)
 
 
@@ -103,7 +103,7 @@ def test_fused_head_plain_matches_pallas():
     q = random_quantized_nnue(rng, grid=4, ch=6, l1=16)
     buf = rng.integers(-127, 128, (3, q.num_features)).astype(np.float32)
     jp, jcfg = jsim.nnue_sim_params(q)
-    tp, tcfg = tsim.nnue_sim_params(q)
+    tp, tcfg = tsim.nnue_sim_params(q, device="cpu")
     thead = nk.pallas_head_params(tp)
     ref = jpk.fused_nnue_head(jpk.pallas_head_params(jp), jnp.asarray(buf),
                               cfg=jcfg, tile_b=8, interpret=True)
@@ -125,7 +125,7 @@ def test_large_ft_weights_stay_exact():
         np.float32)
     jp, jcfg = jsim.nnue_sim_params(q)
     ref = jsim.nnue_engine_forward(jp, imgs, cfg=jcfg, image_h=12, image_w=12)
-    tp, tcfg = tsim.nnue_sim_params(q)
+    tp, tcfg = tsim.nnue_sim_params(q, device="cpu")
     got = nk.nnue_engine_forward_fused(
         tp, nk.pallas_head_params(tp), torch.from_numpy(imgs), cfg=tcfg,
         image_h=12, image_w=12)
@@ -139,7 +139,7 @@ def test_large_ft_weights_stay_exact():
 
 def test_padsum_is_the_padding_rows():
     q = random_quantized_nnue(np.random.default_rng(25), grid=4, ch=6, l1=16)
-    tp, tcfg = tsim.nnue_sim_params(q)
+    tp, tcfg = tsim.nnue_sim_params(q, device="cpu")
     head = nk.mega_head_params(tp, tcfg, 12, 12)  # FR 54, n_pad 42
     np.testing.assert_array_equal(
         head["padsum"].numpy(), q.ft.weight[54:].astype(np.int64).sum(axis=0))
@@ -148,15 +148,18 @@ def test_padsum_is_the_padding_rows():
 
 def test_mega_rejects_images_beyond_shared_memory():
     q = random_quantized_nnue(np.random.default_rng(26), grid=4, ch=6, l1=16)
-    tp, tcfg = tsim.nnue_sim_params(q)
-    nk.mega_head_params(tp, tcfg, 64, 60)  # 60·64·3·4 B staged: fits
+    tp, tcfg = tsim.nnue_sim_params(q, device="cpu")
+    # two staged images of 64·74·3·4 B, their quantized copies and a tile
+    # of 16 rows: 231,808 B of the 232,448 a block may use; at 76 columns
+    # 237,952 B
+    nk.mega_head_params(tp, tcfg, 64, 74)
     with pytest.raises(ValueError, match="nnue_engine_forward_fused"):
-        nk.mega_head_params(tp, tcfg, 64, 64)
+        nk.mega_head_params(tp, tcfg, 64, 76)
 
 
 def test_qbf16_window_and_input_mode_checks():
     q = random_quantized_nnue(np.random.default_rng(27), grid=4, ch=6, l1=16)
-    tp, tcfg = tsim.nnue_sim_params(q)
+    tp, tcfg = tsim.nnue_sim_params(q, device="cpu")
     with pytest.raises(ValueError, match="exact-integer window"):
         nk.quantize_images_for_mega(torch.full((1, 432), 4.02), tcfg)
     head = nk.mega_head_params(tp, tcfg, 12, 12)
@@ -167,7 +170,7 @@ def test_qbf16_window_and_input_mode_checks():
 
 def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     q = random_quantized_nnue(np.random.default_rng(28), grid=4, ch=6, l1=16)
-    tp, tcfg = tsim.nnue_sim_params(q)
+    tp, tcfg = tsim.nnue_sim_params(q, device="cpu")
     nk.reset_launch_counts()
     nk.nnue_engine_forward_mega(nk.mega_head_params(tp, tcfg, 12, 12),
                                 torch.zeros(2, 432), cfg=tcfg, image_h=12,
@@ -183,7 +186,7 @@ def test_kernel_wrappers_raise_off_cuda():
     """A tensor that is neither on the CPU nor on a card reaches the kernel
     wrapper and raises: nothing falls back to the plain version."""
     q = random_quantized_nnue(np.random.default_rng(29), grid=4, ch=6, l1=16)
-    tp, tcfg = tsim.nnue_sim_params(q)
+    tp, tcfg = tsim.nnue_sim_params(q, device="cpu")
     head = nk.mega_head_params(tp, tcfg, 12, 12)
     meta = torch.zeros(2, 432, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors only"):

@@ -126,7 +126,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                     **kw)
     with pytest.raises(ValueError, match="images_flat"):
         nk.nnue_engine_forward_mega(mega, x, input_mode="qbf16", **kw)
-    cpu_sim, _ = tsim.nnue_sim_params(q)
+    cpu_sim, _ = tsim.nnue_sim_params(q, device="cpu")
     with pytest.raises(ValueError, match="on cuda"):
         nk.nnue_engine_forward_mega(nk.mega_head_params(cpu_sim, cfg, 12, 12),
                                     x, **kw)
