@@ -11,7 +11,9 @@ Phases, one line each (any failure raises and exits non-zero):
 2. build     nvcc-build the kernels from nnue_vision_tpu_torch/csrc; ptxas
              registers per kernel, and in the built library's SASS the count
              of int8 tensor-core (IMMA) and cp.async (LDGSTS) instructions of
-             the serving kernels (K1, K2, K6, K7), which must reach both
+             the serving kernels (K1, K2, K6, K7), which must reach both, and
+             of bulk copies (UBLKCP) of the ring kernels (K4, its single pass,
+             K8, K5), which must reach them and spill nothing
 3. model     flagship-width NNUE (config/train_nnue.py widths) from a numpy
              seed → nnue_quantize → write_nnue → read_nnue → nnue_sim_params
 4. serve     batches of 1, 37, 512 and 8192 normalized 32×32 images through
@@ -36,8 +38,9 @@ Phases, one line each (any failure raises and exits non-zero):
 11. launches all three kernels launched on their paths (serving: 4-6,
              training: 10)
 12. timing   K3 vs plain at batch 512 and 8192 (CUDA events, median of 20 in
-             turns); ms per train step over a 39-step chunk (host clock, one
-             sync at the end)
+             turns), at 512 also graph-timed and its host cost per call; ms
+             per train step over a 39-step chunk (host clock, one sync at the
+             end)
 13. etiny-serve  a 0.98M-width EtinyNet from a numpy seed (random weights and
              norm statistics) → etinynet_quantize → write_etiny → read_etiny,
              and a stress model at full int8 ranges; batches 1, 37, 1024 and
@@ -55,9 +58,11 @@ Phases, one line each (any failure raises and exits non-zero):
 16. launches the three kernels launched on their paths (serving: 13,
              training: 15)
 17. timing   K4, K5 (each variant) and K6 (the whole int8 forward, and its 12
-             LB blocks alone) vs plain at batch 1024 and 8192, the 12 blocks
-             at 8192 also graph-timed; ms per EtinyNet train step at batch
-             1024 over 48 steps (host clock, one sync at the end)
+             LB blocks alone) vs plain at batch 1024 and 8192; K4 and K5 also
+             graph-timed with their host cost per call (the host clock over
+             many enqueues, no sync inside), the 12 blocks at 8192 graph-timed;
+             ms per EtinyNet train step at batch 1024 over 48 steps (host
+             clock, one sync at the end)
 18. mega-bisect  the cut mega kernel (K7) at levels 0-3 on the flagship and
              the stress model (negative threshold: the padding sum is on) at
              batch 8192 and 37, each torch.equal to nnue_mega_stage_reference;
@@ -65,8 +70,10 @@ Phases, one line each (any failure raises and exits non-zero):
 19. warp-split  lerp_pass and nogather_pass (K8) on drawn heavy-tier maps and
              out-of-frame maps (zero fill) at batch 1024 and 37, each
              torch.equal to its plain version, and the five-stage
-             composition equal to warp_bilinear; then profile_warp_split's
-             variants at batch 1024 (counted)
+             composition equal to warp_bilinear; the passes timed at batch
+             1024 with CUDA events and graph-timed beside grid_sample both
+             ways, with their host cost; then profile_warp_split's variants
+             at batch 1024 (counted)
 20. trace    train_model on config/train_nnue_test.py with the light tier on
              (the fused K3 path) and profile_dir: the trace file names
              light_pipeline_kernel among its CUDA kernels
@@ -76,8 +83,9 @@ Phases, one line each (any failure raises and exits non-zero):
 Then one JSON line with each kernel's launches, error and times (kernel,
 plain version, the card's bound for the same work and, where one PyTorch
 call computes the same function, that call; K6's are its 12 LB blocks
-alone at batch 8192, K7's level 3), the card's name and power limit, and
-the last line {"ok": true, "device": {...}}.
+alone at batch 8192, K7's level 3; K3, K4, K5, the single pass and K8 also
+graph-timed, with their host cost per call), the card's name and power
+limit, and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -111,6 +119,7 @@ from nnue_vision_tpu_torch import (
 )
 from config import load_config
 from nnue_vision_tpu_torch import profile_mega_bisect, profile_warp_split
+from nnue_vision_tpu_torch.profile_augment import grid_sample_pass, host_ms
 from nnue_vision_tpu_torch.bridge import nnue_from_jax_params
 from nnue_vision_tpu_torch.data import augment as aug
 from nnue_vision_tpu_torch.data.augment import normalize_images
@@ -210,8 +219,12 @@ INT_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 BISECT_REPS = 100
 GRAPH_REPS = 50  # calls per CUDA graph in the graph-timed rows
-# the tensor-core kernels, as their names appear (mangled) in the SASS
+# the tensor-core kernels and the bulk-copy kernels, as their names appear
+# (mangled) in the SASS, and the instructions counted there
 TENSOR_CORE_KERNELS = ("etiny_block_kernel", "nnue_mega_kernel", "nnue_head_kernel")
+BULK_KERNELS = ("warp_kernel", "lerp_pass_kernel", "photometric_kernel")
+SASS_KERNELS = TENSOR_CORE_KERNELS + BULK_KERNELS
+SASS_OPS = ("IMMA", "LDGSTS", "UBLKCP")
 WARP_SPLIT_REPS = "100"
 TRACE_CONFIG = "config/train_nnue_test.py"
 
@@ -272,25 +285,52 @@ def stress_model(rng: np.random.Generator, q):
 
 
 def sass_counts(lib_path: Path) -> dict:
-    """{kernel<args>: (IMMA, LDGSTS)} for the tensor-core kernels in the
-    built library's SASS (cuobjdump -sass): int8 tensor-core products and
-    asynchronous global-to-shared copies."""
+    """{kernel<args>: {mnemonic: count}} for SASS_KERNELS in the built
+    library's SASS (cuobjdump -sass): int8 tensor-core products (IMMA),
+    asynchronous global-to-shared copies (LDGSTS) and bulk copies (UBLKCP)."""
     tool = Path(_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            mangled = line.split("Function :")[1].strip()
-            name = next((k for k in TENSOR_CORE_KERNELS if k in mangled), None)
+            name = kernel_name(line.split("Function :")[1].strip())
             if name is not None:
-                args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[1])
-                name += f"<{','.join(args)}>" if args else ""
-                counts[name] = [0, 0]
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
         elif name is not None:
-            counts[name][0] += "IMMA" in line
-            counts[name][1] += "LDGSTS" in line
-    return {k: tuple(v) for k, v in sorted(counts.items())}
+            for op in SASS_OPS:
+                counts[name][op] += op in line
+    return dict(sorted(counts.items()))
+
+
+def kernel_name(mangled: str):
+    """`kernel<template args>` of a SASS_KERNELS kernel's mangled name, or
+    None for another function."""
+    name = next((k for k in SASS_KERNELS if k in mangled), None)
+    if name is not None:
+        args = re.findall(r"L[ib](\d+)E", mangled.split(name, 1)[1])
+        name += f"<{','.join(args)}>" if args else ""
+    return name
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel<args>: (registers, spill store bytes, spill load bytes)} for
+    SASS_KERNELS from nvcc's -Xptxas -v output."""
+    usage, entry, props = {}, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = kernel_name(line.split("'")[1])
+        elif "Function properties for" in line:
+            props = kernel_name(line.split("for", 1)[1].strip())
+        elif "spill stores" in line and props is not None:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+            regs = usage.get(props, (0, 0, 0))[0]
+            usage[props] = (regs, nums[1], nums[2])
+        elif "Used" in line and "registers" in line and entry is not None:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            old = usage.get(entry, (0, 0, 0))
+            usage[entry] = (regs, old[1], old[2])
+    return dict(sorted(usage.items()))
 
 
 class Errors:
@@ -477,7 +517,7 @@ def etiny_model(rng: np.random.Generator) -> EtinyNet:
     """A 0.98M-width EtinyNet with random weights in the JAX package's init
     ranges and random norm affines and running statistics."""
     model = EtinyNet(EtinyNetConfig(variant="0.98M", num_classes=10,
-                                    input_size=H))
+                                    input_size=H), device="cpu")
     state = {}
     for name, t in model.state_dict().items():
         leaf = name.rsplit(".", 1)[-1]
@@ -629,11 +669,22 @@ def main() -> int:
     say("build", f"{built.path.name} built in {built.seconds:.1f} s; "
         + " | ".join(ptxas))
     sass = sass_counts(built.path)
-    say("build", "SASS (IMMA, LDGSTS) per tensor-core kernel: " + json.dumps(sass))
+    say("build", "SASS (IMMA, LDGSTS, UBLKCP) per kernel: " + json.dumps(sass))
     for name in ("etiny_block_kernel", "nnue_mega_kernel<4,2,2>",
                  "nnue_mega_kernel<4,1,1>", "nnue_head_kernel<2,2>"):
-        check(name in sass and min(sass[name]) > 0,
+        check(name in sass and sass[name]["IMMA"] > 0 and sass[name]["LDGSTS"] > 0,
               f"{name}: no int8 tensor-core or cp.async instruction in its SASS")
+    usage = ptxas_usage(built.log)
+    for name in ("warp_kernel", "lerp_pass_kernel<1>", "lerp_pass_kernel<0>",
+                 "photometric_kernel"):
+        check(name in sass and sass[name]["UBLKCP"] > 0,
+              f"{name}: no bulk-copy (UBLKCP) instruction in its SASS")
+        check(name in usage and usage[name][1:] == (0, 0),
+              f"{name}: spills ({usage.get(name)}: registers, spill store and "
+              "load bytes)")
+    say("build", "ptxas (registers, spill store bytes, spill load bytes): "
+        + json.dumps({k: v for k, v in usage.items()
+                      if k.split("<")[0] in BULK_KERNELS}))
 
     # 3. model
     rng = np.random.default_rng(SEED)
@@ -713,6 +764,7 @@ def main() -> int:
     hkw = dict(cfg=cfg, n_pad=cfg.num_features - acc.shape[1],
                conv_scale=cfg.conv_scale, with_count=True)
     ms = {}
+    extra = {}  # (graph-timed ms, host ms per call) of the ring kernels
     ms["nnue_mega_kernel"] = time_pair(
         lambda: nk.nnue_engine_forward_mega(mega, flat, **kw),
         lambda: nk.nnue_engine_forward_mega_reference(mega, flat, **kw))
@@ -834,6 +886,14 @@ def main() -> int:
             lambda a=args: ip.fused_light_pipeline_reference(dataset, *a, h=H, w=W))
         if batch == 512:
             ms["light_pipeline_kernel"] = (k, p)
+            extra["light_pipeline_kernel"] = (chained_best_ms(
+                lambda a=args: ip.fused_light_pipeline(dataset, *a, h=H, w=W),
+                GRAPH_REPS), host_ms(
+                lambda a=args: ip.fused_light_pipeline(dataset, *a, h=H, w=W)))
+            say("timing", f"K3 B={batch}: graph-timed "
+                f"{extra['light_pipeline_kernel'][0]:.4f} ms ({GRAPH_REPS} calls "
+                f"per CUDA graph, best of 3), host "
+                f"{extra['light_pipeline_kernel'][1]:.4f} ms per call on {smi}")
             # the gathered rows read and the output written; per value a
             # multiply-add, two clamps, a subtract and a divide
             values = batch * H * W * 3
@@ -1006,6 +1066,19 @@ def main() -> int:
             say("timing", f"B={batch} {what}: kernel {k:.4f} ms "
                 f"({batch / k * 1e3:,.0f} img/s), plain {p:.4f} ms "
                 f"({batch / p * 1e3:,.0f} img/s) on {smi}")
+        for name, fn in (
+                ("warp_kernel", lambda: wk.warp_bilinear(images, draws.warp1)),
+                ("photometric_kernel", lambda: pk.photometric_block(
+                    images, noise, *draws.photo1, variant="medium")),
+                ("photometric_kernel heavy_extra", lambda: pk.photometric_block(
+                    images, noise, *draws.photo2, variant="heavy_extra"))):
+            graph_host = (chained_best_ms(fn, GRAPH_REPS), host_ms(fn))
+            if batch == 1024:
+                extra[name] = graph_host
+            say("timing", f"B={batch} {name}: graph-timed {graph_host[0]:.4f} ms "
+                f"({GRAPH_REPS} calls per CUDA graph, best of 3), host "
+                f"{graph_host[1]:.4f} ms per call (host clock over many "
+                f"enqueues, no sync inside) on {smi}")
         if batch == 1024:
             for name in ("warp_kernel", "photometric_kernel"):
                 ms[name] = rows[name]
@@ -1014,9 +1087,12 @@ def main() -> int:
             bounds["warp_kernel"] = bound(
                 2 * nbytes(images) + nbytes(draws.warp1),
                 f32_ops=18 * images.numel())
-            # ~60 float operations per value (csrc/photometric.cu)
+            # ~60 float operations per value (csrc/photometric.cu); the
+            # kernel reads the noise only of the images whose gate 8 is on
+            gated = int((draws.photo1[0][:, 8] > 0.5).sum())
             bounds["photometric_kernel"] = bound(
-                2 * nbytes(images) + nbytes(noise, *draws.photo1),
+                2 * nbytes(images) + nbytes(*draws.photo1)
+                + nbytes(noise) * gated // batch,
                 f32_ops=60 * images.numel())
             # grid_sample is a one-pass bilinear warp, not the two-pass
             # result; no single call runs the gated photometric chain
@@ -1133,28 +1209,21 @@ def main() -> int:
                  wk.nogather_pass_reference)):
             ms[kernel] = time_pair(lambda f=fn: f(packed, coef1, n=W, c=3),
                                    lambda f=ref: f(packed, coef1, n=W, c=3))
+            extra[kernel] = (chained_best_ms(lambda f=fn: f(packed, coef1, n=W, c=3),
+                                             GRAPH_REPS),
+                             host_ms(lambda f=fn: f(packed, coef1, n=W, c=3)))
             # per value: a position (two multiplies, two adds) and a lerp
             # (floor, three subtracts, two multiplies, an add)
             bounds[kernel] = bound(2 * nbytes(packed) + nbytes(coef1),
                                    f32_ops=9 * packed.numel())
         # one library call computes a single pass: grid_sample on the rows
         # as a (B, C, R, N) image, its grid holding the same positions
-        rows = torch.arange(H, device="cuda", dtype=torch.float32)[None, :, None]
-        cols = torch.arange(W, device="cuda", dtype=torch.float32)[None, None, :]
-        pos = (coef1[:, 0, None, None] * rows + coef1[:, 1, None, None] * cols
-               + coef1[:, 2, None, None])
-        grid = torch.stack([pos * (2.0 / (W - 1)) - 1.0,
-                            (rows * (2.0 / (H - 1)) - 1.0).expand_as(pos)], dim=-1)
-        src = images.permute(0, 3, 1, 2)
-
-        def sample():
-            return torch.nn.functional.grid_sample(
-                src, grid, mode="bilinear", padding_mode="zeros",
-                align_corners=True)
+        sample = grid_sample_pass(images, coef1)
         check(torch.allclose(sample().permute(0, 2, 3, 1).reshape(packed.shape),
                              wk.lerp_pass(packed, coef1, n=W, c=3), atol=1e-4),
               "grid_sample does not compute the lerp pass")
         library["lerp_pass_kernel"] = time_median(sample)
+        library_graph = chained_best_ms(sample, GRAPH_REPS)
         library["nogather_pass_kernel"] = None  # no call reads in place of taps
     say("warp-split", f"B={AUGMENT_BATCHES}: lerp_pass and nogather_pass on "
         "heavy-tier and out-of-frame maps equal to plain (tolerance: none, "
@@ -1163,7 +1232,9 @@ def main() -> int:
         k, p = ms[kernel]
         say("timing", f"B=1024 {kernel}: kernel {k:.4f} ms, plain {p:.4f} ms"
             + (f", grid_sample {library[kernel]:.4f} ms" if library[kernel]
-               else "") + f" on {smi}")
+               else "") + f"; graph-timed kernel {extra[kernel][0]:.4f} ms"
+            + (f", grid_sample {library_graph:.4f} ms" if library[kernel]
+               else "") + f"; host {extra[kernel][1]:.4f} ms per call on {smi}")
     os.environ["WARP_SPLIT_REPS"] = WARP_SPLIT_REPS
     wk.reset_launch_counts()
     split = profile_warp_split.run(AUGMENT_BATCHES[0], "cuda")
@@ -1205,7 +1276,9 @@ def main() -> int:
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs.max[name], "ms": ms[name][0],
          "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": library[name]}
+         "bound_by": bounds[name][1], "library_ms": library[name],
+         **({"graph_ms": extra[name][0], "host_ms": extra[name][1]}
+            if name in extra else {})}
         for name in SOURCES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -16,13 +16,15 @@ import numpy as np
 import torch
 
 from nnue_vision_tpu_torch.models.nnue import NNUE, NNUEConfig
+from nnue_vision_tpu_torch.ops.engine_sim import resolve_device
 
 
 def nnue_from_jax_params(
-    np_params: Dict[str, np.ndarray], cfg: NNUEConfig, device=None
+    np_params: Dict[str, np.ndarray], cfg: NNUEConfig, device="cuda"
 ) -> NNUE:
-    """An `NNUE` holding exactly `np_params` (float32), on `device`."""
-    model = NNUE(cfg, device=device)
+    """An `NNUE` holding exactly `np_params` (float32), on `device` (the
+    card unless the caller names another; raises without one)."""
+    model = NNUE(cfg, device=resolve_device(device))
     state = model.state_dict()
     missing = set(state) - set(np_params)
     if missing:
@@ -94,11 +96,13 @@ def _nest(flat: Dict[str, np.ndarray]):
     return listify(tree)
 
 
-def etinynet_from_jax(params, batch_stats, cfg, device=None):
-    """An `EtinyNet` holding exactly the JAX pytrees' values (float32)."""
+def etinynet_from_jax(params, batch_stats, cfg, device="cuda"):
+    """An `EtinyNet` holding exactly the JAX pytrees' values (float32), on
+    `device` (the card unless the caller names another; raises without
+    one)."""
     from nnue_vision_tpu_torch.models.etinynet import EtinyNet
 
-    model = EtinyNet(cfg, device=device)
+    model = EtinyNet(cfg, device=resolve_device(device))
     flat = {**_flatten(params), **_flatten(batch_stats)}
     state = model.state_dict()
     missing = set(state) - set(flat)

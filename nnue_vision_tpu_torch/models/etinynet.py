@@ -49,6 +49,7 @@ from nnue_vision_tpu_torch.formats import (
     QuantizedEtinyNet,
 )
 from nnue_vision_tpu_torch.models.nnue import _clip
+from nnue_vision_tpu_torch.ops.engine_sim import resolve_device
 from nnue_vision_tpu_torch.quantize import quantize_bias_i32, quantize_weight_i8
 
 ETINYNET_VARIANTS = {
@@ -250,14 +251,15 @@ class EtinyNet(nn.Module):
 
 
 def etinynet_init(cfg: EtinyNetConfig, generator: torch.Generator,
-                  device=None) -> EtinyNet:
+                  device="cuda") -> EtinyNet:
     """A new `EtinyNet` with the JAX package's init distributions
     (etinynet.py:161-237): every conv U(±1/√fan_in) with fan_in = kh·kw·in
     of its HWIO shape, norms at scale 1, bias 0, running mean 0, var 1, the
     classifier's weight and bias U(±1/√final). Drawn on the host from
     `generator`, so a seed gives the same model on every device; the stream
-    differs from `jax.random`'s."""
-    model = EtinyNet(cfg)
+    differs from `jax.random`'s. Built on `device`: the card unless the
+    caller names another (raises without one)."""
+    model = EtinyNet(cfg, device=resolve_device(device))
     with torch.no_grad():
         for name, prm in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
@@ -270,7 +272,7 @@ def etinynet_init(cfg: EtinyNetConfig, generator: torch.Generator,
             bound = 1.0 / math.sqrt(max(1, fan_in))
             u = torch.rand(prm.shape, generator=generator, dtype=torch.float32)
             prm.copy_(u * (2 * bound) - bound)
-    return model.to(device)
+    return model
 
 
 def count_parameters(model: nn.Module) -> int:

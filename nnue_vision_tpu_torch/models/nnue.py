@@ -39,7 +39,7 @@ from nnue_vision_tpu_torch.quantize import (
     quantize_bias_i32,
     quantize_weight_i8,
 )
-from nnue_vision_tpu_torch.ops.engine_sim import engine_conv_stride
+from nnue_vision_tpu_torch.ops.engine_sim import engine_conv_stride, resolve_device
 
 DEFAULT_L1 = 1024
 DEFAULT_L2 = 128
@@ -263,14 +263,16 @@ class NNUE(nn.Module):
         return x @ p[f"{name}_w"].T + p[f"{name}_b"]
 
 
-def nnue_init(cfg: NNUEConfig, generator: torch.Generator, device=None) -> NNUE:
+def nnue_init(cfg: NNUEConfig, generator: torch.Generator, device="cuda"
+              ) -> NNUE:
     """A new `NNUE` with the JAX package's init distributions (nnue.py:157-184):
     fan-in uniform conv and dense weights and biases, FT weights N(0, 0.1²),
     FT bias 0, threshold 0.1 per channel, nnue2score 600.
 
     Drawn on the host from `generator` (a CPU `torch.Generator`), so a seed
     gives the same model on every device; the streams differ from
-    `jax.random`'s, so tests hand both packages numpy-made params.
+    `jax.random`'s, so tests hand both packages numpy-made params. Built on
+    `device`: the card unless the caller names another (raises without one).
     """
     fs = cfg.feature_set
     ch, l1, l2, l3, nc = (fs.num_features_per_square, cfg.l1_size,
@@ -294,7 +296,7 @@ def nnue_init(cfg: NNUEConfig, generator: torch.Generator, device=None) -> NNUE:
         "out_b": uniform((nc,), l3),
         "nnue2score": torch.tensor(600.0),
     }
-    model = NNUE(cfg, device=device)
+    model = NNUE(cfg, device=resolve_device(device))
     model.load_state_dict(params)
     return model
 
@@ -367,8 +369,9 @@ def nnue_quantize(model: NNUE) -> QuantizedNNUE:
     ).validate()
 
 
-def nnue_from_quantized(q: QuantizedNNUE, device=None) -> NNUE:
-    """Dequantize a QuantizedNNUE back into a float model."""
+def nnue_from_quantized(q: QuantizedNNUE, device="cuda") -> NNUE:
+    """Dequantize a QuantizedNNUE back into a float model on `device` (the
+    card unless the caller names another; raises without one)."""
     from nnue_vision_tpu_torch.bridge import nnue_from_jax_params
 
     cfg = NNUEConfig(

@@ -52,9 +52,13 @@ SIGNATURES = {
     "light_pipeline_launch": (
         [_P, _I, _I, _I, _P, _P, _P, _I] + [_F] * 6 + [_P, _P], _I,
     ),
-    "warp_launch": ([_P, _I, _I, _I, _P, _P, _P], _I),
-    "lerp_pass_launch": ([_P, _I, _I, _I, _I, _P, _I, _P, _P], _I),
-    "photometric_launch": ([_P, _P, _P, _P] + [_I] * 6 + [_P, _P], _I),
+    # the ring kernels' launchers take one packed int64 array (ops/_ring.py)
+    "warp_launch": ([_P], _I),
+    "warp_blocks_per_sm": ([_I], _I),
+    "lerp_pass_launch": ([_P], _I),
+    "lerp_pass_blocks_per_sm": ([_I] * 3, _I),
+    "photometric_launch": ([_P], _I),
+    "photometric_blocks_per_sm": ([_I] * 2, _I),
     "etiny_block_smem": ([_I] * 8, _I),
     "etiny_block_tile": ([_I] * 8, _I),
     "etiny_block_launch": ([_P] + [_I] * 12 + [_P] * 6, _I),

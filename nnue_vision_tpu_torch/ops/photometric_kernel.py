@@ -22,12 +22,18 @@ both to float32 rounding.
 
 `photometric_block` dispatches on the device of the images: a CPU tensor
 takes the plain version, a CUDA tensor the kernel, which launches or raises.
+The kernel is a persistent grid that walks images through one
+shared-memory slot per block, fed by bulk copies (the noise is read only
+where its gate is on); `ops/_ring.py` sizes the grid and launches. It
+takes images of whole 16-byte units (H·W % 4 == 0).
 """
 
 from __future__ import annotations
 
 import torch
 from torch.nn import functional as F
+
+from nnue_vision_tpu_torch.ops import _ring
 
 # Launches since the last reset_launch_counts(); the wrapper adds one where
 # it launches the kernel, and nowhere else.
@@ -40,6 +46,7 @@ MEDIUM_I = 4   # cutout y0, hh, x0, ww
 HEAVY_F = 12   # bc(3) hsv(4) blur(1) noise(2) cutA(1) cutB(1)
 HEAVY_I = 8    # two cutout rectangles
 VARIANTS = {"medium": (MEDIUM_F, MEDIUM_I), "heavy_extra": (HEAVY_F, HEAVY_I)}
+_F32 = torch.float32
 
 
 def reset_launch_counts() -> None:
@@ -55,9 +62,8 @@ def _check(x, noise, fparams, iparams, variant) -> None:
                          f"{tuple(x.shape)}")
     nf, ni = VARIANTS[variant]
     b = x.shape[0]
-    if (tuple(noise.shape) != tuple(x.shape)
-            or tuple(fparams.shape) != (b, nf)
-            or tuple(iparams.shape) != (b, ni)):
+    if (noise.shape != x.shape or fparams.shape != (b, nf)
+            or iparams.shape != (b, ni)):
         raise ValueError(
             f"{variant}: noise {tuple(x.shape)}, fparams ({b}, {nf}), iparams "
             f"({b}, {ni}) expected; got {tuple(noise.shape)}, "
@@ -198,38 +204,37 @@ def photometric_unfused(x, noise, fparams, iparams, *, variant):
 
 
 def _launch(x, noise, fparams, iparams, variant):
-    from nnue_vision_tpu_torch.ops._build import load_library
-
+    # the checks, cheapest first, in one pass; each launch's host cost is
+    # what a host-bound train step pays (PERF.md)
     dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"photometric_kernel runs on CUDA tensors only (got "
-                         f"{dev}); CPU tensors take the plain version")
-    for name, t, dtype in (("x", x, torch.float32),
-                           ("noise", noise, torch.float32),
-                           ("fparams", fparams, torch.float32),
-                           ("iparams", iparams, torch.int32)):
-        if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
-                or t.data_ptr() % 4):
-            raise ValueError(
-                f"{name}: the kernel takes a contiguous {dtype} tensor on "
-                f"{dev}; got {t.dtype} on {t.device}")
+    if not (x.is_cuda and x.dtype is _F32 and noise.dtype is _F32
+            and fparams.dtype is _F32 and iparams.dtype is torch.int32
+            and noise.device == dev and fparams.device == dev
+            and iparams.device == dev):
+        if not x.is_cuda:
+            raise ValueError(f"photometric_kernel runs on CUDA tensors only "
+                             f"(got {dev}); CPU tensors take the plain version")
+        raise ValueError(
+            "photometric_kernel takes float32 x, noise and fparams and int32 "
+            f"iparams on one device; got {x.dtype} on {dev}, {noise.dtype} on "
+            f"{noise.device}, {fparams.dtype} on {fparams.device}, "
+            f"{iparams.dtype} on {iparams.device}")
     b, h, w, _ = x.shape
-    if 2 * h * w * 3 * 4 > 227 * 1024:
-        raise ValueError(f"a {h}x{w}x3 image does not fit shared memory")
+    if (h * w) % 4:
+        raise ValueError(f"photometric_kernel takes images of whole 16-byte "
+                         f"units (H·W % 4 == 0); got {h}x{w}")
     out = torch.empty_like(x)
     if b == 0:
         return out
+    xp, op = x.data_ptr(), out.data_ptr()
+    if (xp | op) & 15:
+        raise ValueError("photometric_kernel: x must start at a 16-byte "
+                         "boundary")
     nf, ni = VARIANTS[variant]
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.photometric_launch(
-            x.data_ptr(), noise.data_ptr(), fparams.data_ptr(),
-            iparams.data_ptr(), b, h, w, nf, ni, int(variant == "medium"),
-            out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("photometric_kernel launch failed: "
-                           f"{lib.nnue_error_string(err).decode()}")
+    grid = _ring.grid(dev, b, "photometric_blocks_per_sm", h, w)
+    _ring.launch(dev, "photometric_kernel", "photometric_launch",
+                 (xp, noise.data_ptr(), fparams.data_ptr(), iparams.data_ptr(),
+                  b, h, w, nf, ni, int(variant == "medium"), grid, op))
     LAUNCHES["photometric_kernel"] += 1
     return out
 

@@ -27,7 +27,11 @@ arithmetic `warp_kernel` runs.
 
 `warp_bilinear`, `lerp_pass` and `nogather_pass` dispatch on the device of
 their input: a CPU tensor takes the plain version, a CUDA tensor the
-kernel, which launches or raises.
+kernel, which launches or raises. The kernels are persistent grids that
+walk images (or tiles of packed rows) through one shared-memory slot per
+block, fed by bulk copies; `ops/_ring.py` sizes the grid and launches.
+They take three channels and 16-byte units: an even n for the warp,
+n % 4 == 0 for a single pass.
 """
 
 from __future__ import annotations
@@ -36,11 +40,14 @@ from typing import Tuple
 
 import torch
 
+from nnue_vision_tpu_torch.ops import _ring
+
 # Launches since the last reset_launch_counts(); the wrapper adds one where
 # it launches the kernel, and nowhere else.
 LAUNCHES = {"warp_kernel": 0, "lerp_pass_kernel": 0,
             "nogather_pass_kernel": 0}
 PARAMS = 8
+_F32 = torch.float32
 
 
 def reset_launch_counts() -> None:
@@ -128,7 +135,7 @@ def _check(x: torch.Tensor, params: torch.Tensor) -> None:
     if x.dim() != 4 or x.shape[1] != x.shape[2]:
         raise ValueError(f"the warp takes square (B, H, W, C) images; got "
                          f"{tuple(x.shape)}")
-    if tuple(params.shape) != (x.shape[0], PARAMS):
+    if params.shape != (x.shape[0], PARAMS):
         raise ValueError(f"params must be (B, {PARAMS}); got "
                          f"{tuple(params.shape)}")
 
@@ -148,64 +155,63 @@ def warp_bilinear_reference(x: torch.Tensor, params: torch.Tensor
     return out_t.reshape(b, w, h, c).transpose(1, 2).contiguous()
 
 
-def _launch(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
-    from nnue_vision_tpu_torch.ops._build import load_library
-
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"warp_kernel runs on CUDA tensors only (got {dev}); "
+def _refuse(kernel: str, x: torch.Tensor, other: torch.Tensor) -> None:
+    """The reason a launcher's inputs are refused (only called when they
+    are)."""
+    if not x.is_cuda:
+        raise ValueError(f"{kernel} runs on CUDA tensors only (got {x.device}); "
                          "CPU tensors take the plain version")
-    for name, t in (("x", x), ("params", params)):
-        if (t.device != dev or t.dtype != torch.float32
-                or not t.is_contiguous() or t.data_ptr() % 4):
-            raise ValueError(
-                f"{name}: the kernel takes a contiguous float32 tensor on "
-                f"{dev}; got {t.dtype} on {t.device}")
+    raise ValueError(f"{kernel} takes float32 tensors on one device; got "
+                     f"{x.dtype} on {x.device} and {other.dtype} on {other.device}")
+
+
+def _launch(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    # the checks, cheapest first, in one pass; each launch's host cost is
+    # what a host-bound train step pays (PERF.md)
+    if not (x.is_cuda and x.dtype is _F32 and params.dtype is _F32
+            and params.device == x.device):
+        _refuse("warp_kernel", x, params)
     b, n, _, c = x.shape
-    if 2 * n * n * c * 4 > 227 * 1024:
-        raise ValueError(f"a {n}x{n}x{c} image does not fit shared memory")
+    if c != 3 or n % 2:
+        raise ValueError(f"warp_kernel takes (B, n, n, 3) images with n even "
+                         f"(whole 16-byte units); got {tuple(x.shape)}")
     out = torch.empty_like(x)
     if b == 0:
         return out
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.warp_launch(x.data_ptr(), b, n, c, params.data_ptr(),
-                              out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"warp_kernel launch failed: {lib.nnue_error_string(err).decode()}")
+    xp, op = x.data_ptr(), out.data_ptr()
+    if (xp | op) & 15:
+        raise ValueError("warp_kernel: x must start at a 16-byte boundary")
+    dev = x.device
+    grid = _ring.grid(dev, b, "warp_blocks_per_sm", n)
+    _ring.launch(dev, "warp_kernel", "warp_launch",
+                 (xp, b, n, c, params.data_ptr(), grid, op))
     LAUNCHES["warp_kernel"] += 1
     return out
 
 
 def _pass_launch(x: torch.Tensor, coef: torch.Tensor, n: int, c: int,
                  gather: bool) -> torch.Tensor:
-    from nnue_vision_tpu_torch.ops._build import load_library
-
     kernel = "lerp_pass_kernel" if gather else "nogather_pass_kernel"
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"{kernel} runs on CUDA tensors only (got {dev}); "
-                         "CPU tensors take the plain version")
-    b, rows = x.shape[:2]
-    for name, t, shape in (("x", x, (b, rows, n * c)), ("coef", coef, (b, 3))):
-        if (t.device != dev or t.dtype != torch.float32
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: the kernel takes a contiguous float32 {shape} tensor "
-                f"on {dev}; got {t.dtype}{tuple(t.shape)} on {t.device}")
+    if not (x.is_cuda and x.dtype is _F32 and coef.dtype is _F32
+            and coef.device == x.device):
+        _refuse(kernel, x, coef)
+    if c != 3 or n % 4:
+        raise ValueError(f"{kernel} takes rows of n pixels of 3 channels with "
+                         f"n % 4 == 0 (whole 16-byte units); got n={n}, c={c}")
     out = torch.empty_like(x)
-    if out.numel() == 0:
+    b, rows, _ = x.shape
+    if b == 0 or rows == 0:
         return out
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lerp_pass_launch(x.data_ptr(), b, rows, n, c, coef.data_ptr(),
-                                   int(gather), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{kernel} launch failed: {lib.nnue_error_string(err).decode()}")
+    xp, op = x.data_ptr(), out.data_ptr()
+    if (xp | op) & 15:
+        raise ValueError(f"{kernel}: x must start at a 16-byte boundary")
+    dev = x.device
+    tile_rows = _ring.pass_tile_rows(n)
+    grid = _ring.grid(dev, -(-(b * rows) // tile_rows),
+                      "lerp_pass_blocks_per_sm", n, tile_rows, int(gather))
+    _ring.launch(dev, kernel, "lerp_pass_launch",
+                 (xp, b, rows, n, c, coef.data_ptr(), int(gather), tile_rows,
+                  grid, op))
     LAUNCHES[kernel] += 1
     return out
 
@@ -213,7 +219,7 @@ def _pass_launch(x: torch.Tensor, coef: torch.Tensor, n: int, c: int,
 def _check_pass(x: torch.Tensor, coef: torch.Tensor, n: int, c: int) -> None:
     if x.dim() != 3 or x.shape[2] != n * c:
         raise ValueError(f"x must be (B, R, {n}·{c}); got {tuple(x.shape)}")
-    if tuple(coef.shape) != (x.shape[0], 3):
+    if coef.shape != (x.shape[0], 3):
         raise ValueError(f"coef must be (B, 3); got {tuple(coef.shape)}")
 
 

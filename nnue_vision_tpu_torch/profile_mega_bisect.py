@@ -75,7 +75,8 @@ VARIANTS = ("v0_dma", "v1_quant", "v2_conv", "v3_ft", "v4_full")
 
 def flagship_head(device, seed: int = 0):
     """(mega head params, sim cfg) of the flagship at `nnue_init` weights."""
-    model = nnue_init(FLAGSHIP, torch.Generator().manual_seed(seed))
+    model = nnue_init(FLAGSHIP, torch.Generator().manual_seed(seed),
+                      device=device)
     sim, cfg = nnue_sim_params(nnue_quantize(model), device=device)
     return nk.mega_head_params(sim, cfg, H, W), cfg
 

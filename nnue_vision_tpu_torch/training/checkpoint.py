@@ -29,7 +29,6 @@ from nnue_vision_tpu_torch.bridge import (
 )
 from nnue_vision_tpu_torch.models.etinynet import EtinyNet, EtinyNetConfig
 from nnue_vision_tpu_torch.models.nnue import NNUE, GridFeatureSet, NNUEConfig
-from nnue_vision_tpu_torch.ops.engine_sim import resolve_device
 from nnue_vision_tpu_torch.training.optim import OptState, opt_state_numpy
 
 
@@ -79,8 +78,7 @@ def nnue_from_checkpoint(payload: Dict[str, Any], device="cuda") -> NNUE:
         feature_set=GridFeatureSet(**mc.pop("feature_set")),
         **{k: v for k, v in mc.items() if k in fields},
     )
-    return nnue_from_jax_params(payload["params"], cfg,
-                                device=resolve_device(device))
+    return nnue_from_jax_params(payload["params"], cfg, device=device)
 
 
 def etinynet_from_checkpoint(payload: Dict[str, Any], device="cuda"
@@ -94,4 +92,4 @@ def etinynet_from_checkpoint(payload: Dict[str, Any], device="cuda"
     fields = {f.name for f in dataclasses.fields(EtinyNetConfig)}
     cfg = EtinyNetConfig(**{k: v for k, v in mc.items() if k in fields})
     return etinynet_from_jax(payload["params"], payload["batch_stats"], cfg,
-                             device=resolve_device(device))
+                             device=device)

@@ -120,7 +120,7 @@ def test_f3_train_step_clips_no_etinynet_weight():
     """The JAX step clips NNUE weights only (`training/step.py:100` there):
     an EtinyNet's norm scales and classifier keep values beyond ±1."""
     cfg = EtinyNetConfig(variant="micro", num_classes=10, input_size=16)
-    model = etinynet_init(cfg, torch.Generator().manual_seed(0))
+    model = etinynet_init(cfg, torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():
         model.stem_bn.scale.fill_(1.5)
         model.cls_b.fill_(-2.0)

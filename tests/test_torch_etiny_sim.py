@@ -93,7 +93,8 @@ def test_sim_on_a_quantized_model():
 
     model = etinynet_init(EtinyNetConfig(variant="micro", num_classes=10,
                                          input_size=32),
-                          torch.Generator().manual_seed(2)).train()
+                          torch.Generator().manual_seed(2),
+                          device="cpu").train()
     rng = np.random.default_rng(3)
     imgs = normalize_images(torch.from_numpy(
         rng.random((16, 32, 32, 3), np.float32)))

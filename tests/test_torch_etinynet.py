@@ -92,7 +92,7 @@ def test_forward_and_stats_match_jax_f32(train):
     x = _images()
     want, want_stats = jetiny.etinynet_apply(params, stats, jnp.asarray(x), jcfg,
                                              train=train)
-    model = bridge.etinynet_from_jax(params, stats, tcfg)
+    model = bridge.etinynet_from_jax(params, stats, tcfg, device="cpu")
     model.train(train)
     got = model(torch.from_numpy(x))
     assert got.dtype == torch.float32 and got.shape == (B, 10)
@@ -114,7 +114,7 @@ def test_loss_grads_match_jax_f32():
             logits, jnp.asarray(labels)).mean()
 
     want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
-    model = bridge.etinynet_from_jax(params, stats, tcfg).train()
+    model = bridge.etinynet_from_jax(params, stats, tcfg, device="cpu").train()
     loss = F.cross_entropy(model(torch.from_numpy(x)), torch.from_numpy(labels))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-5)
@@ -139,7 +139,8 @@ def test_bf16_forward_matches_jax():
             jcfg, tcfg = _cfgs(dtype=dtype)
             want, want_stats = jetiny.etinynet_apply(
                 params, stats, jnp.asarray(x), jcfg, train=train)
-            model = bridge.etinynet_from_jax(params, stats, tcfg).train(train)
+            model = bridge.etinynet_from_jax(params, stats, tcfg,
+                                             device="cpu").train(train)
             got = model(torch.from_numpy(x)).detach().numpy()
             assert got.dtype == np.float32
             out[dtype] = (got, np.asarray(want))
@@ -158,7 +159,8 @@ def test_init_distributions_and_count():
     parameter count equal to the JAX package's for each variant."""
     for variant in ("micro", "0.98M"):
         jcfg, tcfg = _cfgs(variant)
-        model = tetiny.etinynet_init(tcfg, torch.Generator().manual_seed(0))
+        model = tetiny.etinynet_init(tcfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
         jp, js = jetiny.etinynet_init(jax.random.PRNGKey(0), jcfg)
         assert tetiny.count_parameters(model) == jetiny.count_parameters(jp)
         tp, ts = bridge.etinynet_to_numpy(model)
@@ -185,7 +187,8 @@ def test_init_distributions_and_count():
 def test_bridge_round_trip():
     params, stats = _model(seed=8)
     _, tcfg = _cfgs()
-    p2, s2 = bridge.etinynet_to_numpy(bridge.etinynet_from_jax(params, stats, tcfg))
+    p2, s2 = bridge.etinynet_to_numpy(
+        bridge.etinynet_from_jax(params, stats, tcfg, device="cpu"))
     _assert_tree_close(p2, params, atol=0)
     _assert_tree_close(s2, stats, atol=0)
     assert isinstance(p2["blocks"], list) and "dense_proj_w" in p2["blocks"][-1]
@@ -203,7 +206,7 @@ def test_quantized_bytes_equal_jax(tmp_path, variant):
     params, stats = _model(seed=9, variant=variant)
     formats.write_etiny(jetiny.etinynet_quantize(params, stats, jcfg),
                         tmp_path / "jax.etiny")
-    model = bridge.etinynet_from_jax(params, stats, tcfg)
+    model = bridge.etinynet_from_jax(params, stats, tcfg, device="cpu")
     formats.write_etiny(tetiny.etinynet_quantize(model), tmp_path / "port.etiny")
     assert (tmp_path / "port.etiny").read_bytes() == \
         (tmp_path / "jax.etiny").read_bytes()
@@ -214,7 +217,7 @@ def test_serialize_reads_a_port_checkpoint(tmp_path):
     checkpoint as from the JAX package's checkpoint of the same model."""
     jcfg, tcfg = _cfgs()
     params, stats = _model(seed=10)
-    model = bridge.etinynet_from_jax(params, stats, tcfg)
+    model = bridge.etinynet_from_jax(params, stats, tcfg, device="cpu")
     tckpt.save_checkpoint(tmp_path / "port.ckpt", model_type="etinynet",
                           model_config=tcfg, model=model, epoch=0, metrics={})
     jckpt.save_checkpoint(tmp_path / "jax.ckpt", model_type="etinynet",

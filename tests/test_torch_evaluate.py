@@ -50,7 +50,7 @@ def setup():
          rng.integers(0, 3, n).astype(np.int64))
         for n in (8, 5)
     ]
-    return p, jcfg, bridge.nnue_from_jax_params(p, tcfg), loader
+    return p, jcfg, bridge.nnue_from_jax_params(p, tcfg, device="cpu"), loader
 
 
 def test_int8_sim_metrics_match_jax(setup):

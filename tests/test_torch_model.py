@@ -89,7 +89,7 @@ def test_forward_matches_nnue_apply(kw, thresholds):
     assert (_conv_margins(p, imgs, tcfg) > 1e-3).all()
     jl, jaux = jnnue.nnue_apply({k: jnp.asarray(v) for k, v in p.items()},
                                 jnp.asarray(imgs), jcfg, return_aux=True)
-    model = bridge.nnue_from_jax_params(p, tcfg)
+    model = bridge.nnue_from_jax_params(p, tcfg, device="cpu")
     with torch.no_grad():
         tl, taux = model(torch.from_numpy(imgs), return_aux=True)
         assert torch.equal(model(torch.from_numpy(imgs)), tl)
@@ -108,7 +108,7 @@ def test_quantize_writes_the_same_nnue_bytes(tmp_path):
     p["ft_w"][0, :4] = [1.7, -2.0, 0.5078125, -0.5078125]  # clip + ties
     jcfg, tcfg = _cfgs(qat=True)
     formats.write_nnue(jnnue.nnue_quantize(p, jcfg), tmp_path / "jax.nnue")
-    formats.write_nnue(tnnue.nnue_quantize(bridge.nnue_from_jax_params(p, tcfg)),
+    formats.write_nnue(tnnue.nnue_quantize(bridge.nnue_from_jax_params(p, tcfg, device="cpu")),
                        tmp_path / "torch.nnue")
     assert (tmp_path / "torch.nnue").read_bytes() == \
         (tmp_path / "jax.nnue").read_bytes()
@@ -119,7 +119,7 @@ def test_from_quantized_matches_jax():
     jcfg, tcfg = _cfgs()
     q = jnnue.nnue_quantize(_params(rng), jcfg)
     jp, jc = jnnue.nnue_from_quantized(q)
-    model = tnnue.nnue_from_quantized(q)
+    model = tnnue.nnue_from_quantized(q, device="cpu")
     assert model.cfg.feature_set.num_features == jc.feature_set.num_features
     assert (model.cfg.l1_size, model.cfg.l2_size, model.cfg.l3_size,
             model.cfg.num_classes) == (jc.l1_size, jc.l2_size, jc.l3_size,
@@ -135,7 +135,7 @@ def test_clip_weights_and_count_parameters_match_jax():
     p["ft_w"] *= 20.0
     p["fc1_w"] *= 20.0
     jcfg, tcfg = _cfgs()
-    model = bridge.nnue_from_jax_params(p, tcfg)
+    model = bridge.nnue_from_jax_params(p, tcfg, device="cpu")
     assert tnnue.count_parameters(model) == jnnue.count_parameters(p)
     clipped = jnnue.nnue_clip_weights({k: jnp.asarray(v) for k, v in p.items()})
     got = bridge.nnue_to_numpy(tnnue.nnue_clip_weights(model))
@@ -147,16 +147,17 @@ def test_bridge_round_trip_and_shape_checks():
     rng = np.random.default_rng(35)
     p = _params(rng)
     _, tcfg = _cfgs()
-    got = bridge.nnue_to_numpy(bridge.nnue_from_jax_params(p, tcfg))
+    got = bridge.nnue_to_numpy(bridge.nnue_from_jax_params(p, tcfg, device="cpu"))
     assert set(got) == set(p)
     for name in p:
         np.testing.assert_array_equal(got[name], p[name])
     bad = dict(p, ft_w=p["ft_w"].T)
     with pytest.raises(ValueError, match="ft_w"):
-        bridge.nnue_from_jax_params(bad, tcfg)
+        bridge.nnue_from_jax_params(bad, tcfg, device="cpu")
     with pytest.raises(KeyError, match="nnue2score"):
         bridge.nnue_from_jax_params(
-            {k: v for k, v in p.items() if k != "nnue2score"}, tcfg)
+            {k: v for k, v in p.items() if k != "nnue2score"}, tcfg,
+            device="cpu")
 
 
 def test_whole_slice_matches_jax_chain(tmp_path):
@@ -175,7 +176,7 @@ def test_whole_slice_matches_jax_chain(tmp_path):
         jpk.mega_head_params(jp, jc, 12, 12), jnp.asarray(flat), cfg=jc,
         image_h=12, image_w=12, tile_b=8, interpret=True)
 
-    model = bridge.nnue_from_jax_params(p, tcfg)
+    model = bridge.nnue_from_jax_params(p, tcfg, device="cpu")
     formats.write_nnue(tnnue.nnue_quantize(model), tmp_path / "t.nnue")
     tq = formats.read_nnue(tmp_path / "t.nnue")
     tp, tc = tsim.nnue_sim_params(tq, device="cpu")

@@ -17,9 +17,13 @@ from nnue_vision_tpu_torch.formats import (
     QFeatureTransformer,
     QLinear,
     QuantizedNNUE,
+    read_nnue,
+    write_nnue,
 )
+from nnue_vision_tpu_torch.models.nnue import nnue_from_quantized
 from nnue_vision_tpu_torch.ops import engine_sim as tsim
 from nnue_vision_tpu_torch.ops import nnue_kernels as nk
+from nnue_vision_tpu_torch.training.evaluate import evaluate_int8_sim
 
 pytestmark = pytest.mark.gpu
 
@@ -141,3 +145,21 @@ def test_empty_batch_launches_nothing(cuda):
         cfg=cfg, image_h=12, image_w=12)
     assert logits.shape == (0, 3) and count.shape == (0,)
     assert nk.LAUNCHES["nnue_mega_kernel"] == 0
+
+
+def test_quantized_model_evaluates_on_the_card(cuda, tmp_path):
+    """F7: a read .nnue rebuilt with no device argument evaluates through
+    K1 (on the parent it was built on the CPU and took the plain path)."""
+    q = _model(np.random.default_rng(65), 10, 8, 1024, 128, 32, 10, 6.4)
+    write_nnue(q, tmp_path / "m.nnue")
+    model = nnue_from_quantized(read_nnue(tmp_path / "m.nnue"))
+    assert next(model.parameters()).device.type == "cuda"
+    rng = np.random.default_rng(66)
+    loader = [(rng.random((64, 32, 32, 3), dtype=np.float32),
+               rng.integers(0, 10, 64)) for _ in range(2)]
+    plain = evaluate_int8_sim(model, loader, use_pallas=False)
+    nk.reset_launch_counts()
+    got = evaluate_int8_sim(model, loader, use_pallas="mega")
+    assert nk.LAUNCHES["nnue_mega_kernel"] > 0
+    for key in ("acc", "f1", "precision", "recall", "latent_density"):
+        assert got[key] == plain[key]

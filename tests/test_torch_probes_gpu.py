@@ -21,6 +21,7 @@ from nnue_vision_tpu_torch.formats import (
     QLinear,
     QuantizedNNUE,
 )
+from nnue_vision_tpu_torch.ops import _ring
 from nnue_vision_tpu_torch.ops import nnue_kernels as nk
 from nnue_vision_tpu_torch.ops import warp_kernel as wk
 from nnue_vision_tpu_torch.ops.engine_sim import nnue_sim_params
@@ -108,3 +109,23 @@ def test_chained_best_ms_replays_a_graph(cuda):
     ms = chained_best_ms(lambda: wk.lerp_pass(x, coef, n=32, c=3), reps=5)
     assert ms > 0
     assert wk.LAUNCHES["lerp_pass_kernel"] == 1 + 5  # warm-up + captured
+
+
+@pytest.mark.parametrize("n,rows", [(32, 32), (32, 33), (16, 16), (16, 21)])
+@pytest.mark.parametrize("batch", [1, 37, 131, 133, 1024])
+@pytest.mark.parametrize("grid", [None, 132, 1], ids=["occupancy", "132", "1"])
+def test_passes_at_ragged_tiles(cuda, monkeypatch, n, rows, batch, grid):
+    """The single pass and K8 where the row count is not a multiple of the
+    tile (32 rows at n = 32, 64 at n = 16), on every grid size."""
+    if grid is not None:
+        monkeypatch.setattr(_ring, "grid", lambda dev, items, *shape: min(items, grid))
+    rng = np.random.default_rng(n * rows + batch)
+    x = torch.from_numpy(rng.random((batch, rows, n * 3), dtype=np.float32)).to(cuda)
+    coef = torch.from_numpy(np.stack([
+        rng.uniform(-0.5, 0.5, batch), rng.uniform(-1.3, 1.3, batch),
+        rng.uniform(-0.6 * n, 1.2 * n, batch)], 1).astype(np.float32)).to(cuda)
+    for fn, ref in ((wk.lerp_pass, wk.lerp_pass_reference),
+                    (wk.nogather_pass, wk.nogather_pass_reference)):
+        got = fn(x, coef, n=n, c=3)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref(x, coef, n=n, c=3))

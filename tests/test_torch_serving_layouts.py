@@ -1,7 +1,7 @@
 """The tensor-core layouts of the serving kernels (K1/K2: the FT as two byte
 planes and fc1; K6: the pointwise weights), held on the CPU to the JAX
 package's sim with numpy-seeded inputs, and the default device of the
-serving builders (F6).
+serving builders (F6) and of the float-model builders (F7).
 
 The kernels multiply these layouts on the card; here a plain torch product
 of the same bytes, in the kernels' order (chunk by chunk, lo and hi planes
@@ -20,9 +20,19 @@ import torch
 
 from nnue_vision_tpu.formats import QConv, QLBBlock, QLinear, QuantizedEtinyNet
 from nnue_vision_tpu.ops import engine_sim as jsim
-from nnue_vision_tpu_torch.bridge import etinynet_to_numpy, nnue_to_numpy
+from nnue_vision_tpu_torch.bridge import (
+    etinynet_from_jax,
+    etinynet_to_numpy,
+    nnue_from_jax_params,
+    nnue_to_numpy,
+)
 from nnue_vision_tpu_torch.models.etinynet import EtinyNetConfig, etinynet_init
-from nnue_vision_tpu_torch.models.nnue import NNUEConfig, GridFeatureSet, nnue_init
+from nnue_vision_tpu_torch.models.nnue import (
+    GridFeatureSet,
+    NNUEConfig,
+    nnue_from_quantized,
+    nnue_init,
+)
 from nnue_vision_tpu_torch.ops import engine_sim as tsim
 from nnue_vision_tpu_torch.ops import etiny_kernels as ek
 from nnue_vision_tpu_torch.ops import nnue_kernels as nk
@@ -238,26 +248,33 @@ def test_etiny_layouts_give_the_jax_sim(variant):
 
 
 # ---------------------------------------------------------------------------
-# F6: the serving builders default to the card
+# F6, F7: the serving and float-model builders default to the card
 # ---------------------------------------------------------------------------
 
 
+NNUE_CFG = NNUEConfig(feature_set=GridFeatureSet(grid_size=4,
+                                                 num_features_per_square=6),
+                      l1_size=16, l2_size=8, l3_size=4, num_classes=3,
+                      input_size=12)
+ETINY_CFG = EtinyNetConfig(variant="micro", num_classes=10, input_size=32)
+
+
 def _nnue_payload():
-    cfg = NNUEConfig(feature_set=GridFeatureSet(grid_size=4,
-                                                num_features_per_square=6),
-                     l1_size=16, l2_size=8, l3_size=4, num_classes=3,
-                     input_size=12)
-    model = nnue_init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    return {"model_config": dataclasses.asdict(cfg),
+    model = nnue_init(NNUE_CFG, torch.Generator().manual_seed(0), device="cpu")
+    return {"model_config": dataclasses.asdict(NNUE_CFG),
             "params": nnue_to_numpy(model)}
 
 
 def _etiny_payload():
-    cfg = EtinyNetConfig(variant="micro", num_classes=10, input_size=32)
-    model = etinynet_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    model = etinynet_init(ETINY_CFG, torch.Generator().manual_seed(0),
+                          device="cpu")
     params, stats = etinynet_to_numpy(model)
-    return {"model_config": dataclasses.asdict(cfg), "params": params,
+    return {"model_config": dataclasses.asdict(ETINY_CFG), "params": params,
             "batch_stats": stats}
+
+
+def _first(model):
+    return next(model.parameters())
 
 
 BUILDERS = {
@@ -269,6 +286,18 @@ BUILDERS = {
         tckpt.nnue_from_checkpoint(_nnue_payload(), **kw).parameters()),
     "etinynet_from_checkpoint": lambda **kw: next(
         tckpt.etinynet_from_checkpoint(_etiny_payload(), **kw).parameters()),
+    # F7: the float-model builders
+    "nnue_init": lambda **kw: _first(
+        nnue_init(NNUE_CFG, torch.Generator().manual_seed(0), **kw)),
+    "nnue_from_quantized": lambda **kw: _first(nnue_from_quantized(
+        random_quantized_nnue(np.random.default_rng(36)), **kw)),
+    "etinynet_init": lambda **kw: _first(
+        etinynet_init(ETINY_CFG, torch.Generator().manual_seed(0), **kw)),
+    "nnue_from_jax_params": lambda **kw: _first(
+        nnue_from_jax_params(_nnue_payload()["params"], NNUE_CFG, **kw)),
+    "etinynet_from_jax": lambda **kw: _first(etinynet_from_jax(
+        _etiny_payload()["params"], _etiny_payload()["batch_stats"], ETINY_CFG,
+        **kw)),
 }
 
 

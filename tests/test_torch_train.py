@@ -156,7 +156,7 @@ def test_loss_and_grads_match_jax(kw):
 
     jl, jg = jax.value_and_grad(jloss)(jp)
 
-    model = bridge.nnue_from_jax_params(p, tcfg)
+    model = bridge.nnue_from_jax_params(p, tcfg, device="cpu")
     logits, taux = model(torch.from_numpy(x), return_aux=True)
     np.testing.assert_array_equal(taux["mask"].detach().numpy(),
                                   np.asarray(jaux["mask"]))
@@ -199,7 +199,7 @@ def _run_steps(optimizer_type):
     jopt = joptim.create_optimizer(cfg, steps_per_epoch=10)
     jstate = jstep.make_train_state(jax.tree_util.tree_map(jnp.asarray, p), jopt)
     topt = toptim.create_optimizer(cfg, steps_per_epoch=10)
-    model = bridge.nnue_from_jax_params(p, tcfg)
+    model = bridge.nnue_from_jax_params(p, tcfg, device="cpu")
     tstate = tstep.make_train_state(model, topt)
     masks, losses = [], []
     for x, y in batches:
@@ -305,7 +305,8 @@ def test_lr_per_step_matches_optax(kw):
 
 def test_init_distributions():
     _, tcfg = _cfgs()
-    model = tnnue.nnue_init(tcfg, torch.Generator().manual_seed(0))
+    model = tnnue.nnue_init(tcfg, torch.Generator().manual_seed(0),
+                            device="cpu")
     p = bridge.nnue_to_numpy(model)
     ref = jax.tree_util.tree_map(
         np.asarray, jnnue.nnue_init(jax.random.PRNGKey(0), _cfgs()[0]))
@@ -319,7 +320,8 @@ def test_init_distributions():
     np.testing.assert_array_equal(p["ft_b"], ref["ft_b"])
     np.testing.assert_array_equal(p["visual_threshold"], ref["visual_threshold"])
     assert p["nnue2score"] == ref["nnue2score"] == 600.0
-    same = tnnue.nnue_init(tcfg, torch.Generator().manual_seed(0))
+    same = tnnue.nnue_init(tcfg, torch.Generator().manual_seed(0),
+                            device="cpu")
     assert all(np.array_equal(v, bridge.nnue_to_numpy(same)[k]) for k, v in p.items())
 
 
