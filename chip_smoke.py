@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's int8 NNUE serving path, its NNUE training path,
-its EtinyNet int8 serving path, its EtinyNet training path and its
-profiling path once on one CUDA card.
+its EtinyNet int8 serving path, its EtinyNet training path, its
+engine_friendly EtinyNet path (progressive QAT → LSQ-folded `.etiny` →
+K6) and its profiling path once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -63,34 +64,59 @@ Phases, one line each (any failure raises and exits non-zero):
              many enqueues, no sync inside), the 12 blocks at 8192 graph-timed;
              ms per EtinyNet train step at batch 1024 over 48 steps (host
              clock, one sync at the end)
-18. mega-bisect  the cut mega kernel (K7) at levels 0-3 on the flagship and
+18. ef-etiny  train_model on config/train_etinynet_anchor_qat.py (0.75
+             widths, engine_friendly, float32, light tier, batch 256, its 5,000
+             synthetic-hard images), cut to 3 epochs (max_epochs 60 → 3) with
+             1 warm-up epoch (ef_warmup_epochs 25 → 1): epoch 0 trains the
+             continuous engine-structured model, epochs 1-2 the quantized one;
+             finite losses, the quantizer switch logged, the 23 qlog
+             parameters trained away from 0, best_model.ckpt from a quantized
+             epoch; on that checkpoint etinynet_quantize → write_etiny →
+             read_etiny → K6 (12 launches per call): on the 1,250 val images
+             K6's logits torch.equal to the sim's and its accuracy equal to
+             the loop's int8 eval; the float model's eval logits finite, and
+             printed beside K6's: float and int8 accuracy, the share of
+             agreeing predictions, and the relative logit error per image
+             (not held to JAX's bar of 0.1: neither package's float model
+             meets it on a trained model, PERF.md §6); K6 on this .etiny
+             at batch 8192 event-timed
+             (whole forward and the 12 blocks) and graph-timed (the blocks);
+             ms per train step of the warm-up and of the quantized function
+             at batch 256 (host clock, one sync per 19 steps)
+19. mega-bisect  the cut mega kernel (K7) at levels 0-3 on the flagship and
              the stress model (negative threshold: the padding sum is on) at
              batch 8192 and 37, each torch.equal to nnue_mega_stage_reference;
              then profile_mega_bisect's timing at batch 8192 (counted)
-19. warp-split  lerp_pass and nogather_pass (K8) on drawn heavy-tier maps and
+20. warp-split  lerp_pass and nogather_pass (K8) on drawn heavy-tier maps and
              out-of-frame maps (zero fill) at batch 1024 and 37, each
              torch.equal to its plain version, and the five-stage
              composition equal to warp_bilinear; the passes timed at batch
              1024 with CUDA events and graph-timed beside grid_sample both
              ways, with their host cost; then profile_warp_split's variants
              at batch 1024 (counted)
-20. trace    train_model on config/train_nnue_test.py with the light tier on
+21. trace    train_model on config/train_nnue_test.py with the light tier on
              (the fused K3 path) and profile_dir: the trace file names
              light_pipeline_kernel among its CUDA kernels
-21. launches the three probe kernels launched on their paths (18, 19); the
+22. launches the three probe kernels launched on their paths (19, 20); the
              counts are host calls: a CUDA graph's replays add none
 
 Then one JSON line with each kernel's launches, error and times (kernel,
 plain version, the card's bound for the same work and, where one PyTorch
 call computes the same function, that call; K6's are its 12 LB blocks
-alone at batch 8192, K7's level 3; K3, K4, K5, the single pass and K8 also
-graph-timed, with their host cost per call), the card's name and power
-limit, and the last line {"ok": true, "device": {...}}.
+alone at batch 8192, graph-timed too, once on the 0.98M model and again,
+as a second entry, on the engine_friendly 0.75 `.etiny` of phase 18, whose
+launches the first entry's count includes; K7's level 3; K3, K4, K5, the
+single pass and K8 also graph-timed, with their host cost per call), the
+card's name and power limit, and the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
+import io
 import json
 import math
 import os
@@ -118,8 +144,9 @@ from nnue_vision_tpu_torch import (
     write_nnue,
 )
 from config import load_config
-from nnue_vision_tpu_torch import profile_mega_bisect, profile_warp_split
+from nnue_vision_tpu_torch import deploy_etiny, profile_mega_bisect, profile_warp_split
 from nnue_vision_tpu_torch.profile_augment import grid_sample_pass, host_ms
+from nnue_vision_tpu_torch.quantize import quantize_weight_i8
 from nnue_vision_tpu_torch.bridge import nnue_from_jax_params
 from nnue_vision_tpu_torch.data import augment as aug
 from nnue_vision_tpu_torch.data.augment import normalize_images
@@ -187,6 +214,10 @@ ETINY_TRAIN_SIZE = 50000  # CIFAR-10's train split, in synthetic-hard images
 ETINY_SERVE_BATCHES = (1, 37, 1024, 8192)
 AUGMENT_BATCHES = (1024, 37)
 ETINY_TIMING_BATCHES = (1024, 8192)
+EF_CONFIG = "config/train_etinynet_anchor_qat.py"
+EF_EPOCHS = 3  # the config's 60, cut
+EF_WARMUP = 1  # the config's 25, cut: epoch 0 warms up, epochs 1-2 quantized
+EF_K6 = "etiny_block_kernel (0.75 engine_friendly .etiny)"
 GATES = {"medium": [0, 3, 7, 8, 10, 11, 15, 20, 22, 23],
          "heavy_extra": [0, 3, 7, 8, 10, 11]}
 SOURCES = {
@@ -199,6 +230,7 @@ SOURCES = {
     "nnue_mega_stage_kernel": "nnue_vision_tpu_torch/csrc/nnue_head.cu",
     "lerp_pass_kernel": "nnue_vision_tpu_torch/csrc/warp.cu",
     "nogather_pass_kernel": "nnue_vision_tpu_torch/csrc/warp.cu",
+    EF_K6: "nnue_vision_tpu_torch/csrc/etiny_block.cu",
 }
 REPLACES = {
     "nnue_mega_kernel": "nnue_vision_tpu/ops/pallas_kernels.py:161",
@@ -210,6 +242,7 @@ REPLACES = {
     "nnue_mega_stage_kernel": "scripts/profile_mega_bisect.py:96",
     "lerp_pass_kernel": "nnue_vision_tpu/ops/warp_kernel.py:46",
     "nogather_pass_kernel": "scripts/profile_warp_split.py:51",
+    EF_K6: "nnue_vision_tpu/ops/etiny_pallas.py:105",
 }
 # The card's published rates (NVIDIA's data sheet; H100 SXM, 700 W) beside
 # HBM_BYTES_PER_S: dense int8 tensor-core operations (the highest integer
@@ -646,6 +679,84 @@ def etiny_train(tmp: Path) -> dict:
                 epoch=epoch, ckpt=ckpt)
 
 
+def ef_train(tmp: Path) -> dict:
+    """train_model on the engine_friendly anchor config at full width, cut
+    to EF_EPOCHS epochs of which EF_WARMUP warm up, counted from here:
+    returns what the phase checks and prints (the run's log included)."""
+    cfg = load_config(EF_CONFIG)
+    cfg.max_epochs = EF_EPOCHS
+    cfg.ef_warmup_epochs = EF_WARMUP
+    cfg.log_dir = str(tmp / "logs")
+    os.environ["NV_SKIP_ENGINE"] = "1"
+    for module in (wk, pk, ek, ip, nk):
+        module.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_model(cfg, "etinynet", device="cuda")
+    seconds = time.perf_counter() - t0
+    print(out.getvalue(), end="", flush=True)
+    check(rc == 0, "train_model failed on the engine_friendly config")
+    metrics = next((tmp / "logs" / "runs").glob("*/metrics.jsonl"))
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    epochs = [r for r in records if "compiled/f1" in r]
+    ckpt = next((tmp / "logs" / "checkpoints").glob("*/best_model.ckpt"))
+    return dict(cfg=cfg, seconds=seconds, log=out.getvalue(), losses=losses,
+                epochs=epochs, payload=load_checkpoint(ckpt))
+
+
+def k6_blocks(kp, ecfg, x: torch.Tensor) -> list:
+    """[(int8 input, block params, block cfg)] of the model's LB blocks on
+    images x, each input made by the block before it (K6 launches)."""
+    inputs = [etiny_stem(kp, x, ecfg).to(torch.int8)]
+    for blk, bs in zip(kp["blocks"], ecfg.blocks):
+        inputs.append(ek.lb_block(inputs[-1], blk, bs))
+    return list(zip(inputs, kp["blocks"], ecfg.blocks))
+
+
+def k6_graph_ms(blocks: list, smi: str, tag: str) -> float:
+    """The LB blocks graph-timed together, and each block's tile, shared
+    memory and graph-timed ms printed; returns the blocks' ms."""
+    lib = load_library().lib
+    block_ms = chained_best_ms(
+        lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in blocks][-1], GRAPH_REPS)
+    tiles = []
+    for a, blk, bs in blocks:
+        one_ms = chained_best_ms(lambda a=a, blk=blk, bs=bs: ek.lb_block(a, blk, bs),
+                                 GRAPH_REPS)
+        b, h, w, cin = a.shape
+        oh, ow = conv_out_hw(h, w, bs.stride)
+        mid, cout = blk["dw"].shape[0], blk["pw_project_w"].shape[0]
+        shape = (h, w, cin, mid, cout, oh, ow)
+        t = lib.etiny_block_tile(b, *shape)
+        tiles.append(f"{h}x{w}x{cin}->{mid}->{cout}: T={t}, "
+                     f"{lib.etiny_block_smem(t, *shape)} B with 2 ring slots, "
+                     f"{one_ms:.4f} ms")
+    say("timing", f"{tag} B={blocks[0][0].shape[0]} the {len(blocks)} LB blocks, "
+        f"graph-timed ({GRAPH_REPS} calls per CUDA graph, best of 3): "
+        f"{block_ms:.4f} ms on {smi}; tile, shared memory and graph-timed ms "
+        "per block: " + "; ".join(tiles))
+    return block_ms
+
+
+def k6_bound(blocks: list) -> tuple:
+    """The card's bound for the LB blocks: their int8 inputs, the weights
+    as the model holds them (not the kernel's padded tiles) and the int8
+    outputs moved once; two operations per multiply-add of the expand,
+    depthwise and project products."""
+    moved, ops = 0, 0
+    for a, blk, bs in blocks:
+        b, h, w, cin = a.shape
+        oh, ow = conv_out_hw(h, w, bs.stride)
+        mid, cout = blk["pw_expand_w"].shape[0], blk["pw_project_w"].shape[0]
+        moved += nbytes(a, blk["pw_expand_w"], blk["be"], blk["dw"],
+                        blk["pw_project_w"])
+        moved += b * oh * ow * cout
+        ops += 2 * b * (h * w * mid * cin + oh * ow * mid * (9 + cout))
+    return bound(moved, int_ops=ops)
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1033,33 +1144,12 @@ def main() -> int:
                 lambda: ek.etiny_forward_kernel(kp, x, **ekw),
                 lambda: etiny_engine_forward(esim, x, **ekw)),
         }
-        block_inputs = [etiny_stem(kp, x, ecfg).to(torch.int8)]
-        for blk, bs in zip(kp["blocks"], ecfg.blocks):
-            block_inputs.append(ek.lb_block(block_inputs[-1], blk, bs))
-        blocks = list(zip(block_inputs, kp["blocks"], ecfg.blocks))
+        blocks = k6_blocks(kp, ecfg, x)
         rows["etiny_block_kernel, the LB blocks alone"] = time_pair(
             lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in blocks],
             lambda: [ek.lb_block_reference(a, blk, bs) for a, blk, bs in blocks])
         if batch == TIMING_BATCH:
-            lib = load_library().lib
-            block_ms = chained_best_ms(
-                lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in blocks][-1],
-                GRAPH_REPS)
-            tiles = []
-            for a, blk, bs in blocks:
-                one_ms = chained_best_ms(lambda a=a, blk=blk, bs=bs: ek.lb_block(a, blk, bs),
-                                         GRAPH_REPS)
-                b_, h_, w_, cin_ = a.shape
-                oh_, ow_ = conv_out_hw(h_, w_, bs.stride)
-                mid_, cout_ = blk["dw"].shape[0], blk["pw_project_w"].shape[0]
-                shape = (h_, w_, cin_, mid_, cout_, oh_, ow_)
-                t_ = lib.etiny_block_tile(b_, *shape)
-                tiles.append(f"{h_}x{w_}x{cin_}->{mid_}: T={t_}, "
-                             f"{lib.etiny_block_smem(t_, *shape)} B with 2 ring "
-                             f"slots, {one_ms:.4f} ms")
-            say("timing", f"B={batch} the 12 LB blocks, graph-timed ({GRAPH_REPS} "
-                f"calls per CUDA graph, best of 3): {block_ms:.4f} ms on {smi}; "
-                "tile, shared memory and graph-timed ms per block: " + "; ".join(tiles))
+            extra["etiny_block_kernel"] = (k6_graph_ms(blocks, smi, "0.98M"), None)
         for name, (k, p) in rows.items():
             what = ("the whole int8 forward (12 K6 launches + plain stem/tail) "
                     "vs the sim" if name == "etiny_block_kernel" else name)
@@ -1099,17 +1189,7 @@ def main() -> int:
             library["warp_kernel"] = library["photometric_kernel"] = None
         else:
             ms["etiny_block_kernel"] = rows["etiny_block_kernel, the LB blocks alone"]
-            moved, ops = 0, 0
-            for a, blk, bs in blocks:
-                b, h, w, cin = a.shape
-                oh, ow = conv_out_hw(h, w, bs.stride)
-                mid, cout = blk["pw_expand_w"].shape[0], blk["pw_project_w"].shape[0]
-                # the weights as the model holds them, not the kernel's padded tiles
-                moved += nbytes(a, blk["pw_expand_w"], blk["be"], blk["dw"],
-                                blk["pw_project_w"])
-                moved += b * oh * ow * cout  # the int8 output
-                ops += 2 * b * (h * w * mid * cin + oh * ow * mid * (9 + cout))
-            bounds["etiny_block_kernel"] = bound(moved, int_ops=ops)
+            bounds["etiny_block_kernel"] = k6_bound(blocks)
             library["etiny_block_kernel"] = None  # expand, depthwise, project
     ecfg_t = et["cfg"]
     eopt = create_optimizer(ecfg_t, steps)
@@ -1134,7 +1214,125 @@ def main() -> int:
             f"({ecfg_t.batch_size / step_ms * 1e3:,.0f} img/s), host clock, one "
             f"sync, on {smi}")
 
-    # 18. mega-bisect — the profiling path's cut kernel, counted in the probe
+    # 18. ef-etiny — the engine_friendly EtinyNet path, counted from its
+    # training to the end of its K6 pass over the val split
+    with tempfile.TemporaryDirectory() as tmp:
+        ef = ef_train(Path(tmp))
+    efcfg, flosses = ef["cfg"], ef["losses"]
+    ef_steps = load_config(EF_CONFIG).synthetic_size // efcfg.batch_size
+    check(len(flosses) == EF_EPOCHS * ef_steps
+          and all(math.isfinite(v) for v in flosses),
+          f"expected {EF_EPOCHS * ef_steps} finite losses, got {flosses}")
+    check(f"quantizer switch at epoch {EF_WARMUP}" in ef["log"],
+          "the quantizer switch was not logged")
+    efpayload = ef["payload"]
+    check(efpayload["epoch"] >= EF_WARMUP and efpayload["model_config"]["ef_quantizers"],
+          f"best_model.ckpt from epoch {efpayload['epoch']}, a warm-up epoch")
+    fparams = efpayload["params"]
+    qlogs = [float(np.abs(v).max()) for v in [fparams["final_qlog"]] + [
+        b[k] for b in fparams["blocks"] for k in ("qlog1", "qlog2")]]
+    check(len(qlogs) == 23 and all(v > 0 for v in qlogs),
+          f"LSQ scales untrained: {qlogs}")
+    trained_f = etinynet_from_checkpoint(efpayload, device="cuda").eval()
+    check(trained_f.cfg.engine_friendly and trained_f.cfg.dtype == "float32",
+          "the checkpoint lost its engine_friendly config")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "etinynet_ef.etiny"
+        qf, fkp, fsim, fcfg_e = deploy_etiny.deploy(trained_f, path)
+        fsize = path.stat().st_size
+        write_etiny(qf, Path(tmp) / "again.etiny")
+        check((Path(tmp) / "again.etiny").read_bytes() == path.read_bytes(),
+              ".etiny round trip changed the model")
+    s3 = np.clip(np.exp(fparams["final_qlog"].astype(np.float64)),
+                 1 / 64, 127 / 64)
+    check(len(qf.blocks) == 12 and np.array_equal(
+        qf.blocks[-1].pw_project, quantize_weight_i8(np.diag(s3))),
+          "the final block's projection is not diag(64·s3)")
+    ef_val = GenericVisionDataset("synthetic-hard", split="test",
+                                  synthetic_size=efcfg.synthetic_size, seed=42)
+    st = deploy_etiny.score(trained_f, fkp, fsim, fcfg_e, ef_val.images, ef_val.labels)
+    errs.max[EF_K6] = st["k6_max_abs_err_vs_sim"]
+    check(st["k6_max_abs_err_vs_sim"] == 0.0, "trained ef EtinyNet: K6 differs "
+          f"from the sim (max {st['k6_max_abs_err_vs_sim']})")
+    calls = -(-len(ef_val.labels) // 1024)
+    ef_launches = dict(ek.LAUNCHES)
+    check(ef_launches["etiny_block_kernel"] == 12 * calls,
+          f"K6 launches {ef_launches} are not 12 per call")
+    n_val = len(ef_val.labels)
+    best = ef["epochs"][efpayload["epoch"]]
+    check(st["int8_acc"] == best["compiled/accuracy"],
+          f"K6 int8 val accuracy {st['int8_acc']} differs from the loop's sim "
+          f"{best['compiled/accuracy']}")
+    say("ef-etiny", f"{EF_CONFIG} (0.75, engine_friendly, float32, light tier) on "
+        f"{efcfg.synthetic_size} synthetic-hard images, {EF_EPOCHS} epochs "
+        f"({EF_WARMUP} warm-up) of {ef_steps} steps at batch {efcfg.batch_size} in "
+        f"{ef['seconds']:.2f} s (train_model, data generation included); loss "
+        f"first {flosses[0]:.4f}, at the switch {flosses[EF_WARMUP * ef_steps]:.4f}, "
+        f"last {flosses[-1]:.4f}; per epoch val acc "
+        + ", ".join(f"{r['val/accuracy']:.4f}" for r in ef["epochs"])
+        + ", compiled acc "
+        + ", ".join(f"{r['compiled/accuracy']:.4f}" for r in ef["epochs"])
+        + f"; best_model.ckpt from epoch {efpayload['epoch']}; |qlog| max "
+        f"{max(qlogs):.4f}")
+    say("ef-etiny", f"checkpoint → etinynet_quantize → {fsize}-byte .etiny → "
+        f"read_etiny → K6 ({len(qf.blocks)} blocks): on the {n_val} val images K6 "
+        f"equal to the sim (tolerance: none, torch.equal); val accuracy float "
+        f"{st['float_acc']:.4f}, int8 through K6 {st['int8_acc']:.4f}, predictions "
+        f"agree on {st['agree']:.4f}; float against int8 relative logit error "
+        f"per image median {st['rel_err_median']:.4f}, 90th percentile "
+        f"{st['rel_err_p90']:.4f}, max {st['rel_err_max']:.4f}, above 0.1 on "
+        f"{st['rel_err_share_above_0.1']:.4f} of the images")
+    say("launches", "engine_friendly EtinyNet " + json.dumps(ef_launches))
+    launches["etiny_block_kernel"] += ef_launches["etiny_block_kernel"]
+    launches[EF_K6] = ef_launches["etiny_block_kernel"]
+    # K6 on this .etiny at the timing batch: the whole int8 forward and the
+    # 12 blocks alone event-timed, the blocks graph-timed
+    xf = normalize_images(torch.from_numpy(ds.images[:TIMING_BATCH]).cuda()).contiguous()
+    fkw = dict(cfg=fcfg_e, image_h=H, image_w=W)
+    whole = time_pair(lambda: ek.etiny_forward_kernel(fkp, xf, **fkw),
+                      lambda: etiny_engine_forward(fsim, xf, **fkw))
+    fblocks = k6_blocks(fkp, fcfg_e, xf)
+    ms[EF_K6] = time_pair(
+        lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in fblocks],
+        lambda: [ek.lb_block_reference(a, blk, bs) for a, blk, bs in fblocks])
+    extra[EF_K6] = (k6_graph_ms(fblocks, smi, "0.75 ef"), None)
+    bounds[EF_K6] = k6_bound(fblocks)
+    library[EF_K6] = None  # expand, depthwise, project
+    for name, (k, p) in (("the whole int8 forward (12 K6 launches + plain stem/"
+                          "tail) vs the sim", whole),
+                         ("the 12 LB blocks alone", ms[EF_K6])):
+        say("timing", f"0.75 ef B={TIMING_BATCH} {name}: kernel {k:.4f} ms "
+            f"({TIMING_BATCH / k * 1e3:,.0f} img/s), plain {p:.4f} ms on {smi}; "
+            f"bound {bounds[EF_K6][0]:.4f} ms ({bounds[EF_K6][1]})")
+    # ms per train step of the warm-up and of the quantized function
+    fds = GenericVisionDataset("synthetic-hard", split="train",
+                               synthetic_size=efcfg.synthetic_size, seed=42)
+    fmodel = etinynet_from_checkpoint(efpayload, device="cuda")
+    fopt = create_optimizer(efcfg, ef_steps)
+    fstate = make_train_state(fmodel, fopt)
+    fimages = torch.from_numpy(fds.images).cuda()
+    flabels = torch.from_numpy(fds.labels).cuda()
+    frng = np.random.default_rng(SEED)
+    for mode, mcfg in (("warm-up", dataclasses.replace(fmodel.cfg,
+                                                       ef_quantizers=False)),
+                       ("quantized", fmodel.cfg)):
+        fmodel.cfg = mcfg
+        for run in range(2):
+            idx = frng.integers(0, len(fds.labels), (ef_steps, efcfg.batch_size))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_losses = torch.stack([
+                gathered_train_step(fstate, fimages, flabels, i, tgen, optimizer=fopt,
+                                    strength="light")["loss"] for i in idx])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / ef_steps * 1e3
+            check(bool(torch.isfinite(step_losses).all()), "non-finite timing losses")
+            say("timing", f"ef EtinyNet train step, {mode} ({ef_steps} steps, run "
+                f"{run + 1}/2, batch {efcfg.batch_size}, float32, light tier): "
+                f"{step_ms:.3f} ms/step ({efcfg.batch_size / step_ms * 1e3:,.0f} "
+                f"img/s), host clock, one sync, on {smi}")
+
+    # 19. mega-bisect — the profiling path's cut kernel, counted in the probe
     _, fcfg = nnue_sim_params(q, device="cuda")
     for tag, hd, c in (("flagship", heads[0], fcfg), ("stress", sheads[0], scfg)):
         for batch in (TIMING_BATCH, 37):
@@ -1171,7 +1369,7 @@ def main() -> int:
         f"{ms['nnue_mega_stage_kernel'][0]:.4f} ms, plain "
         f"{ms['nnue_mega_stage_kernel'][1]:.4f} ms on {smi}")
 
-    # 19. warp-split — the single passes, counted in the probe
+    # 20. warp-split — the single passes, counted in the probe
     for batch in AUGMENT_BATCHES:
         images = torch.from_numpy(ds.images[:batch]).cuda()
         packed = images.reshape(batch, H, W * 3)
@@ -1244,7 +1442,7 @@ def main() -> int:
           f"a probe time is not positive: {split}")
     say("warp-split", "profile_warp_split " + json.dumps(split))
 
-    # 20. trace
+    # 21. trace
     with tempfile.TemporaryDirectory() as tmp:
         tcfg = load_config(TRACE_CONFIG)
         tcfg.use_augmentation = True  # the light tier: the fused K3 path
@@ -1263,7 +1461,7 @@ def main() -> int:
             f"{len(kernels)} distinct CUDA kernels, light_pipeline_kernel "
             "among them")
 
-    # 21. launches
+    # 22. launches
     check(all(n > 0 for n in probe_launches.values()),
           f"a probe kernel never launched: {probe_launches}")
     say("launches", "profiling " + json.dumps(probe_launches) + " (host calls "

@@ -56,9 +56,12 @@ def nnue_to_numpy(model: NNUE) -> Dict[str, np.ndarray]:
 # "pw_expand_w", "bn1", "dw_w", "bn2", "pw_project_w", "bn3"[, "dense_proj_w",
 # "dense_bn"]}, ...], "final_w", "final_bn", "cls_w", "cls_b"} and
 # batch_stats {"stem_bn": {"mean", "var"}, "blocks": [{"bn1", "bn2", "bn3"
-# [, "dense_bn"]}, ...], "final_bn"}. The port's module names are the same
-# paths joined by dots ("blocks.3.bn1.scale", "blocks.3.bn1.mean"), in the
-# same layouts, so both directions are copies.
+# [, "dense_bn"]}, ...], "final_bn"}. An engine_friendly model's params also
+# hold its LSQ scales in log space: "qlog1" and "qlog2" in every block and
+# "final_qlog" (its scale-only norms keep the mean-square in "var"). The
+# port's module names are the same paths joined by dots
+# ("blocks.3.bn1.scale", "blocks.3.qlog1", "blocks.3.bn1.mean"), in the same
+# layouts, so both directions are copies.
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:

@@ -125,12 +125,14 @@ def binary_activation_ste(x: torch.Tensor, threshold: torch.Tensor) -> torch.Ten
     return BinaryActivationSTE.apply(x, threshold)
 
 
-def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     """`jnp.clip`: max then min, which pass half the gradient to a value
-    that equals a bound (`torch.clamp` passes all of it). The bounds are
-    0-dim CPU tensors, which a CUDA operand takes as scalars: no copy."""
-    lo_t = torch.tensor(lo, dtype=x.dtype)
-    hi_t = torch.tensor(hi, dtype=x.dtype)
+    that equals a bound (`torch.clamp` passes all of it), to `x` and to a
+    bound that is a tensor (per channel, broadcast against `x`). A float
+    bound becomes a 0-dim CPU tensor, which a CUDA operand takes as a
+    scalar: no copy."""
+    lo_t = lo if isinstance(lo, torch.Tensor) else torch.tensor(lo, dtype=x.dtype)
+    hi_t = hi if isinstance(hi, torch.Tensor) else torch.tensor(hi, dtype=x.dtype)
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 

@@ -12,9 +12,12 @@ step through `gathered_train_step` (the medium and heavy tiers: one warp
 the host once per chunk. Each epoch ends with the non-finite check, float
 train and val evals, and the int8 eval (`compiled_backend` "sim",
 "pallas" or "mega"), then best-model checkpointing on
-`checkpoint_metric`; `ef_warmup_epochs`
-trains the QAT model without rounding first and restarts the optimizer at
-the switch. A final test eval closes the run.
+`checkpoint_metric`. `ef_warmup_epochs` trains a QAT NNUE without
+rounding first, and an engine_friendly EtinyNet as its continuous
+engine-structured model (`ef_quantizers=False`), then switches the model's
+config to the quantized one and restarts the optimizer
+(`ef_finetune_restart`); only an epoch after the switch can become the
+best model. A final test eval closes the run.
 
 The trainer runs on the CUDA card unless `device` names another; asking
 for CUDA on a host without it raises. It sets
@@ -31,8 +34,8 @@ engine sim whatever `compiled_backend` says, as in the JAX package.
 
 Not ported yet, and raising NotImplementedError with the ROADMAP item: a
 mesh (`max_devices > 1`), `distill_from`, `checkpoint_backend="orbax"`,
-an NNUE `dtype` other than float32, an `engine_friendly`
-EtinyNet, `compiled_backend="engine"`, and the C++ engine start-up probe,
+an NNUE `dtype` other than float32, `compiled_backend="engine"`, and the
+C++ engine start-up probe,
 which the JAX loop runs unless NV_SKIP_ENGINE=1 (set it). Unlike the JAX
 loop, NV_SKIP_ENGINE=1 leaves `compiled_backend` as configured: "mega" and
 "pallas" run the card's kernels and need no engine build.
@@ -128,9 +131,6 @@ def _refuse_unported(config: Any, model_type: str) -> None:
     backend = getattr(config, "compiled_backend", "sim")
     dtype = getattr(config, "dtype", "float32")
     checks = (
-        (model_type == "etinynet"
-         and bool(getattr(config, "engine_friendly", False)),
-         "EtinyNet engine_friendly=True", "5a (EtinyNet engine_friendly QAT)"),
         (os.environ.get("NV_SKIP_ENGINE") != "1",
          "the C++ engine start-up probe (set NV_SKIP_ENGINE=1)",
          "4a (engine-subprocess backend and probe)"),
@@ -221,11 +221,15 @@ def train_model(config: Any, model_type: str,
     max_epochs = getattr(config, "max_epochs", 1)
     best_val_f1 = 0.0
 
-    # progressive QAT: warm up without weight/bias rounding, then switch it
-    # on with a fresh optimizer over the remaining epochs
+    # progressive QAT: warm up on the continuous function of the same
+    # family (an engine_friendly EtinyNet without its quantizers, a QAT
+    # NNUE without weight/bias rounding), then switch the quantizers on
+    # with a fresh optimizer over the remaining epochs
     ef_warmup = int(getattr(config, "ef_warmup_epochs", 0))
     warm_cfg = model_cfg
-    if ef_warmup > 0 and getattr(model_cfg, "qat", False):
+    if ef_warmup > 0 and getattr(model_cfg, "engine_friendly", False):
+        warm_cfg = dataclasses.replace(model_cfg, ef_quantizers=False)
+    elif ef_warmup > 0 and getattr(model_cfg, "qat", False):
         warm_cfg = dataclasses.replace(model_cfg, qat_rounding=False)
     else:
         ef_warmup = 0

@@ -1,6 +1,7 @@
 """The EtinyNet LB-block Hopper kernel (K6) held bit-equal to the engine sim
 on a card, per block and for the whole int8 forward, on a quantized
-0.98M-width model and on random int models at full int8 ranges.
+0.98M-width model, on a quantized 0.75-width engine_friendly model (LSQ
+folds) and on random int models at full int8 ranges.
 
 Marked `gpu`; each test skips where there is no CUDA device. The file
 imports no jax, so it also runs on a machine without it:
@@ -89,6 +90,43 @@ def test_forward_equals_sim(cuda, which, batch):
     want = etiny_engine_forward(sim, x, cfg=cfg, image_h=32, image_w=32)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _ef_quantized_model(cuda):
+    """A 0.75-width engine_friendly model with LSQ scales in [0.5, 1.5] and
+    running statistics settled by 40 training-mode forwards (with fewer,
+    the last blocks' int8 outputs are all zero), quantized with the LSQ
+    folds (the final block's projection diag(64·s3))."""
+    cfg = EtinyNetConfig(variant="0.75", num_classes=10, input_size=32,
+                         engine_friendly=True)
+    gen = torch.Generator().manual_seed(6)
+    model = etinynet_init(cfg, gen, device=cuda).train()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "qlog" in name:
+                p.copy_(torch.rand(p.shape, generator=gen) * 1.1 - 0.7)
+        for _ in range(40):
+            model(normalize_images(torch.rand((64, 32, 32, 3), device=cuda)))
+    return etinynet_quantize(model)
+
+
+@pytest.mark.parametrize("batch", [37, 1024])
+def test_ef_forward_equals_sim(cuda, batch):
+    """K6 on an engine_friendly `.etiny`: 12 launches (11 LB blocks and the
+    synthetic final block) equal to the engine sim."""
+    q = _ef_quantized_model(cuda)
+    proj = q.blocks[-1].pw_project
+    assert len(q.blocks) == 12 and len(set(np.diag(proj).tolist())) > 1
+    sim, cfg = etiny_sim_params(q, device=cuda)
+    kp = ek.etiny_kernel_params(sim, cfg)
+    x = normalize_images(torch.rand((batch, 32, 32, 3), device=cuda)).contiguous()
+    before = ek.LAUNCHES["etiny_block_kernel"]
+    got = ek.etiny_forward_kernel(kp, x, cfg=cfg, image_h=32, image_w=32)
+    assert ek.LAUNCHES["etiny_block_kernel"] == before + 12
+    want = etiny_engine_forward(sim, x, cfg=cfg, image_h=32, image_w=32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(got.std(dim=0).max()) > 0  # the logits depend on the image
 
 
 def test_each_block_equals_plain(cuda):

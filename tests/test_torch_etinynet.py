@@ -194,11 +194,6 @@ def test_bridge_round_trip():
     assert isinstance(p2["blocks"], list) and "dense_proj_w" in p2["blocks"][-1]
 
 
-def test_engine_friendly_raises():
-    with pytest.raises(NotImplementedError, match="5a"):
-        tetiny.EtinyNet(tetiny.EtinyNetConfig(variant="micro", engine_friendly=True))
-
-
 @pytest.mark.parametrize("variant", ["micro", "0.98M"])
 def test_quantized_bytes_equal_jax(tmp_path, variant):
     """The same float params and statistics give the same `.etiny` bytes."""

@@ -144,11 +144,11 @@ def test_unported_options_raise(env, attr, value, match):
 
 def test_engine_probe_and_etinynet_raise(env, monkeypatch):
     """The engine probe raises without NV_SKIP_ENGINE=1; of EtinyNet only
-    engine_friendly QAT is still unported (its training is in
-    test_torch_etiny_loop.py)."""
+    distillation is still unported (its training, engine_friendly
+    included, is in test_torch_etiny_loop.py and test_torch_ef_etinynet.py)."""
     cfg = load_config(str(REPO / "config" / "train_etinynet_test.py"))
-    cfg.engine_friendly = True
-    with pytest.raises(NotImplementedError, match="engine_friendly"):
+    cfg.distill_from = "teacher.ckpt"
+    with pytest.raises(NotImplementedError, match="distill_from"):
         tloop.train_model(cfg, "etinynet", device="cpu")
     cfg, _ = env
     monkeypatch.delenv("NV_SKIP_ENGINE")
