@@ -2,7 +2,8 @@
 """Drive the PyTorch port's int8 NNUE serving path, its NNUE training path,
 its EtinyNet int8 serving path, its EtinyNet training path, its
 engine_friendly EtinyNet path (progressive QAT → LSQ-folded `.etiny` →
-K6) and its profiling path once on one CUDA card.
+K6), its profiling path, and the train loop's engine probe and engine
+backend, bf16 NNUE, distillation and resume once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -14,7 +15,9 @@ Phases, one line each (any failure raises and exits non-zero):
              of int8 tensor-core (IMMA) and cp.async (LDGSTS) instructions of
              the serving kernels (K1, K2, K6, K7), which must reach both, and
              of bulk copies (UBLKCP) of the ring kernels (K4, its single pass,
-             K8, K5), which must reach them and spill nothing
+             K8, K5), which must reach them and spill nothing; beside nvcc,
+             in a thread, compile_cpp_engine builds the C++ engine's two
+             inference tools (cmake + ninja into build/torch_engine/)
 3. model     flagship-width NNUE (config/train_nnue.py widths) from a numpy
              seed → nnue_quantize → write_nnue → read_nnue → nnue_sim_params
 4. serve     batches of 1, 37, 512 and 8192 normalized 32×32 images through
@@ -78,7 +81,9 @@ Phases, one line each (any failure raises and exits non-zero):
              printed beside K6's: float and int8 accuracy, the share of
              agreeing predictions, and the relative logit error per image
              (not held to JAX's bar of 0.1: neither package's float model
-             meets it on a trained model, PERF.md §6); K6 on this .etiny
+             meets it on a trained model, PERF.md §6); the C++ engine's
+             logits on the val split equal to K6's as the engine prints
+             them (phase 23); K6 on this .etiny
              at batch 8192 event-timed
              (whole forward and the 12 blocks) and graph-timed (the blocks);
              ms per train step of the warm-up and of the quantized function
@@ -99,6 +104,42 @@ Phases, one line each (any failure raises and exits non-zero):
              light_pipeline_kernel among its CUDA kernels
 22. launches the three probe kernels launched on their paths (19, 20); the
              counts are host calls: a CUDA graph's replays add none
+23. engine   the train loop's start-up probe (engine_probe: the build, then
+             four training images through the engine) on the flagship
+             model; the engine's logits equal to K1's on it at batch 37 and
+             512, and to K6's on the 0.98M model of phase 13 at batch 37
+             and 1024, each kernel's equal to the sim's (the engine prints
+             %.10f, which moves a logit below 2^-10 by up to 1 ulp: the
+             kernel's logits are compared as the engine prints them)
+24. nnue-bf16  train_model on config/train_nnue_qat_bf16.py (full width, QAT,
+             bf16 compute, light tier) on 50,000 synthetic-hard images, one
+             epoch of 390 steps at batch 128, compiled_backend "engine", the
+             probe on: K3 once per fused step (48 chunks of 8; the last 6
+             steps unfused), finite losses; the best checkpoint's .nnue
+             through the engine on the 12,500 val images equal to K1's as
+             printed, K1's equal to the sim's, and the engine's accuracy
+             equal to the loop's; the engine's
+             compiled/ms_per_sample beside K1's (evaluate_int8_sim "mega")
+             on the same batches; ms per fused step in bf16 and float32 at
+             batch 128 (39 steps, host clock, one sync, in turns)
+25. distill  the teacher: one epoch of config/train_etinynet_hard_float.py
+             (micro, float); the student: config/train_etinynet_distill.py
+             (micro, engine_friendly, alpha 0.3, T 4) with distill_from that
+             teacher, cut to 2 epochs (1 warm-up); the student's .etiny
+             through K6, the sim and the engine on the 5,000 val images (K6
+             equal to the sim, the engine to K6 as printed), and K6's
+             accuracy equal to the loop's; ms per student
+             step with and without the teacher (host clock, in turns)
+26. resume   train_model on config/train_nnue_hard.py for 2 epochs with
+             checkpoint_backend "orbax", then resume=True with max_epochs 3:
+             restored at epoch 2, exactly one epoch (39 steps, 39 K3
+             launches) run, the first resumed step's LR the schedule's value
+             at step 78; seconds per step-checkpoint write
+27. launches the kernels launched on the paths of 23-26
+
+Every train_model run (phases 10, 15, 18, 21, 24-26) builds the C++ engine
+(a no-op after phase 2) and probes it before its first step, as a user's
+run does.
 
 Then one JSON line with each kernel's launches, error and times (kernel,
 plain version, the card's bound for the same work and, where one PyTorch
@@ -126,6 +167,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -187,10 +229,21 @@ from nnue_vision_tpu_torch.training.checkpoint import (
     load_checkpoint,
     nnue_from_checkpoint,
 )
-from nnue_vision_tpu_torch.training.evaluate import evaluate_int8_sim
-from nnue_vision_tpu_torch.training.loop import train_model
-from nnue_vision_tpu_torch.training.optim import create_optimizer
+from nnue_vision_tpu_torch.training.engine_build import compile_cpp_engine
+from nnue_vision_tpu_torch.training.evaluate import (
+    as_engine_prints,
+    engine_logits,
+    evaluate_int8_sim,
+    normalize_host,
+)
+from nnue_vision_tpu_torch.training.loop import engine_probe, train_model
+from nnue_vision_tpu_torch.training.optim import (
+    Optimizer,
+    create_optimizer,
+    make_schedule,
+)
 from nnue_vision_tpu_torch.training.step import (
+    Teacher,
     gathered_train_step,
     make_train_state,
     scanned_train_steps_fused,
@@ -260,6 +313,14 @@ SASS_KERNELS = TENSOR_CORE_KERNELS + BULK_KERNELS
 SASS_OPS = ("IMMA", "LDGSTS", "UBLKCP")
 WARP_SPLIT_REPS = "100"
 TRACE_CONFIG = "config/train_nnue_test.py"
+ENGINE_BATCHES = (37, 512)
+BF16_CONFIG = "config/train_nnue_qat_bf16.py"
+BF16_TRAIN_SIZE = 50000  # CIFAR-10's train split, in synthetic-hard images
+TEACHER_CONFIG = "config/train_etinynet_hard_float.py"
+DISTILL_CONFIG = "config/train_etinynet_distill.py"
+DISTILL_EPOCHS = 2  # the config's 150, cut
+DISTILL_WARMUP = 1  # the config's 25, cut
+STEP_TIMING = 39  # steps per timed run in phases 24 and 25
 
 
 def say(phase: str, msg: str) -> None:
@@ -523,27 +584,13 @@ def pipeline(errs: Errors, dataset: torch.Tensor, gen: torch.Generator,
     torch.cuda.synchronize()
 
 
-def train(tmp: Path) -> dict:
-    """One epoch of train_model on the training config at full width,
-    counted from here: returns what the phase checks and prints."""
+def train_config():
+    """The training config at full width, cut to one epoch, int8 eval
+    through K1."""
     cfg = load_config(TRAIN_CONFIG)
     cfg.max_epochs = 1
     cfg.compiled_backend = "mega"
-    cfg.log_dir = str(tmp / "logs")
-    os.environ["NV_SKIP_ENGINE"] = "1"
-    nk.reset_launch_counts()
-    ip.reset_launch_counts()
-    t0 = time.perf_counter()
-    check(train_model(cfg, "nnue", device="cuda") == 0, "train_model failed")
-    seconds = time.perf_counter() - t0
-    launches = {**nk.LAUNCHES, **ip.LAUNCHES}
-    metrics = next((tmp / "logs" / "runs").glob("*/metrics.jsonl"))
-    records = [json.loads(line) for line in metrics.read_text().splitlines()]
-    losses = [r["train/loss"] for r in records if "train/loss" in r]
-    epoch = next(r for r in records if "compiled/f1" in r)
-    ckpt = next((tmp / "logs" / "checkpoints").glob("*/best_model.ckpt"))
-    return dict(cfg=cfg, seconds=seconds, launches=launches, losses=losses,
-                epoch=epoch, ckpt=ckpt)
+    return cfg
 
 
 def etiny_model(rng: np.random.Generator) -> EtinyNet:
@@ -654,56 +701,22 @@ def augment(errs: Errors, images: torch.Tensor, gen: torch.Generator) -> None:
     torch.cuda.synchronize()
 
 
-def etiny_train(tmp: Path) -> dict:
-    """One epoch of train_model on the EtinyNet production config, counted
-    from here: returns what the phase checks and prints."""
+def etiny_config():
+    """The EtinyNet production config on synthetic-hard images, one epoch."""
     cfg = load_config(ETINY_CONFIG)
     cfg.dataset_name = "synthetic-hard"
     cfg.synthetic_size = ETINY_TRAIN_SIZE
     cfg.max_epochs = 1
-    cfg.log_dir = str(tmp / "logs")
-    os.environ["NV_SKIP_ENGINE"] = "1"
-    for module in (wk, pk, ek, ip, nk):
-        module.reset_launch_counts()
-    t0 = time.perf_counter()
-    check(train_model(cfg, "etinynet", device="cuda") == 0,
-          "train_model failed on the EtinyNet config")
-    seconds = time.perf_counter() - t0
-    launches = {**wk.LAUNCHES, **pk.LAUNCHES, **ek.LAUNCHES, **ip.LAUNCHES}
-    metrics = next((tmp / "logs" / "runs").glob("*/metrics.jsonl"))
-    records = [json.loads(line) for line in metrics.read_text().splitlines()]
-    losses = [r["train/loss"] for r in records if "train/loss" in r]
-    epoch = next(r for r in records if "compiled/f1" in r)
-    ckpt = next((tmp / "logs" / "checkpoints").glob("*/best_model.ckpt"))
-    return dict(cfg=cfg, seconds=seconds, launches=launches, losses=losses,
-                epoch=epoch, ckpt=ckpt)
+    return cfg
 
 
-def ef_train(tmp: Path) -> dict:
-    """train_model on the engine_friendly anchor config at full width, cut
-    to EF_EPOCHS epochs of which EF_WARMUP warm up, counted from here:
-    returns what the phase checks and prints (the run's log included)."""
+def ef_config():
+    """The engine_friendly anchor config at full width, cut to EF_EPOCHS
+    epochs of which EF_WARMUP warm up."""
     cfg = load_config(EF_CONFIG)
     cfg.max_epochs = EF_EPOCHS
     cfg.ef_warmup_epochs = EF_WARMUP
-    cfg.log_dir = str(tmp / "logs")
-    os.environ["NV_SKIP_ENGINE"] = "1"
-    for module in (wk, pk, ek, ip, nk):
-        module.reset_launch_counts()
-    out = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        rc = train_model(cfg, "etinynet", device="cuda")
-    seconds = time.perf_counter() - t0
-    print(out.getvalue(), end="", flush=True)
-    check(rc == 0, "train_model failed on the engine_friendly config")
-    metrics = next((tmp / "logs" / "runs").glob("*/metrics.jsonl"))
-    records = [json.loads(line) for line in metrics.read_text().splitlines()]
-    losses = [r["train/loss"] for r in records if "train/loss" in r]
-    epochs = [r for r in records if "compiled/f1" in r]
-    ckpt = next((tmp / "logs" / "checkpoints").glob("*/best_model.ckpt"))
-    return dict(cfg=cfg, seconds=seconds, log=out.getvalue(), losses=losses,
-                epochs=epochs, payload=load_checkpoint(ckpt))
+    return cfg
 
 
 def k6_blocks(kp, ecfg, x: torch.Tensor) -> list:
@@ -757,6 +770,319 @@ def k6_bound(blocks: list) -> tuple:
     return bound(moved, int_ops=ops)
 
 
+def reset_launches() -> None:
+    for module in (wk, pk, ek, ip, nk):
+        module.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    return {**nk.LAUNCHES, **ip.LAUNCHES, **ek.LAUNCHES, **wk.LAUNCHES,
+            **pk.LAUNCHES}
+
+
+def train_run(cfg, model_type: str, log_dir: Path, run_id: str) -> dict:
+    """train_model on `cfg` with the engine probe on, its log captured and
+    printed: returns what the phases check and print, the kernels'
+    launches in the run included (every count set to 0 just before it)."""
+    cfg.log_dir = str(log_dir)
+    os.environ.pop("NV_SKIP_ENGINE", None)
+    reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_model(cfg, model_type, run_id, device="cuda")
+    seconds = time.perf_counter() - t0
+    print(out.getvalue(), end="", flush=True)
+    check(rc == 0, f"train_model failed on {cfg.name}")
+    launches = launch_counts()
+    metrics = log_dir / "runs" / run_id / "metrics.jsonl"
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    check(losses and all(math.isfinite(v) for v in losses),
+          f"{cfg.name}: non-finite or no losses")
+    best = log_dir / "checkpoints" / run_id / "best_model.ckpt"
+    return dict(cfg=cfg, seconds=seconds, log=out.getvalue(), launches=launches,
+                losses=losses, epochs=[r for r in records if "compiled/f1" in r],
+                payload=load_checkpoint(best) if best.is_file() else None)
+
+
+def hold_engine(errs: Errors, model, images: np.ndarray, labels: np.ndarray,
+                batch: int, tag: str) -> dict:
+    """The C++ engine's logits over raw `images` in batches of `batch`
+    against the card's kernel (K1 for an NNUE, K6 for an EtinyNet) and the
+    sim, on the same host-normalized images: the kernel's equal to the
+    sim's, and the engine's equal to the kernel's as the engine prints them
+    (`%.10f`, which moves a logit below 2^-10 by up to 1 ulp; `print_err` is
+    the largest such move)."""
+    loader = [(images[i:i + batch], labels[i:i + batch])
+              for i in range(0, len(labels), batch)]
+    got, lab, _, seconds = engine_logits(model, loader)
+    etiny = isinstance(model, EtinyNet)
+    kw = dict(image_h=H, image_w=W)
+    if etiny:
+        kernel = "etiny_block_kernel"
+        sim, kw["cfg"] = etiny_sim_params(etinynet_quantize(model), device="cuda")
+        kp = ek.etiny_kernel_params(sim, kw["cfg"])
+    else:
+        kernel = "nnue_mega_kernel"
+        sim, kw["cfg"] = nnue_sim_params(nnue_quantize(model), device="cuda")
+        kp = nk.mega_head_params(sim, kw["cfg"], H, W)
+    outs = []
+    for imgs, _ in loader:
+        x = torch.from_numpy(normalize_host(imgs)).cuda()
+        if etiny:
+            k, ref = (ek.etiny_forward_kernel(kp, x, **kw),
+                      etiny_engine_forward(sim, x, **kw))
+        else:
+            k = nk.nnue_engine_forward_mega(kp, x.reshape(len(x), -1), **kw)[0]
+            ref = nnue_engine_forward(sim, x, **kw)[0]
+        errs.equal(kernel, f"{tag} B={len(x)} kernel vs sim", k, ref)
+        outs.append(k.cpu().numpy())
+    k_all = np.concatenate(outs)
+    err = float(np.abs(got.astype(np.float64) - k_all).max())
+    np.testing.assert_array_equal(
+        got, as_engine_prints(k_all),
+        err_msg=f"{tag}: the engine's logits differ from {kernel}'s as the "
+        "engine prints them (%.10f)")
+    return dict(acc=float(np.mean(got.argmax(1) == lab)), n=len(lab),
+                engine_ms=seconds / len(lab) * 1e3, kernel=kernel, print_err=err)
+
+
+def step_ms_in_turns(runs: dict) -> dict:
+    """{name: [ms per step, ...]} of each `runs[name]()` (STEP_TIMING steps,
+    returning their losses), timed with the host clock and one sync, in the
+    turns a, b, b, a."""
+    names = list(runs)
+    times = {n: [] for n in names}
+    for name in names + names[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = runs[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / STEP_TIMING * 1e3)
+        check(bool(torch.isfinite(losses).all()), f"non-finite {name} losses")
+    return times
+
+
+def loop_phases(errs: Errors, smi: str, model, emodel, ds, dataset,
+                pgen: torch.Generator, tgen: torch.Generator) -> dict:
+    """Phases 23-27: the train loop's engine probe and engine backend, bf16
+    NNUE, distillation and resume; returns their kernels' launches. `model`
+    is the flagship NNUE of phase 3, `emodel` the 0.98M EtinyNet of phase
+    13, `ds` the synthetic-hard training set of phase 9 and `dataset` its
+    gather copy (K3's input)."""
+    # 23. engine — the start-up probe, and the engine held to K1 and K6;
+    # each counted part of 23-26 starts from counts of 0; timing runs are
+    # not counted
+    reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        engine_probe(model, ds, "nnue")
+    check("Engine OK" in out.getvalue(), "the probe did not report")
+    say("engine", "engine_probe on the flagship model: " + " | ".join(
+        out.getvalue().strip().splitlines()))
+    for tag, m, batches in (("flagship NNUE", model, ENGINE_BATCHES),
+                            ("0.98M EtinyNet", emodel, (37, 1024))):
+        for b in batches:
+            he = hold_engine(errs, m, ds.images[:b], ds.labels[:b], b, tag)
+            say("engine", f"{tag} B={b}: the engine's logits equal to "
+                f"{he['kernel']}'s as printed (%.10f; raw max "
+                f"{he['print_err']:.3g}), the kernel's equal to the sim's, "
+                f"{he['engine_ms']:.4f} ms per image (host CPU)")
+    new_launches = {k: launch_counts()[k] for k in (
+        "nnue_mega_kernel", "etiny_block_kernel", "light_pipeline_kernel")}
+
+    # 24. nnue-bf16 — the bf16 QAT NNUE through the engine backend
+    with tempfile.TemporaryDirectory() as tmp:
+        bcfg = load_config(BF16_CONFIG)
+        bcfg.dataset_name = "synthetic-hard"
+        bcfg.synthetic_size = BF16_TRAIN_SIZE
+        bcfg.max_epochs = 1
+        bcfg.compiled_backend = "engine"
+        bf = train_run(bcfg, "nnue", Path(tmp), "bf16")
+    bsteps = BF16_TRAIN_SIZE // bcfg.batch_size
+    chunk = int(getattr(bcfg, "steps_per_dispatch", 8))
+    check(len(bf["losses"]) == bsteps, f"expected {bsteps} losses")
+    check(bf["launches"]["light_pipeline_kernel"] == chunk * (bsteps // chunk),
+          f"K3 launched {bf['launches']['light_pipeline_kernel']} times, not once "
+          "per fused step")
+    check("Engine OK" in bf["log"] and "fused input pipeline active" in bf["log"],
+          "the probe or the fused K3 path did not run")
+    bpayload = bf["payload"]
+    check(bpayload["model_config"]["dtype"] == "bfloat16"
+          and all(v.dtype == np.float32 for v in bpayload["params"].values()),
+          "the checkpoint is not a bf16 model with float32 params")
+    reset_launches()
+    btrained = nnue_from_checkpoint(bpayload, device="cuda")
+    bval = GenericVisionDataset("synthetic-hard", split="test",
+                                synthetic_size=BF16_TRAIN_SIZE, seed=42)
+    bhold = hold_engine(errs, btrained, bval.images, bval.labels,
+                        bcfg.batch_size, "bf16-trained NNUE")
+    bepoch = bf["epochs"][0]
+    check(bhold["acc"] == bepoch["compiled/accuracy"],
+          f"engine val accuracy {bhold['acc']} differs from the loop's "
+          f"{bepoch['compiled/accuracy']}")
+    vloader = [(bval.images[i:i + bcfg.batch_size], bval.labels[i:i + bcfg.batch_size])
+               for i in range(0, len(bval.labels), bcfg.batch_size)]
+    k1_eval = evaluate_int8_sim(btrained, vloader, use_pallas="mega")
+    check(k1_eval["acc"] == bhold["acc"], "K1's accuracy differs from the engine's")
+    say("nnue-bf16", f"{BF16_CONFIG} (full width, QAT, bf16) on {BF16_TRAIN_SIZE} "
+        f"synthetic-hard images, 1 epoch of {bsteps} steps at batch "
+        f"{bcfg.batch_size} in {bf['seconds']:.2f} s (train_model, probe and data "
+        f"generation included); loss first {bf['losses'][0]:.4f} last "
+        f"{bf['losses'][-1]:.4f}; val acc {bepoch['val/accuracy']:.4f}, engine "
+        f"acc {bepoch['compiled/accuracy']:.4f}; best .nnue through the engine on "
+        f"the {bhold['n']} val images equal to K1's as printed (%.10f; raw max "
+        f"{bhold['print_err']:.3g}), K1's equal to the sim's; compiled/ms_per_sample at batch {bcfg.batch_size}: engine "
+        f"backend {bepoch['compiled/ms_per_sample']:.4f} (loop), K1 "
+        f"{k1_eval['ms_per_sample']:.4f} (evaluate_int8_sim 'mega', same "
+        f"batches), on {smi}")
+    hold_launches = launch_counts()
+    m32 = nnue_from_checkpoint(bpayload, device="cuda")
+    m32.cfg = dataclasses.replace(m32.cfg, dtype="float32")
+    bopt = create_optimizer(bcfg, bsteps)
+    tlabels = torch.from_numpy(ds.labels).cuda()
+    tchunk = np.random.default_rng(SEED).permutation(len(ds.labels))[
+        :STEP_TIMING * bcfg.batch_size].reshape(STEP_TIMING, bcfg.batch_size)
+    times = step_ms_in_turns({
+        name: (lambda st=make_train_state(m, bopt): scanned_train_steps_fused(
+            st, dataset, tlabels, tchunk, pgen, optimizer=bopt, height=H,
+            width=W)["loss"]) for name, m in (("float32", m32), ("bfloat16", btrained))})
+    say("timing", "NNUE train step at batch "
+        f"{bcfg.batch_size} ({STEP_TIMING}-step fused chunks, QAT, full width, "
+        "host clock, one sync, turns f32 bf16 bf16 f32): " + "; ".join(
+            f"{k} " + ", ".join(f"{v:.3f}" for v in vs) + " ms/step"
+            for k, vs in times.items()) + f" on {smi}")
+    for part in (bf["launches"], hold_launches):
+        for k in new_launches:
+            new_launches[k] += part[k]
+
+    # 25. distill — a float teacher into an engine_friendly student
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg_d = load_config(TEACHER_CONFIG)
+        tcfg_d.max_epochs = 1
+        teacher = train_run(tcfg_d, "etinynet", Path(tmp) / "teacher", "teacher")
+        check(teacher["payload"] is not None, "the teacher wrote no checkpoint")
+        tpath = Path(tmp) / "teacher" / "checkpoints" / "teacher" / "best_model.ckpt"
+        dcfg = load_config(DISTILL_CONFIG)
+        dcfg.distill_from = str(tpath)
+        dcfg.max_epochs = DISTILL_EPOCHS
+        dcfg.ef_warmup_epochs = DISTILL_WARMUP
+        student = train_run(dcfg, "etinynet", Path(tmp) / "student", "student")
+    dsteps = dcfg.synthetic_size // dcfg.batch_size
+    check(len(student["losses"]) == DISTILL_EPOCHS * dsteps,
+          f"expected {DISTILL_EPOCHS * dsteps} student losses")
+    check(f"distilling from {tpath}" in student["log"]
+          and f"alpha={dcfg.distill_alpha}" in student["log"],
+          "the student did not distil")
+    spayload = student["payload"]
+    check(spayload["epoch"] >= DISTILL_WARMUP
+          and spayload["model_config"]["ef_quantizers"],
+          "the student's best model is a warm-up epoch")
+    reset_launches()
+    smodel = etinynet_from_checkpoint(spayload, device="cuda").eval()
+    sval = GenericVisionDataset("synthetic-hard", split="test",
+                                synthetic_size=dcfg.synthetic_size, seed=42)
+    shold = hold_engine(errs, smodel, sval.images, sval.labels, 1024,
+                        "distilled ef EtinyNet")
+    sbest = student["epochs"][spayload["epoch"]]
+    check(shold["acc"] == sbest["compiled/accuracy"],
+          f"K6 val accuracy {shold['acc']} differs from the loop's sim "
+          f"{sbest['compiled/accuracy']}")
+    say("distill", f"teacher {TEACHER_CONFIG}, 1 epoch in "
+        f"{teacher['seconds']:.2f} s, val acc "
+        f"{teacher['epochs'][0]['val/accuracy']:.4f}; student {DISTILL_CONFIG} "
+        f"(alpha {dcfg.distill_alpha}, T {dcfg.distill_temp}), {DISTILL_EPOCHS} "
+        f"epochs ({DISTILL_WARMUP} warm-up) of {dsteps} steps at batch "
+        f"{dcfg.batch_size} in {student['seconds']:.2f} s; per epoch val acc "
+        + ", ".join(f"{r['val/accuracy']:.4f}" for r in student["epochs"])
+        + ", compiled acc " + ", ".join(f"{r['compiled/accuracy']:.4f}"
+                                        for r in student["epochs"])
+        + f"; the student's .etiny on the {shold['n']} val images: K6 equal to "
+        "the sim, the engine equal to K6 as printed (%.10f; raw max "
+        f"{shold['print_err']:.3g})")
+    for part in (teacher["launches"], student["launches"], launch_counts()):
+        for k in new_launches:
+            new_launches[k] += part[k]
+    tmodel = etinynet_from_checkpoint(teacher["payload"], device="cuda")
+    tmodel.eval().requires_grad_(False)
+    dimages = torch.from_numpy(ds.images).cuda()
+    dlabels = torch.from_numpy(ds.labels).cuda()
+    didx = np.random.default_rng(SEED).integers(
+        0, len(ds.labels), (STEP_TIMING, dcfg.batch_size))
+    dopt = create_optimizer(dcfg, dsteps)
+    dstate = make_train_state(etinynet_from_checkpoint(spayload, device="cuda"), dopt)
+    dteacher = Teacher(tmodel, dcfg.distill_alpha, dcfg.distill_temp)
+    times = step_ms_in_turns({
+        name: (lambda kw=kw: torch.stack([
+            gathered_train_step(dstate, dimages, dlabels, i, tgen, optimizer=dopt,
+                                strength="light", **kw)["loss"] for i in didx]))
+        for name, kw in (("without the teacher", {}),
+                         ("with the teacher", {"teacher": dteacher}))})
+    say("timing", f"distilled ef EtinyNet train step at batch {dcfg.batch_size} "
+        f"({STEP_TIMING} steps, quantized, light tier, host clock, one sync, "
+        "in turns): " + "; ".join(f"{k} " + ", ".join(f"{v:.3f}" for v in vs)
+                                  + " ms/step" for k, vs in times.items())
+        + f" on {smi}")
+
+    # 26. resume — two epochs with step checkpoints, then one resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        rcfg = load_config(TRAIN_CONFIG)
+        rcfg.max_epochs = 2
+        rcfg.checkpoint_backend = "orbax"
+        rcfg.orbax_dir = str(Path(tmp) / "steps")
+        first = train_run(rcfg, "nnue", Path(tmp) / "logs", "first")
+        rcfg.resume = True
+        rcfg.max_epochs = 3
+        seen = []
+        real_step = Optimizer.step
+
+        def spy(self, params, grads, state):
+            seen.append((state["count"], self.schedule(state["count"])))
+            return real_step(self, params, grads, state)
+
+        Optimizer.step = spy
+        try:
+            second = train_run(rcfg, "nnue", Path(tmp) / "logs", "second")
+        finally:
+            Optimizer.step = real_step
+    rsteps = len(first["losses"]) // 2
+    check("resumed from step checkpoint 1 → epoch 2" in second["log"],
+          "the run did not resume at epoch 2")
+    check(len(second["losses"]) == rsteps == len(seen)
+          and second["launches"]["light_pipeline_kernel"] == rsteps
+          and [r["step"] for r in second["epochs"]] == [3 * rsteps - 1],
+          "the resumed run did not train exactly one epoch")
+    want_lr = make_schedule(rcfg, rsteps)(2 * rsteps)
+    check(seen[0] == (2 * rsteps, want_lr),
+          f"first resumed step (count, LR) {seen[0]}, schedule (count, LR) "
+          f"({2 * rsteps}, {want_lr})")
+    writes = [float(v) for v in re.findall(
+        r"step checkpoint \d+ written in ([0-9.]+) s", first["log"] + second["log"])]
+    check(len(writes) == 3, f"expected 3 step checkpoint writes, got {writes}")
+    say("resume", f"{TRAIN_CONFIG}: 2 epochs of {rsteps} steps with step "
+        f"checkpoints in {first['seconds']:.2f} s, resumed at epoch 2 for one "
+        f"epoch of {len(second['losses'])} steps "
+        f"({second['launches']['light_pipeline_kernel']} K3 launches) in "
+        f"{second['seconds']:.2f} s; first resumed step: count {seen[0][0]}, LR "
+        f"{seen[0][1]!r} == the schedule's; val acc per epoch "
+        + ", ".join(f"{r['val/accuracy']:.4f}" for r in first["epochs"]
+                    + second["epochs"])
+        + "; seconds per step-checkpoint write " + ", ".join(
+            f"{v:.4f}" for v in writes) + f" on {smi}")
+    for part in (first["launches"], second["launches"]):
+        for k in new_launches:
+            new_launches[k] += part[k]
+
+    # 27. launches
+    check(all(v > 0 for v in new_launches.values()),
+          f"a kernel of 23-26 never launched: {new_launches}")
+    say("launches", "engine, bf16, distillation and resume "
+        + json.dumps(new_launches))
+    return new_launches
+
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -773,8 +1099,19 @@ def main() -> int:
     say("device", f"{smi} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
-    # 2. build
-    built = load_library()
+    # 2. build — the C++ engine's tools beside nvcc, in a thread
+    def build_engine():
+        t0 = time.perf_counter()
+        exes = {t: compile_cpp_engine(t) for t in ("nnue", "etinynet")}
+        return exes, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as pool:
+        engine_job = pool.submit(build_engine)
+        built = load_library()
+        engine_exes, engine_seconds = engine_job.result()
+    say("build", "C++ engine (cmake + ninja): " + ", ".join(
+        p.name for p in engine_exes.values()) + f" in "
+        f"{engine_exes['nnue'].parent} built in {engine_seconds:.1f} s beside nvcc")
     ptxas = [ln.strip() for ln in built.log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     say("build", f"{built.path.name} built in {built.seconds:.1f} s; "
@@ -945,7 +1282,7 @@ def main() -> int:
 
     # 10. train — the training path, counted from here to its end
     with tempfile.TemporaryDirectory() as tmp:
-        tr = train(Path(tmp))
+        tr = train_run(train_config(), "nnue", Path(tmp), "train")
         losses = tr["losses"]
         check(len(losses) == 39 and all(math.isfinite(v) for v in losses),
               f"expected 39 finite losses, got {losses}")
@@ -953,7 +1290,7 @@ def main() -> int:
               f"K3 launched {tr['launches']['light_pipeline_kernel']} times, "
               "not once per fused step")
         check(tr["launches"]["nnue_mega_kernel"] > 0, "K1 not launched by the eval")
-        payload = load_checkpoint(tr["ckpt"])
+        payload = tr["payload"]
     trained = nnue_from_checkpoint(payload, device="cuda")
     val = GenericVisionDataset("synthetic-hard", split="test",
                                synthetic_size=20000, seed=42)
@@ -976,8 +1313,8 @@ def main() -> int:
     say("train", f"{TRAIN_CONFIG}, 1 epoch of {len(losses)} fused steps at "
         f"batch {tr['cfg'].batch_size} in {tr['seconds']:.2f} s (train_model, "
         f"data generation included); loss first {losses[0]:.4f} last "
-        f"{losses[-1]:.4f}; val acc {tr['epoch']['val/accuracy']:.4f}, "
-        f"compiled acc {tr['epoch']['compiled/accuracy']:.4f}; checkpoint "
+        f"{losses[-1]:.4f}; val acc {tr['epochs'][0]['val/accuracy']:.4f}, "
+        f"compiled acc {tr['epochs'][0]['compiled/accuracy']:.4f}; checkpoint "
         "int8 mega == sim: " + json.dumps({k: int8["mega"][k] for k in keys}))
 
     # 11. launches
@@ -1033,7 +1370,8 @@ def main() -> int:
 
     # 13. etiny-serve — the EtinyNet serving path, counted from here to 16
     rng = np.random.default_rng(SEED)
-    q0 = etinynet_quantize(etiny_model(rng))
+    emodel = etiny_model(rng)
+    q0 = etinynet_quantize(emodel)
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "etinynet.etiny"
         write_etiny(q0, path)
@@ -1073,7 +1411,7 @@ def main() -> int:
 
     # 15. etiny-train — the EtinyNet training path, counted from here to its end
     with tempfile.TemporaryDirectory() as tmp:
-        et = etiny_train(Path(tmp))
+        et = train_run(etiny_config(), "etinynet", Path(tmp), "etiny")
         elosses = et["losses"]
         steps = ETINY_TRAIN_SIZE // et["cfg"].batch_size
         check(len(elosses) == steps and all(math.isfinite(v) for v in elosses),
@@ -1082,7 +1420,7 @@ def main() -> int:
             check(et["launches"][name] == 2 * steps,
                   f"{name} launched {et['launches'][name]} times, not twice "
                   "per heavy-tier step")
-        epayload = load_checkpoint(et["ckpt"])
+        epayload = et["payload"]
     trained_e = etinynet_from_checkpoint(epayload, device="cuda")
     check(trained_e.cfg.dtype == "bfloat16", "the checkpoint lost its dtype")
     tsim_e, tcfg_e = etiny_sim_params(etinynet_quantize(trained_e), device="cuda")
@@ -1100,14 +1438,14 @@ def main() -> int:
         hits += int((got.argmax(1).cpu().numpy()
                      == eval_val.labels[i:i + 1024]).sum())
     int8_acc = hits / len(eval_val.labels)
-    check(int8_acc == et["epoch"]["compiled/accuracy"],
+    check(int8_acc == et["epochs"][0]["compiled/accuracy"],
           f"K6 int8 val accuracy {int8_acc} differs from the loop's sim "
-          f"{et['epoch']['compiled/accuracy']}")
+          f"{et['epochs'][0]['compiled/accuracy']}")
     say("etiny-train", f"{ETINY_CONFIG} on {ETINY_TRAIN_SIZE} synthetic-hard "
         f"images, 1 epoch of {len(elosses)} steps at batch "
         f"{et['cfg'].batch_size} in {et['seconds']:.2f} s (train_model, data "
         f"generation included); loss first {elosses[0]:.4f} last "
-        f"{elosses[-1]:.4f}; val acc {et['epoch']['val/accuracy']:.4f}; "
+        f"{elosses[-1]:.4f}; val acc {et['epochs'][0]['val/accuracy']:.4f}; "
         f"checkpoint int8 val accuracy through K6 {int8_acc:.4f} == sim")
 
     # 16. launches
@@ -1217,7 +1555,7 @@ def main() -> int:
     # 18. ef-etiny — the engine_friendly EtinyNet path, counted from its
     # training to the end of its K6 pass over the val split
     with tempfile.TemporaryDirectory() as tmp:
-        ef = ef_train(Path(tmp))
+        ef = train_run(ef_config(), "etinynet", Path(tmp), "ef")
     efcfg, flosses = ef["cfg"], ef["losses"]
     ef_steps = load_config(EF_CONFIG).synthetic_size // efcfg.batch_size
     check(len(flosses) == EF_EPOCHS * ef_steps
@@ -1255,7 +1593,7 @@ def main() -> int:
     check(st["k6_max_abs_err_vs_sim"] == 0.0, "trained ef EtinyNet: K6 differs "
           f"from the sim (max {st['k6_max_abs_err_vs_sim']})")
     calls = -(-len(ef_val.labels) // 1024)
-    ef_launches = dict(ek.LAUNCHES)
+    ef_launches = {"etiny_block_kernel": ek.LAUNCHES["etiny_block_kernel"]}
     check(ef_launches["etiny_block_kernel"] == 12 * calls,
           f"K6 launches {ef_launches} are not 12 per call")
     n_val = len(ef_val.labels)
@@ -1283,6 +1621,14 @@ def main() -> int:
         f"{st['rel_err_p90']:.4f}, max {st['rel_err_max']:.4f}, above 0.1 on "
         f"{st['rel_err_share_above_0.1']:.4f} of the images")
     say("launches", "engine_friendly EtinyNet " + json.dumps(ef_launches))
+    ef_engine = hold_engine(errs, trained_f, ef_val.images, ef_val.labels, 1024,
+                            "trained ef EtinyNet")
+    check(ef_engine["acc"] == st["int8_acc"], "the engine's accuracy differs "
+          f"from K6's: {ef_engine['acc']} vs {st['int8_acc']}")
+    say("ef-etiny", f"the C++ engine on the {ef_engine['n']} val images: logits "
+        f"equal to K6's as printed (%.10f; raw max {ef_engine['print_err']:.3g}), "
+        "K6's equal to the sim's, "
+        f"{ef_engine['engine_ms']:.4f} ms per image (host CPU)")
     launches["etiny_block_kernel"] += ef_launches["etiny_block_kernel"]
     launches[EF_K6] = ef_launches["etiny_block_kernel"]
     # K6 on this .etiny at the timing batch: the whole int8 forward and the
@@ -1448,7 +1794,6 @@ def main() -> int:
         tcfg.use_augmentation = True  # the light tier: the fused K3 path
         tcfg.log_dir = str(Path(tmp) / "logs")
         tcfg.profile_dir = str(Path(tmp) / "trace")
-        os.environ["NV_SKIP_ENGINE"] = "1"
         check(train_model(tcfg, "nnue", device="cuda") == 0,
               "train_model with profile_dir failed")
         trace = Path(tcfg.profile_dir) / "train_epoch0.trace.json"
@@ -1468,6 +1813,10 @@ def main() -> int:
         "in the probes: each warm-up and each call captured in a CUDA graph; "
         "the graph's replays add none)")
     launches.update(probe_launches)
+
+    for name, count in loop_phases(errs, smi, model, emodel, ds, dataset, pgen,
+                                   tgen).items():
+        launches[name] += count
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

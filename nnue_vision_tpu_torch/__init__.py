@@ -20,7 +20,10 @@ training of both model families (NNUE and EtinyNet) on one device:
   `csrc/warp.cu`) and photometric (`ops/photometric_kernel.py`,
   `csrc/photometric.cu`) kernels of the medium and heavy tiers, the light
   tier's fused input kernel (`ops/input_pipeline.py`), and `training/`
-  with `train_model` and its CLI, `python -m nnue_vision_tpu_torch.train`.
+  with `train_model` and its CLI, `python -m nnue_vision_tpu_torch.train`:
+  the C++ engine's build and start-up probe (`training/engine_build.py`),
+  the engine backend (`evaluate_compiled_model`), bf16 compute for both
+  families, distillation and step-checkpoint resume.
 
 * `profile_mega_bisect.py` and `profile_warp_split.py`: the profiling
   probes, on the stage-cut mega kernel and the single warp passes

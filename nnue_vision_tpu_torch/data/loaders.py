@@ -17,7 +17,8 @@ from nnue_vision_tpu_torch.data.datasets import GenericVisionDataset
 
 
 class ArrayLoader:
-    """Iterates (images, labels) numpy batches over a dataset."""
+    """Iterates (images, labels) numpy batches over a dataset. `epoch`
+    counts the shuffled orders drawn so far (a resumed run restores it)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0):
@@ -25,7 +26,7 @@ class ArrayLoader:
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
-        self._epoch = 0
+        self.epoch = 0
         self._seed = seed
 
     def __len__(self) -> int:
@@ -40,9 +41,9 @@ class ArrayLoader:
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
-            rng = np.random.default_rng(self._seed + self._epoch)
+            rng = np.random.default_rng(self._seed + self.epoch)
             rng.shuffle(order)
-            self._epoch += 1
+            self.epoch += 1
         stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
         for start in range(0, stop, self.batch_size):
             yield order[start : start + self.batch_size]

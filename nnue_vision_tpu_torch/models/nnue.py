@@ -14,6 +14,12 @@ The parameters carry the JAX package's names and layouts (`conv_w` OIHW,
 `nnue2score`), so `bridge.py` moves them across unchanged. `nnue2score` is
 a parameter, as it is a leaf of the JAX params pytree: no loss reaches it,
 but the optimizer's weight decay does.
+
+With `dtype="bfloat16"` the images, the conv, the threshold compare, the
+FT, the pairwise products and the dense layers compute in bf16 (each
+operand cast explicitly where JAX casts it; no autocast), while the params
+stay float32: QAT fake-quantizes them in float32 and the result is cast,
+the threshold mean is taken in float32, and the logits come back float32.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ DEFAULT_L2 = 128
 DEFAULT_L3 = 32
 
 _WEIGHTS = ("ft_w", "fc1_w", "fc2_w", "out_w")
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +95,13 @@ class NNUEConfig:
     # weights and biases to the serialized values.
     qat: bool = False
     qat_rounding: bool = True
+    # compute dtype of the conv and matmul stack; params stay float32
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.dtype not in _DTYPES:
+            raise ValueError(
+                f"dtype must be one of {sorted(_DTYPES)}: {self.dtype!r}")
 
     @property
     def conv_stride(self) -> int:
@@ -205,8 +219,9 @@ class NNUE(nn.Module):
     def forward(self, images: torch.Tensor, return_aux: bool = False):
         cfg = self.cfg
         fs = cfg.feature_set
+        dtype = _DTYPES[cfg.dtype]
         p = self._qat_params()
-        x = images.to(torch.float32)
+        x = images.to(dtype)
 
         thresh = p["visual_threshold"]
         deployed_thresh = None
@@ -218,10 +233,10 @@ class NNUE(nn.Module):
 
         # Conv frontend, engine geometry; back to NHWC for the flat order.
         conv = F.conv2d(
-            x.permute(0, 3, 1, 2), p["conv_w"],
+            x.permute(0, 3, 1, 2), p["conv_w"].to(dtype),
             stride=cfg.conv_stride, padding=1,
         ).permute(0, 2, 3, 1)
-        mask = binary_activation_ste(conv, thresh)
+        mask = binary_activation_ste(conv, thresh.to(dtype))
 
         # Engine flat placement: (B, oh, ow, C) → (B, F) with zero tail.
         b = mask.shape[0]
@@ -231,13 +246,13 @@ class NNUE(nn.Module):
             # The engine thresholds the whole zero-filled buffer: the tail
             # is active whenever the threshold is negative.
             tail = binary_activation_ste(
-                x.new_zeros((b, 1, pad, 1)), deployed_thresh
+                x.new_zeros((b, 1, pad, 1)), deployed_thresh.to(dtype)
             ).reshape(b, pad)
             features = torch.cat([flat, tail], dim=1)
         else:
             features = F.pad(flat, (0, pad))
 
-        ft = features @ p["ft_w"] + p["ft_b"]
+        ft = features @ p["ft_w"].to(dtype) + p["ft_b"].to(dtype)
         half = cfg.l1_size // 2
         if cfg.qat:
             # int16 FT clipped to [0,127] at scale 64, pairwise products at
@@ -253,16 +268,17 @@ class NNUE(nn.Module):
             l0 = torch.cat([a * bb, a], dim=1)
             h1 = torch.relu(self._linear(l0, p, "fc1"))
             h2 = torch.relu(self._linear(h1, p, "fc2"))
-        logits = self._linear(h2, p, "out")
+        logits = self._linear(h2, p, "out").to(torch.float32)
 
         if return_aux:
-            density = features.sum(dim=1) / fs.num_features
+            # summed in the compute dtype, as JAX sums it
+            density = features.sum(dim=1).to(torch.float32) / fs.num_features
             return logits, {"density": density, "mask": features}
         return logits
 
     @staticmethod
     def _linear(x, p, name):
-        return x @ p[f"{name}_w"].T + p[f"{name}_b"]
+        return x @ p[f"{name}_w"].T.to(x.dtype) + p[f"{name}_b"].to(x.dtype)
 
 
 def nnue_init(cfg: NNUEConfig, generator: torch.Generator, device="cuda"

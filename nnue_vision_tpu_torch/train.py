@@ -1,24 +1,32 @@
 """Training CLI of the PyTorch port (port of the root `train.py:22-161`).
 
-    NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train nnue \\
+    python -m nnue_vision_tpu_torch.train nnue \\
         --config config/train_nnue_hard.py            # on the card
-    NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train nnue \\
+    python -m nnue_vision_tpu_torch.train nnue \\
         --config config/train_nnue_test.py --device cpu
-    NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train etinynet \\
+    python -m nnue_vision_tpu_torch.train nnue \\
+        --config config/train_nnue_qat_bf16.py --dataset_name synthetic-hard \\
+        --synthetic_size 50000                        # bf16 compute
+    python -m nnue_vision_tpu_torch.train etinynet \\
         --config config/train_etinynet.py --dataset_name synthetic-hard \\
         --synthetic_size 50000                        # on the card
-    NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train etinynet \\
+    python -m nnue_vision_tpu_torch.train etinynet \\
+        --config config/train_etinynet_distill.py \\
+        --distill_from logs/checkpoints/<run>/best_model.ckpt
+    python -m nnue_vision_tpu_torch.train etinynet \\
         --config config/train_etinynet_test.py --device cpu
 
 The port trains NNUE and EtinyNet on one device: the CUDA card unless
 --device names another (the root CLI likewise trains on JAX's default
 device, the accelerator); without a card, --device cuda raises rather
-than train on the CPU. NV_SKIP_ENGINE=1 is
-required for now: the C++ engine start-up probe is not ported (ROADMAP
-Queue A item 4a). The overrides are the root CLI's that apply to these
-models, plus --synthetic_size, which sizes a synthetic training set (the
-EtinyNet production config names CIFAR-10, whose files the repository
-does not hold); runs are tracked locally under --log_dir.
+than train on the CPU. Before the first step the C++ engine is built into
+build/torch_engine/ and probed with four training images, as the root CLI
+does (NV_SKIP_ENGINE=1 skips it). The overrides are the root CLI's that
+apply to these models, plus --synthetic_size, which sizes a synthetic
+training set (the production configs name CIFAR-10, whose files the
+repository does not hold); runs are tracked locally under --log_dir.
+A config with checkpoint_backend="orbax" and resume=True continues from
+its latest step checkpoint.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ _OVERRIDES = (
     "batch_size", "max_epochs", "learning_rate", "note", "use_augmentation",
     "augmentation_strength", "num_classes", "dataset_name", "seed",
     "synthetic_class_seed", "synthetic_size", "ef_warmup_epochs",
-    "checkpoint_metric",
+    "checkpoint_metric", "distill_from",
     "eval_train_samples", "eval_batch_size",
 )
 
@@ -41,8 +49,9 @@ _OVERRIDES = (
 def setup_argument_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Train NNUE and EtinyNet models with the PyTorch port",
-        epilog="Set NV_SKIP_ENGINE=1: the C++ engine start-up probe is not "
-               "ported yet.",
+        epilog="Before the first step the C++ engine is built "
+               "(build/torch_engine/) and probed; NV_SKIP_ENGINE=1 skips "
+               "that and turns compiled_backend 'engine' into 'sim'.",
     )
     parser.add_argument("model_type", choices=["nnue", "etinynet"],
                         help="Model type to train")
@@ -72,6 +81,9 @@ def setup_argument_parser() -> argparse.ArgumentParser:
                         help="Synthetic-hard generator variant")
     parser.add_argument("--synthetic_size", type=int,
                         help="Training images of a synthetic dataset")
+    parser.add_argument("--distill_from", type=str,
+                        help="Checkpoint path of a frozen teacher for "
+                             "knowledge distillation")
     parser.add_argument("--ef_warmup_epochs", type=int,
                         help="Override progressive-QAT warmup epochs")
     parser.add_argument("--name_suffix", type=str,

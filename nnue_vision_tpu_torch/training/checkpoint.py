@@ -9,16 +9,27 @@ nested layout), "opt_state", "metrics", "config_name", "saved_at",
 "format_version"}. `opt_state` holds the step
 count and the optimizer's buffers as numpy, keyed by parameter name; no
 optax object is pickled or unpickled.
+
+`StepCheckpointer` stands in for the JAX package's `OrbaxStepCheckpointer`
+(`checkpoint.py:135-203`, `checkpoint_backend="orbax"`): one directory
+per step under its root, holding `state.pt` (`torch.save` of the given
+state: the model's state dict, the optimizer state, the generators) and
+`metadata.json`, written under a temporary name and renamed into place,
+the oldest steps beyond `max_to_keep` removed. Writes are synchronous.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import pickle
+import shutil
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+import torch
 from torch import nn
 
 from nnue_vision_tpu_torch.bridge import (
@@ -93,3 +104,51 @@ def etinynet_from_checkpoint(payload: Dict[str, Any], device="cuda"
     cfg = EtinyNetConfig(**{k: v for k, v in mc.items() if k in fields})
     return etinynet_from_jax(payload["params"], payload["batch_stats"], cfg,
                              device=device)
+
+
+class StepCheckpointer:
+    """Retention-managed step checkpoints for resume.
+
+    `save(step, state, metadata)` writes `<dir>/<step>/state.pt` (the
+    `state` dict through `torch.save`: tensors, dicts, lists and numbers)
+    and `<dir>/<step>/metadata.json`; `restore()` returns (state on the
+    CPU, metadata) of the latest step, and raises FileNotFoundError when
+    there is none.
+    """
+
+    def __init__(self, directory: Path, max_to_keep: int = 3):
+        self.dir = Path(directory).resolve()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = int(max_to_keep)
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(p.name) for p in self.dir.iterdir()
+                      if p.is_dir() and p.name.isdigit())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: Dict[str, Any],
+             metadata: Optional[Dict[str, Any]] = None) -> None:
+        final = self.dir / str(int(step))
+        tmp = self.dir / f".{int(step)}.tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        torch.save(state, tmp / "state.pt")
+        (tmp / "metadata.json").write_text(json.dumps(metadata or {}))
+        if final.exists():
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        if self.max_to_keep > 0:
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(self.dir / str(old))
+
+    def restore(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no step checkpoints under {self.dir}")
+        root = self.dir / str(step)
+        state = torch.load(root / "state.pt", map_location="cpu",
+                           weights_only=True)
+        return state, json.loads((root / "metadata.json").read_text())

@@ -29,16 +29,35 @@ the JAX loop traces the same span with `jax.profiler`), and the trace is
 written to `profile_dir/train_epoch0.trace.json` for chrome://tracing or
 Perfetto.
 
-An EtinyNet trains in float32 or bfloat16 (`dtype`); its int8 eval is the
-engine sim whatever `compiled_backend` says, as in the JAX package.
+Both families train in float32 or bfloat16 (`dtype`: the conv and matmul
+stack computes in it, the params stay float32). An EtinyNet's int8 eval
+is the engine sim whatever `compiled_backend` says, as in the JAX package.
 
-Not ported yet, and raising NotImplementedError with the ROADMAP item: a
-mesh (`max_devices > 1`), `distill_from`, `checkpoint_backend="orbax"`,
-an NNUE `dtype` other than float32, `compiled_backend="engine"`, and the
-C++ engine start-up probe,
-which the JAX loop runs unless NV_SKIP_ENGINE=1 (set it). Unlike the JAX
-loop, NV_SKIP_ENGINE=1 leaves `compiled_backend` as configured: "mega" and
-"pallas" run the card's kernels and need no engine build.
+The C++ engine is held to the trained model as in the JAX loop: before the
+first step the engine's tools are built (`training/engine_build.py`, into
+`build/torch_engine/`) and four training images go through the engine
+with the initial weights (with NNUE_SANITIZER_SMOKE=1 also the sanitizer
+build and its smoke test), and `compiled_backend="engine"` takes every
+epoch's int8 metrics from the engine binary. NV_SKIP_ENGINE=1 skips the
+probe and turns "engine" into "sim", as in JAX; unlike the JAX loop it
+leaves "mega" and "pallas" as configured, since they run the card's
+kernels, give the sim's bits and need no engine build.
+
+`distill_from` names a best-model checkpoint of the same model type (the
+port's or the JAX package's pickle) whose logits the student also fits
+(`distill_alpha`, `distill_temp`; `training/step.py`); the fused K3 path
+is off then, as in JAX. `checkpoint_backend="orbax"` writes a
+`StepCheckpointer` step every epoch under `orbax_dir` (default
+`log_dir/orbax/<run name>`), keeping `orbax_max_to_keep`; `resume=True`
+restores the latest and starts at the epoch after it. The step carries
+the model, the optimizer state (its count carries the LR schedule on), the
+best gate value so far, and, unlike the JAX package, whose resumed run
+replays epoch 0's shuffle and augmentation draws, the host and device
+generators and the loader's epoch: on the CPU a resumed run equals an
+uninterrupted one bit for bit.
+
+A mesh (`max_devices > 1`) is not ported yet and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -70,7 +89,13 @@ from nnue_vision_tpu_torch.models.nnue import (
 from nnue_vision_tpu_torch.ops.engine_sim import resolve_device
 from nnue_vision_tpu_torch.ops.input_pipeline import prepare_gather_dataset
 from nnue_vision_tpu_torch.training import checkpoint as ckpt
+from nnue_vision_tpu_torch.training.engine_build import (
+    build_sanitizer_engine,
+    compile_cpp_engine,
+    smoke_test_sanitizer_engine,
+)
 from nnue_vision_tpu_torch.training.evaluate import (
+    evaluate_compiled_model,
     evaluate_int8_sim,
     evaluate_model,
     maybe_resident,
@@ -82,6 +107,7 @@ from nnue_vision_tpu_torch.training.logging import (
 )
 from nnue_vision_tpu_torch.training.optim import create_optimizer
 from nnue_vision_tpu_torch.training.step import (
+    Teacher,
     gathered_train_step,
     make_train_state,
     scanned_train_steps_fused,
@@ -89,6 +115,8 @@ from nnue_vision_tpu_torch.training.step import (
 )
 from nnue_vision_tpu_torch.training.utils import check_for_nonfinite
 
+# compiled_backend → evaluate_int8_sim's use_pallas; the fourth backend,
+# "engine", runs the C++ engine binary instead
 _USE_PALLAS = {"sim": False, "pallas": True, "mega": "mega"}
 
 
@@ -122,36 +150,56 @@ def build_model(config: Any, model_type: str, generator: torch.Generator,
         num_classes=config.num_classes,
         input_size=input_size,
         qat=getattr(config, "qat", False),
+        dtype=getattr(config, "dtype", "float32"),
     )
     return nnue_init(model_cfg, generator, device=device), model_cfg
 
 
 def _refuse_unported(config: Any, model_type: str) -> None:
     """NotImplementedError for what the port cannot train yet."""
+    if int(getattr(config, "max_devices", 0) or 0) > 1:
+        raise NotImplementedError(
+            "max_devices > 1 (a data-parallel mesh) is not ported to "
+            "nnue_vision_tpu_torch yet (ROADMAP Queue A item 4, mesh / DDP)")
     backend = getattr(config, "compiled_backend", "sim")
-    dtype = getattr(config, "dtype", "float32")
-    checks = (
-        (os.environ.get("NV_SKIP_ENGINE") != "1",
-         "the C++ engine start-up probe (set NV_SKIP_ENGINE=1)",
-         "4a (engine-subprocess backend and probe)"),
-        (backend == "engine", "compiled_backend='engine'",
-         "4a (engine-subprocess backend and probe)"),
-        (model_type == "nnue" and dtype != "float32",
-         f"NNUE dtype={dtype!r}", "4b (bf16 compute)"),
-        (int(getattr(config, "max_devices", 0) or 0) > 1,
-         "max_devices > 1 (a data-parallel mesh)", "4c (mesh / DDP)"),
-        (bool(getattr(config, "distill_from", None)), "distill_from",
-         "4d (distillation)"),
-        (getattr(config, "checkpoint_backend", "pickle") == "orbax",
-         "checkpoint_backend='orbax'", "4e (orbax resume)"),
-    )
-    for hit, what, item in checks:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to nnue_vision_tpu_torch yet "
-                f"(ROADMAP Queue A item {item})")
-    if backend not in _USE_PALLAS:
+    if backend != "engine" and backend not in _USE_PALLAS:
         raise ValueError(f"unknown compiled_backend {backend!r}")
+
+
+def engine_probe(model, dataset, model_type: str) -> None:
+    """Build the engine and run four training images through it with the
+    current weights (with NNUE_SANITIZER_SMOKE=1 also the sanitizer build
+    and its smoke test): raises before any step if the engine cannot
+    build or evaluate."""
+    compile_cpp_engine(model_type)
+    if os.environ.get("NNUE_SANITIZER_SMOKE", "0") == "1":
+        build_sanitizer_engine()
+        smoke_test_sanitizer_engine(model_type)
+    early_log("Testing C++ engine inference with current weights...")
+    metrics = evaluate_compiled_model(
+        model, [(dataset.images[:4], dataset.labels[:4])])
+    early_log(f"Engine OK: f1={metrics['f1']:.4f} "
+              f"{metrics['ms_per_sample']:.2f} ms/sample")
+
+
+def _load_teacher(config: Any, model_type: str, dev: torch.device
+                  ) -> Optional[Teacher]:
+    """The frozen teacher of `distill_from`, or None."""
+    path = getattr(config, "distill_from", None)
+    if not path:
+        return None
+    payload = ckpt.load_checkpoint(Path(path))
+    if payload["model_type"] != model_type:
+        raise ValueError(
+            f"distill_from checkpoint is a {payload['model_type']} model; "
+            f"training a {model_type}")
+    build = (ckpt.nnue_from_checkpoint if model_type == "nnue"
+             else ckpt.etinynet_from_checkpoint)
+    model = build(payload, device=dev).eval().requires_grad_(False)
+    teacher = Teacher(model, alpha=float(getattr(config, "distill_alpha", 0.5)),
+                      temp=float(getattr(config, "distill_temp", 4.0)))
+    early_log(f"distilling from {path} (alpha={teacher.alpha}, T={teacher.temp})")
+    return teacher
 
 
 def _start_trace(dev: torch.device) -> torch.profiler.profile:
@@ -193,6 +241,13 @@ def train_model(config: Any, model_type: str,
     early_log(f"Run: {run.name} ({run.url})")
     replay_early_logs()
     best_path = Path(log_dir) / "checkpoints" / run.name / "best_model.ckpt"
+    steps_ckpt = None
+    if getattr(config, "checkpoint_backend", "pickle") == "orbax":
+        steps_ckpt = ckpt.StepCheckpointer(
+            getattr(config, "orbax_dir", None)
+            or Path(log_dir) / "orbax" / run.name,
+            max_to_keep=int(getattr(config, "orbax_max_to_keep", 3)))
+        early_log(f"step checkpoints → {steps_ckpt.dir}")
 
     train_loader, val_loader, test_loader = create_data_loaders(
         dataset_name=getattr(config, "dataset_name", "cifar10"),
@@ -215,6 +270,10 @@ def train_model(config: Any, model_type: str,
     optimizer = create_optimizer(config, steps_per_epoch)
     state = make_train_state(model, optimizer)
     compiled_backend = getattr(config, "compiled_backend", "sim")
+    if os.environ.get("NV_SKIP_ENGINE") != "1":
+        engine_probe(model, train_loader.dataset, model_type)
+    elif compiled_backend == "engine":
+        compiled_backend = "sim"
 
     use_aug = getattr(config, "use_augmentation", True)
     strength = getattr(config, "augmentation_strength", "medium")
@@ -250,6 +309,9 @@ def train_model(config: Any, model_type: str,
     def opt_for(epoch: int):
         return optimizer if epoch < ef_warmup else ft_optimizer
 
+    teacher = _load_teacher(config, model_type, dev)
+    distill = {"teacher": teacher} if teacher is not None else {}
+
     # device-resident training set; batches gathered on the device by index
     device_data = None
     ds = train_loader.dataset
@@ -269,6 +331,7 @@ def train_model(config: Any, model_type: str,
         and model_type == "nnue"
         and use_aug
         and strength == "light"
+        and teacher is None
         and bool(getattr(config, "fused_input_pipeline", True))
     ):
         gather_data = prepare_gather_dataset(device_data[0])
@@ -294,8 +357,27 @@ def train_model(config: Any, model_type: str,
     noise_gen = (device_generator(gen, dev)
                  if use_aug and strength in ("medium", "heavy") else None)
 
+    start_epoch = 0
+    if steps_ckpt is not None and getattr(config, "resume", False):
+        latest = steps_ckpt.latest_step()
+        if latest is not None:
+            saved, meta = steps_ckpt.restore()
+            model.load_state_dict(saved["model"])
+            state.opt_state = {
+                k: v if k == "count" else {n: t.to(dev) for n, t in v.items()}
+                for k, v in saved["opt_state"].items()}
+            state.step = int(saved["step"])
+            gen.set_state(saved["host_generator"])
+            if noise_gen is not None:
+                noise_gen.set_state(saved["noise_generator"])
+            train_loader.epoch = int(saved["loader_epoch"])
+            start_epoch = int(meta["epoch"]) + 1
+            best_val_f1 = float(meta.get("best_val_f1", 0.0))
+            early_log(f"resumed from step checkpoint {latest} → epoch "
+                      f"{start_epoch} (best gate F1 so far {best_val_f1:.4f})")
+
     try:
-        for epoch in range(max_epochs):
+        for epoch in range(start_epoch, max_epochs):
             if epoch == ef_warmup and ef_warmup > 0 and ft_optimizer is not optimizer:
                 state.opt_state = ft_optimizer.init(dict(model.named_parameters()))
                 early_log(
@@ -326,6 +408,7 @@ def train_model(config: Any, model_type: str,
                                 state, device_data[0], device_data[1], idx, gen,
                                 optimizer=opt_for(epoch), strength=strength,
                                 augment=use_aug, noise_gen=noise_gen,
+                                **distill,
                             )["loss"]
                             for idx in chunk
                         ])
@@ -345,7 +428,7 @@ def train_model(config: Any, model_type: str,
                     )
                     metrics = train_step(
                         state, x, torch.from_numpy(labels).to(dev),
-                        optimizer=opt_for(epoch),
+                        optimizer=opt_for(epoch), **distill,
                     )
                     loss = float(metrics["loss"])
                     losses.append(loss)
@@ -364,8 +447,12 @@ def train_model(config: Any, model_type: str,
 
             train_loss, train_metrics = evaluate_model(model, eval_train_loader)
             val_loss, val_metrics = evaluate_model(model, eval_val_loader)
-            compiled_metrics = evaluate_int8_sim(
-                model, eval_val_loader, use_pallas=_USE_PALLAS[compiled_backend])
+            if compiled_backend == "engine":
+                compiled_metrics = evaluate_compiled_model(model, val_loader)
+            else:
+                compiled_metrics = evaluate_int8_sim(
+                    model, eval_val_loader,
+                    use_pallas=_USE_PALLAS[compiled_backend])
 
             log_data = {
                 "train/epoch_loss": train_loss,
@@ -399,8 +486,27 @@ def train_model(config: Any, model_type: str,
                 if getattr(config, "checkpoint_metric", "val_f1") == "compiled_f1"
                 else val_metrics["f1"]
             )
-            if epoch >= ef_warmup and gate_f1 > best_val_f1:
+            is_new_best = epoch >= ef_warmup and gate_f1 > best_val_f1
+            if is_new_best:
                 best_val_f1 = gate_f1
+            if steps_ckpt is not None:
+                # the best gate value rides along, so a resumed run never
+                # overwrites a better best model
+                t0 = time.perf_counter()
+                steps_ckpt.save(epoch, {
+                    "model": model.state_dict(),
+                    "opt_state": state.opt_state,
+                    "step": state.step,
+                    "host_generator": gen.get_state(),
+                    "noise_generator": (noise_gen.get_state()
+                                        if noise_gen is not None else None),
+                    "loader_epoch": train_loader.epoch,
+                }, metadata={"model_type": model_type, "epoch": epoch,
+                             "val_f1": float(val_metrics["f1"]),
+                             "best_val_f1": float(best_val_f1)})
+                early_log(f"step checkpoint {epoch} written in "
+                          f"{time.perf_counter() - t0:.4f} s")
+            if is_new_best:
                 ckpt.save_checkpoint(
                     best_path,
                     model_type=model_type,

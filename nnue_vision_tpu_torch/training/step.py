@@ -47,15 +47,42 @@ def make_train_state(model: nn.Module, optimizer: Optimizer) -> TrainState:
     return TrainState(model, optimizer.init(dict(model.named_parameters())))
 
 
+@dataclasses.dataclass(frozen=True)
+class Teacher:
+    """A frozen model whose softened logits the student also fits: weight
+    `alpha` on the hard-label CE, 1 − alpha on the teacher term, at
+    temperature `temp`."""
+    model: nn.Module
+    alpha: float = 0.5
+    temp: float = 4.0
+
+
+def distillation_loss(logits: torch.Tensor, labels: torch.Tensor,
+                      images: torch.Tensor, teacher: Optional[Teacher]
+                      ) -> torch.Tensor:
+    """The CE of `logits`, and with a teacher the JAX package's
+    alpha·CE + (1 − alpha)·T²·CE(logits / T, softmax(teacher(images) / T))."""
+    loss = F.cross_entropy(logits, labels)
+    if teacher is None:
+        return loss
+    with torch.no_grad():
+        t_logits = teacher.model.eval()(images)
+    temp = teacher.temp
+    t_prob = torch.softmax(t_logits / temp, dim=-1)
+    kd = -(t_prob * F.log_softmax(logits / temp, dim=-1)).sum(dim=-1).mean()
+    return teacher.alpha * loss + (1.0 - teacher.alpha) * (temp * temp) * kd
+
+
 def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
-               *, optimizer: Optimizer) -> Dict[str, torch.Tensor]:
+               *, optimizer: Optimizer, teacher: Optional[Teacher] = None
+               ) -> Dict[str, torch.Tensor]:
     """One optimizer step on normalized images (B, H, W, 3) and labels (B,),
     then, for an NNUE, the FT and classifier weights clipped to [-1, 1].
     Returns {"loss", "accuracy"} as device scalars."""
     model = state.model.train()
     params = dict(model.named_parameters())
     logits = model(images)
-    loss = F.cross_entropy(logits, labels)
+    loss = distillation_loss(logits, labels, images, teacher)
     grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     optimizer.step(params, dict(zip(params, grads)), state.opt_state)
     if isinstance(model, NNUE):
@@ -74,7 +101,8 @@ def gathered_train_step(state: TrainState, device_images: torch.Tensor,
                         device_labels: torch.Tensor, idx: np.ndarray,
                         gen: torch.Generator, *, optimizer: Optimizer,
                         strength: str = "medium", augment: bool = True,
-                        noise_gen: Optional[torch.Generator] = None
+                        noise_gen: Optional[torch.Generator] = None,
+                        teacher: Optional[Teacher] = None
                         ) -> Dict[str, torch.Tensor]:
     """Gather a batch by index from the device-resident dataset, augment,
     normalize, train one step. The medium and heavy tiers draw their noise
@@ -84,7 +112,8 @@ def gathered_train_step(state: TrainState, device_images: torch.Tensor,
     i = torch.as_tensor(idx, dtype=torch.int64).to(device_images.device)
     x = preprocess_batch(gen, device_images[i], strength=strength,
                          augment=augment, noise_gen=noise_gen)
-    return train_step(state, x, device_labels[i], optimizer=optimizer)
+    return train_step(state, x, device_labels[i], optimizer=optimizer,
+                      teacher=teacher)
 
 
 def scanned_train_steps_fused(state: TrainState, gather_dataset: torch.Tensor,

@@ -664,7 +664,7 @@ def test_train_model_ef_on_cpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize("name", EF_CONFIGS)
 def test_synthetic_hard_ef_configs_are_not_refused(monkeypatch, name):
     """Each synthetic-hard engine_friendly config passes the loop's
-    refusals and builds its model; `distill_from` still refuses."""
+    refusals and builds its model."""
     monkeypatch.setenv("NV_SKIP_ENGINE", "1")
     cfg = load_config(str(REPO / "config" / f"train_etinynet_{name}.py"))
     assert cfg.engine_friendly and cfg.dataset_name == "synthetic-hard"
@@ -673,9 +673,6 @@ def test_synthetic_hard_ef_configs_are_not_refused(monkeypatch, name):
                                     "cpu")
     assert mcfg.engine_friendly and mcfg.ef_quantizers
     assert hasattr(model, "final_qlog")
-    cfg.distill_from = "teacher.ckpt"
-    with pytest.raises(NotImplementedError, match="distill_from"):
-        tloop._refuse_unported(cfg, "etinynet")
 
 
 def test_deploy_etiny_cli_on_cpu(tmp_path, capsys):

@@ -35,6 +35,7 @@ MODULES = [
     "nnue_vision_tpu_torch.profile_warp_split",
     "nnue_vision_tpu_torch.quantize",
     "nnue_vision_tpu_torch.training.checkpoint",
+    "nnue_vision_tpu_torch.training.engine_build",
     "nnue_vision_tpu_torch.training.evaluate",
     "nnue_vision_tpu_torch.training.logging",
     "nnue_vision_tpu_torch.training.loop",

@@ -129,31 +129,14 @@ def test_cli_trains(env, capsys):
 
 @pytest.mark.parametrize("attr,value,match", [
     ("max_devices", 4, "mesh"),
-    ("distill_from", "teacher.ckpt", "distill_from"),
-    ("checkpoint_backend", "orbax", "orbax"),
-    ("compiled_backend", "engine", "engine"),
-    ("dtype", "bfloat16", "dtype"),
 ])
 def test_unported_options_raise(env, attr, value, match):
+    """A data-parallel mesh is the one option the port's loop refuses."""
     cfg, tmp_path = env
     setattr(cfg, attr, value)
     with pytest.raises(NotImplementedError, match=match):
         tloop.train_model(cfg, "nnue", device="cpu")
     assert not (tmp_path / "logs").exists()  # raised before any work
-
-
-def test_engine_probe_and_etinynet_raise(env, monkeypatch):
-    """The engine probe raises without NV_SKIP_ENGINE=1; of EtinyNet only
-    distillation is still unported (its training, engine_friendly
-    included, is in test_torch_etiny_loop.py and test_torch_ef_etinynet.py)."""
-    cfg = load_config(str(REPO / "config" / "train_etinynet_test.py"))
-    cfg.distill_from = "teacher.ckpt"
-    with pytest.raises(NotImplementedError, match="distill_from"):
-        tloop.train_model(cfg, "etinynet", device="cpu")
-    cfg, _ = env
-    monkeypatch.delenv("NV_SKIP_ENGINE")
-    with pytest.raises(NotImplementedError, match="NV_SKIP_ENGINE=1"):
-        tloop.train_model(cfg, "nnue", device="cpu")
 
 
 def test_cuda_request_raises_without_cuda(env):
