@@ -2,8 +2,9 @@
 """Drive the PyTorch port's int8 NNUE serving path, its NNUE training path,
 its EtinyNet int8 serving path, its EtinyNet training path, its
 engine_friendly EtinyNet path (progressive QAT → LSQ-folded `.etiny` →
-K6), its profiling path, and the train loop's engine probe and engine
-backend, bf16 NNUE, distillation and resume once on one CUDA card.
+K6), its profiling path, the train loop's engine probe and engine
+backend, bf16 NNUE, distillation and resume, and EtinyNet-1.0 at
+ImageNet's 224×224 once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -136,8 +137,25 @@ Phases, one line each (any failure raises and exits non-zero):
              launches) run, the first resumed step's LR the schedule's value
              at step 78; seconds per step-checkpoint write
 27. launches the kernels launched on the paths of 23-26
+28. imagenet  K5's band path (images past one shared-memory slot) at
+             (256, 224, 224, 3), (37, 224, 224, 3) and (37, 160, 200, 3),
+             both variants, every gate on, drawn and off, each torch.equal
+             to its plain version; K5 at 256×224 event- and graph-timed with
+             its host cost and bytes bound, and the gather warp's time
+             there; train_model on config/train_etinynet_imagenet.py
+             (EtinyNet-1.0 at full width, 1000 classes, 224×224, batch 256,
+             float32, medium tier) on its synthetic fallback of 2,560 images
+             (640 val), 300 epochs cut to 1 (10 steps), with step checkpoints:
+             K5 launched 10 times on the band path, K4 and K6 never (the
+             gather warp; the int8 eval on the sim), finite losses, the
+             engine probe at 224, best_model.ckpt written iff the epoch's val
+             F1 beats 0 (a model at chance after 10 steps need not); the
+             epoch's model → etinynet_quantize → write_etiny → read_etiny: on
+             64 val images the sim's logits equal the C++ engine's as it
+             prints them; ms per step, images/s and peak device memory
+29. launches K5's band path on the 224 run
 
-Every train_model run (phases 10, 15, 18, 21, 24-26) builds the C++ engine
+Every train_model run (phases 10, 15, 18, 21, 24-26, 28) builds the C++ engine
 (a no-op after phase 2) and probes it before its first step, as a user's
 run does.
 
@@ -147,8 +165,9 @@ call computes the same function, that call; K6's are its 12 LB blocks
 alone at batch 8192, graph-timed too, once on the 0.98M model and again,
 as a second entry, on the engine_friendly 0.75 `.etiny` of phase 18, whose
 launches the first entry's count includes; K7's level 3; K3, K4, K5, the
-single pass and K8 also graph-timed, with their host cost per call), the
-card's name and power limit, and the last line
+single pass and K8 also graph-timed, with their host cost per call; K5's
+band path at 224 as a second K5 entry), the card's name and power limit,
+and the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -196,6 +215,7 @@ from nnue_vision_tpu_torch.data.datasets import GenericVisionDataset
 from nnue_vision_tpu_torch.models.etinynet import (
     EtinyNet,
     EtinyNetConfig,
+    count_parameters,
     etinynet_quantize,
 )
 from nnue_vision_tpu_torch.models.nnue import (
@@ -225,6 +245,7 @@ from nnue_vision_tpu_torch.ops.engine_sim import (
     nnue_sim_params,
 )
 from nnue_vision_tpu_torch.training.checkpoint import (
+    StepCheckpointer,
     etinynet_from_checkpoint,
     load_checkpoint,
     nnue_from_checkpoint,
@@ -271,6 +292,7 @@ EF_CONFIG = "config/train_etinynet_anchor_qat.py"
 EF_EPOCHS = 3  # the config's 60, cut
 EF_WARMUP = 1  # the config's 25, cut: epoch 0 warms up, epochs 1-2 quantized
 EF_K6 = "etiny_block_kernel (0.75 engine_friendly .etiny)"
+K5_BAND = "photometric_band_kernel"  # K5's band path, at 224×224
 GATES = {"medium": [0, 3, 7, 8, 10, 11, 15, 20, 22, 23],
          "heavy_extra": [0, 3, 7, 8, 10, 11]}
 SOURCES = {
@@ -284,6 +306,7 @@ SOURCES = {
     "lerp_pass_kernel": "nnue_vision_tpu_torch/csrc/warp.cu",
     "nogather_pass_kernel": "nnue_vision_tpu_torch/csrc/warp.cu",
     EF_K6: "nnue_vision_tpu_torch/csrc/etiny_block.cu",
+    K5_BAND: "nnue_vision_tpu_torch/csrc/photometric.cu",
 }
 REPLACES = {
     "nnue_mega_kernel": "nnue_vision_tpu/ops/pallas_kernels.py:161",
@@ -296,6 +319,7 @@ REPLACES = {
     "lerp_pass_kernel": "nnue_vision_tpu/ops/warp_kernel.py:46",
     "nogather_pass_kernel": "scripts/profile_warp_split.py:51",
     EF_K6: "nnue_vision_tpu/ops/etiny_pallas.py:105",
+    K5_BAND: "nnue_vision_tpu/ops/photometric_kernel.py:114",
 }
 # The card's published rates (NVIDIA's data sheet; H100 SXM, 700 W) beside
 # HBM_BYTES_PER_S: dense int8 tensor-core operations (the highest integer
@@ -321,6 +345,11 @@ DISTILL_CONFIG = "config/train_etinynet_distill.py"
 DISTILL_EPOCHS = 2  # the config's 150, cut
 DISTILL_WARMUP = 1  # the config's 25, cut
 STEP_TIMING = 39  # steps per timed run in phases 24 and 25
+IMAGENET_CONFIG = "config/train_etinynet_imagenet.py"
+IMAGENET_TRAIN_SIZE = 2560  # 10 steps of the config's batch 256
+IMAGENET_K5_SHAPES = ((256, 224, 224), (37, 224, 224), (37, 160, 200))
+IMAGENET_ENGINE_IMAGES = 64
+IMAGENET_STEPS = 5  # steps per timed run in phase 28
 
 
 def say(phase: str, msg: str) -> None:
@@ -1082,6 +1111,176 @@ def loop_phases(errs: Errors, smi: str, model, emodel, ds, dataset,
     return new_launches
 
 
+def imagenet_phases(errs: Errors, smi: str) -> dict:
+    """Phases 28-29: K5's band path at 224, and EtinyNet-1.0 trained, its
+    int8 eval run and its `.etiny` held to the engine at 224×224; returns
+    K5_BAND's JSON fields (launches, times, bound)."""
+    # 28. imagenet — K5's band path held to its plain version (not counted)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    pgen = torch.Generator().manual_seed(SEED)
+    for b, h, w in IMAGENET_K5_SHAPES:
+        x = torch.rand((b, h, w, 3), generator=gen, device="cuda")
+        noise = torch.randn(x.shape, generator=gen, device="cuda")
+        for variant in ("medium", "heavy_extra"):
+            draw = (aug.draw_medium_photometric if variant == "medium"
+                    else aug.draw_heavy_photometric)
+            f, i = (t.cuda() for t in draw(pgen, b, h, w))
+            on, off = f.clone(), f.clone()
+            on[:, GATES[variant]] = 1.0
+            off[:, GATES[variant]] = 0.0
+            for gates, fp in (("on", on), ("drawn", f), ("off", off)):
+                got = pk.photometric_block(x, noise, fp, i, variant=variant)
+                errs.equal(K5_BAND, f"B={b} {h}x{w} {variant} gates {gates}", got,
+                           pk.photometric_block_reference(x, noise, fp, i,
+                                                          variant=variant))
+            check(torch.equal(got, x), f"{h}x{w} {variant} with every gate off "
+                  "is not the identity")
+    torch.cuda.synchronize()
+    say("imagenet", f"K5 band path at {IMAGENET_K5_SHAPES} (B, H, W), medium and "
+        "heavy_extra with gates on, drawn and off: all equal to plain "
+        "(tolerance: none, torch.equal)")
+
+    # K5 at 256×224 (the run's block) and the gather warp there
+    b = IMAGENET_K5_SHAPES[0][0]
+    x = torch.rand((b, 224, 224, 3), generator=gen, device="cuda")
+    noise = torch.randn(x.shape, generator=gen, device="cuda")
+    f, i = (t.cuda() for t in aug.draw_medium_photometric(pgen, b, 224, 224))
+
+    def k5():
+        return pk.photometric_block(x, noise, f, i, variant="medium")
+
+    k, p = time_pair(k5, lambda: pk.photometric_block_reference(
+        x, noise, f, i, variant="medium"))
+    graph_host = (chained_best_ms(k5, GRAPH_REPS), host_ms(k5))
+    # one read and one write of the batch, the params, and the noise of the
+    # images whose gate 8 is on; ~60 float operations per value
+    gated = int((f[:, 8] > 0.5).sum())
+    k5_bound = bound(2 * nbytes(x) + nbytes(f, i) + nbytes(noise) * gated // b,
+                     f32_ops=60 * x.numel())
+    wparams = aug.draw_tier(pgen, "medium", b, 224, 224, "cuda").warp1
+    gather_ms = time_median(lambda: aug.warp(x, wparams))
+    say("timing", f"K5 band path B={b} 224x224 medium: kernel {k:.4f} ms "
+        f"({b / k * 1e3:,.0f} img/s), graph-timed {graph_host[0]:.4f} ms "
+        f"({GRAPH_REPS} calls per CUDA graph, best of 3), host {graph_host[1]:.4f} "
+        f"ms per call, plain {p:.4f} ms; bound {k5_bound[0]:.4f} ms "
+        f"({k5_bound[1]}); the gather warp (plain torch, no K4) "
+        f"{gather_ms:.4f} ms; on {smi}")
+    del x, noise
+
+    # the config's one epoch, counted from here to its end
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(IMAGENET_CONFIG)
+        cfg.synthetic_size = IMAGENET_TRAIN_SIZE
+        cfg.max_epochs = 1
+        cfg.checkpoint_backend = "orbax"
+        cfg.orbax_dir = str(Path(tmp) / "steps")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # the earlier phases' tensors
+        im = train_run(cfg, "etinynet", Path(tmp) / "logs", "imagenet")
+        run_peak = torch.cuda.max_memory_allocated() - base
+        saved, meta = StepCheckpointer(Path(cfg.orbax_dir)).restore()
+    steps = IMAGENET_TRAIN_SIZE // cfg.batch_size
+    launches = im["launches"]
+    check(len(im["losses"]) == steps, f"expected {steps} losses, got {im['losses']}")
+    check(launches[K5_BAND] == steps and launches["photometric_kernel"] == 0,
+          f"K5 launches {launches} are not one band-path launch per step")
+    check(launches["warp_kernel"] == 0 and launches["etiny_block_kernel"] == 0,
+          f"K4 or K6 launched on the 224 run: {launches}")
+    check("Engine OK" in im["log"], "the engine probe did not run at 224")
+    epoch = im["epochs"][0]
+    check(all(math.isfinite(epoch[k]) for k in ("val/loss", "compiled/f1")),
+          f"non-finite eval metrics: {epoch}")
+    payload = im["payload"]
+    check((payload is not None) == (epoch["val/f1"] > 0),
+          "best_model.ckpt written against the val F1 gate")
+    mcfg = EtinyNetConfig(variant=cfg.etinynet_variant, num_classes=cfg.num_classes,
+                          input_size=224)
+    model = EtinyNet(mcfg, device="cuda")
+    model.load_state_dict(saved["model"])
+    model.eval()
+    check(meta["epoch"] == 0 and model.cls_w.shape == (1000, 1280)
+          and model.stem_w.shape[-1] == 32, "the step checkpoint is not the "
+          "EtinyNet-1.0 of epoch 0")
+    if payload is not None:
+        check(np.array_equal(payload["params"]["cls_w"], saved["model"]["cls_w"].numpy()),
+              "best_model.ckpt differs from the epoch's step checkpoint")
+
+    # the epoch's model through the .etiny, the sim and the engine
+    val = GenericVisionDataset("imagenet", split="test",
+                               synthetic_size=IMAGENET_TRAIN_SIZE, seed=cfg.seed)
+    images = val.images[:IMAGENET_ENGINE_IMAGES]
+    labels = val.labels[:IMAGENET_ENGINE_IMAGES]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "etinynet_imagenet.etiny"
+        q0 = etinynet_quantize(model)
+        write_etiny(q0, path)
+        qi = read_etiny(path)
+        write_etiny(qi, Path(tmp) / "again.etiny")
+        check((Path(tmp) / "again.etiny").read_bytes() == path.read_bytes(),
+              ".etiny round trip changed the model")
+        isize = path.stat().st_size
+    check(qi.input_size == 224 and qi.num_classes == 1000, "the .etiny's header")
+    isim, icfg = etiny_sim_params(qi, device="cuda")
+    xs = torch.from_numpy(normalize_host(images)).cuda()
+    sim_logits = etiny_engine_forward(isim, xs, cfg=icfg, image_h=224,
+                                      image_w=224).cpu().numpy()
+    eng, _, _, eng_s = engine_logits(model, [(images, labels)])
+    np.testing.assert_array_equal(
+        eng, as_engine_prints(sim_logits),
+        err_msg="224: the engine's logits differ from the sim's as printed")
+    say("imagenet", f"{IMAGENET_CONFIG} (EtinyNet-1.0, {count_parameters(model):,} "
+        f"params, 1000 classes, 224x224, float32, medium tier) on "
+        f"{IMAGENET_TRAIN_SIZE} synthetic images, 1 epoch of {steps} steps at batch "
+        f"{cfg.batch_size} in {im['seconds']:.2f} s (train_model: data generation, "
+        f"probe and evals included); loss first {im['losses'][0]:.4f} last "
+        f"{im['losses'][-1]:.4f}; val acc {epoch['val/accuracy']:.4f}, int8 (sim) "
+        f"acc {epoch['compiled/accuracy']:.4f}; best_model.ckpt "
+        + ("written" if payload is not None else "not written (val F1 0: at "
+           "chance after 10 steps)")
+        + f"; the epoch's model via a {isize}-byte .etiny: on "
+        f"{IMAGENET_ENGINE_IMAGES} val images the engine's logits equal the "
+        f"sim's as printed (%.10f; raw max "
+        f"{float(np.abs(eng.astype(np.float64) - sim_logits).max()):.3g}), "
+        f"{eng_s / len(labels) * 1e3:.2f} ms per image (engine, host CPU); "
+        f"peak device memory of the run {run_peak / 1e9:.2f} GB (over the "
+        f"{base / 1e9:.2f} GB the earlier phases hold) on {smi}")
+
+    # ms per step at batch 256 on the val images, the epoch's model
+    timg = torch.from_numpy(val.images).cuda()
+    tlab = torch.from_numpy(val.labels).cuda()
+    tmodel = EtinyNet(mcfg, device="cuda")
+    tmodel.load_state_dict(saved["model"])
+    topt = create_optimizer(cfg, steps)
+    tstate = make_train_state(tmodel, topt)
+    sgen = torch.Generator().manual_seed(SEED)
+    noise_gen = aug.device_generator(sgen, "cuda")
+    srng = np.random.default_rng(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for run in range(2):
+        idx = srng.integers(0, len(tlab), (IMAGENET_STEPS, cfg.batch_size))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_losses = torch.stack([
+            gathered_train_step(tstate, timg, tlab, i, sgen, optimizer=topt,
+                                strength="medium", noise_gen=noise_gen)["loss"]
+            for i in idx])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / IMAGENET_STEPS * 1e3
+        check(bool(torch.isfinite(step_losses).all()), "non-finite timing losses")
+        say("timing", f"EtinyNet-1.0 train step at 224x224 ({IMAGENET_STEPS} steps, "
+            f"run {run + 1}/2, batch {cfg.batch_size}, float32, medium tier): "
+            f"{step_ms:.3f} ms/step ({cfg.batch_size / step_ms * 1e3:,.0f} img/s), "
+            f"host clock, one sync; peak device memory of the steps "
+            f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB over the "
+            f"{base / 1e9:.2f} GB held; on {smi}")
+
+    # 29. launches
+    band = {K5_BAND: launches[K5_BAND], "warp_kernel": launches["warp_kernel"]}
+    say("launches", "ImageNet-224 " + json.dumps(band))
+    return dict(launches=launches[K5_BAND], ms=(k, p), bound=k5_bound,
+                extra=graph_host)
+
 
 def main() -> int:
     # 1. device
@@ -1817,6 +2016,10 @@ def main() -> int:
     for name, count in loop_phases(errs, smi, model, emodel, ds, dataset, pgen,
                                    tgen).items():
         launches[name] += count
+    band = imagenet_phases(errs, smi)
+    launches[K5_BAND] = band["launches"]
+    ms[K5_BAND], bounds[K5_BAND], extra[K5_BAND] = band["ms"], band["bound"], band["extra"]
+    library[K5_BAND] = None  # no single call runs the gated photometric chain
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -48,6 +48,25 @@
 // batch tile of packed rows in vector registers and read neighbours with
 // lane and sublane rolls; here neighbours are shared-memory reads.
 //
+// Images whose slot does not fit a block's 227 KB (224x224x3 float32 is
+// 602 KB alone) take the band path, two launches over (image, band of rows)
+// blocks, band_rows rows each (ops/photometric_kernel.py picks it):
+//   - photometric_band_kernel: per pixel of its band, the whole chain up to
+//     posterize, written to the output. With the blur on, a pixel's 3x3
+//     neighbourhood is read from device memory (L1 serves the repeats) and
+//     bc and HSV are applied to each neighbour before the two [1, 2, 1]
+//     passes, zero outside the frame: the rows above and below a band get
+//     the same head as inside it. The shadow and the cutouts use
+//     whole-image coordinates. With the equalize gate on (medium), the
+//     band's min and max go to a (batch, bands, 2) scratch;
+//   - photometric_stretch_kernel (medium): for an image whose gate 23 is
+//     on, each block reduces the image's band minima and maxima (exact in
+//     any order) and stretches its band in place; the other blocks return.
+// The same device functions, in the same order, as the slot path: the band
+// path is bit-equal to the plain version too. Bound: bytes, as above; the
+// path also reads and writes the equalized images a second time. A simple
+// design first: no shared-memory staging, no bulk copies.
+//
 // C interface (ctypes): the launcher returns cudaGetLastError() after the
 // launch. The kernel launches on the caller's stream and allocates nothing.
 // The host (ops/photometric_kernel.py) picks the grid;
@@ -103,6 +122,28 @@ __device__ __forceinline__ void hsv(float* p, float hue, float sat, float val) {
 
 __device__ __forceinline__ bool in_hole(int y, int x, const int* r) {
   return y >= r[0] && y < r[0] + r[1] && x >= r[2] && x < r[2] + r[3];
+}
+
+// min and max over the block (every thread gets them); s_lo and s_hi hold a
+// value per warp
+__device__ __forceinline__ void block_minmax(float& lo, float& hi, float* s_lo, float* s_hi) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    s_lo[threadIdx.x / 32] = lo;
+    s_hi[threadIdx.x / 32] = hi;
+  }
+  __syncthreads();
+  lo = s_lo[0];
+  hi = s_hi[0];
+#pragma unroll
+  for (int k = 1; k < kWarps; ++k) {
+    lo = fminf(lo, s_lo[k]);
+    hi = fmaxf(hi, s_hi[k]);
+  }
 }
 
 // 1. brightness/contrast, 2. HSV
@@ -256,23 +297,7 @@ photometric_kernel(PhotoArgs a) {
 
     // 10. equalize (medium): (x - lo) / max(hi - lo, 1e-6) over the image
     if (a.medium && gate(f, 23)) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-        hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-      }
-      if ((threadIdx.x & 31) == 0) {
-        s_lo[threadIdx.x / 32] = lo;
-        s_hi[threadIdx.x / 32] = hi;
-      }
-      __syncthreads();
-      lo = s_lo[0];
-      hi = s_hi[0];
-#pragma unroll
-      for (int k = 1; k < kWarps; ++k) {
-        lo = fminf(lo, s_lo[k]);
-        hi = fmaxf(hi, s_hi[k]);
-      }
+      block_minmax(lo, hi, s_lo, s_hi);
       const float range = fmaxf(__fsub_rn(hi, lo), 1e-6f);
       float4* v4 = reinterpret_cast<float4*>(io);
       for (int e = threadIdx.x; e < img / 4; e += kThreads) {
@@ -302,6 +327,131 @@ photometric_kernel(PhotoArgs a) {
     }
   }
   if (threadIdx.x == 0) ring::bulk_wait_all();
+}
+
+// ---------------------------------------------------------------------------
+// the band path: images larger than one slot
+// ---------------------------------------------------------------------------
+
+struct BandArgs {
+  const float* x;      // (batch, h, w, 3)
+  const float* noise;  // (batch, h, w, 3)
+  const float* fp;     // (batch, nf)
+  const int* ip;       // (batch, ni)
+  int batch, h, w, nf, ni;
+  int medium;          // 1: the medium variant, 0: heavy_extra
+  int band_rows;       // rows per block
+  int nbands;          // ceil(h / band_rows)
+  float* minmax;       // (batch, nbands, 2), medium only
+  float* out;          // (batch, h, w, 3)
+};
+
+// one pixel with bc and HSV applied
+__device__ __forceinline__ void load_head(const float* px, const float* f, float* p) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) p[c] = __ldg(px + c);
+  head(p, f);
+}
+
+// the blur's horizontal pass at (y, x) of the headed image: (xl + 2x) + xr,
+// a neighbour outside the frame reading 0
+__device__ __forceinline__ void hpass(const float* img, int y, int x, int w, const float* f,
+                                      float* t) {
+  const float* row = img + static_cast<size_t>(y) * w * kC;
+  float m[3], l[3] = {0.0f, 0.0f, 0.0f}, r[3] = {0.0f, 0.0f, 0.0f};
+  load_head(row + x * kC, f, m);
+  if (x > 0) load_head(row + (x - 1) * kC, f, l);
+  if (x < w - 1) load_head(row + (x + 1) * kC, f, r);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) t[c] = __fadd_rn(__fadd_rn(l[c], __fmul_rn(2.0f, m[c])), r[c]);
+}
+
+// block (image b, band): the image's parameters into shared memory, a word a
+// thread
+__device__ __forceinline__ void band_params(const BandArgs& a, int b, float* f, int* ip) {
+  const int k = threadIdx.x;
+  if (k < a.nf) f[k] = __ldg(a.fp + static_cast<size_t>(b) * a.nf + k);
+  else if (k < a.nf + a.ni) ip[k - a.nf] = __ldg(a.ip + static_cast<size_t>(b) * a.ni + k - a.nf);
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+photometric_band_kernel(BandArgs a) {
+  __shared__ __align__(16) unsigned char pbuf[128];  // fparams, then iparams
+  __shared__ float s_lo[kWarps], s_hi[kWarps];
+  float* f = reinterpret_cast<float*>(pbuf);
+  int* ip = reinterpret_cast<int*>(f + a.nf);
+  const int b = blockIdx.x / a.nbands;
+  const int band = blockIdx.x - b * a.nbands;
+  band_params(a, b, f, ip);
+  const int h = a.h, w = a.w;
+  const size_t img = static_cast<size_t>(h) * w * kC;
+  const float* x = a.x + b * img;
+  const float* nz = a.noise + b * img;
+  float* out = a.out + b * img;
+  const int y0 = band * a.band_rows;
+  const int rows = min(h, y0 + a.band_rows) - y0;
+  const bool blur = gate(f, 7);
+
+  float lo = __int_as_float(0x7f800000), hi = __int_as_float(0xff800000);
+  const ring::Walk walk(w);
+  for (int r = walk.a0, xq = walk.l0; r < rows; walk.next(r, xq)) {
+    const int y = y0 + r;
+    const size_t at = (static_cast<size_t>(y) * w + xq) * kC;
+    float p[3];
+    if (blur) {
+      // 3 (vertical): ((tu + 2t) + td) / 16 over the horizontal passes
+      float tu[3] = {0.0f, 0.0f, 0.0f}, tm[3], td[3] = {0.0f, 0.0f, 0.0f};
+      hpass(x, y, xq, w, f, tm);
+      if (y > 0) hpass(x, y - 1, xq, w, f, tu);
+      if (y < h - 1) hpass(x, y + 1, xq, w, f, td);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        p[c] = __fmul_rn(__fadd_rn(__fadd_rn(tu[c], __fmul_rn(2.0f, tm[c])), td[c]), 0.0625f);
+    } else {
+      load_head(x + at, f, p);
+    }
+    tail(p, y, xq, h, w, a.medium, f, ip, nz + at);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      out[at + c] = p[c];
+      lo = fminf(lo, p[c]);
+      hi = fmaxf(hi, p[c]);
+    }
+  }
+  // the band's min and max for the equalize (gate 23, uniform in the block)
+  if (a.medium && gate(f, 23)) {
+    block_minmax(lo, hi, s_lo, s_hi);
+    if (threadIdx.x == 0) {
+      a.minmax[2 * static_cast<size_t>(blockIdx.x)] = lo;
+      a.minmax[2 * static_cast<size_t>(blockIdx.x) + 1] = hi;
+    }
+  }
+}
+
+// 10. equalize (medium): (x - lo) / max(hi - lo, 1e-6) over the band, lo and
+// hi of the whole image from its bands'
+__global__ void __launch_bounds__(kThreads)
+photometric_stretch_kernel(BandArgs a) {
+  __shared__ float s_lo[kWarps], s_hi[kWarps];
+  const int b = blockIdx.x / a.nbands;
+  const int band = blockIdx.x - b * a.nbands;
+  if (!(__ldg(a.fp + static_cast<size_t>(b) * a.nf + 23) > 0.5f)) return;  // the whole block
+  float lo = __int_as_float(0x7f800000), hi = __int_as_float(0xff800000);
+  const float* mm = a.minmax + static_cast<size_t>(b) * a.nbands * 2;
+  for (int j = threadIdx.x; j < a.nbands; j += kThreads) {
+    lo = fminf(lo, mm[2 * j]);
+    hi = fmaxf(hi, mm[2 * j + 1]);
+  }
+  block_minmax(lo, hi, s_lo, s_hi);
+  const float range = fmaxf(__fsub_rn(hi, lo), 1e-6f);
+  const size_t row = static_cast<size_t>(a.w) * kC;
+  const size_t e0 = static_cast<size_t>(band) * a.band_rows * row;
+  const size_t end = static_cast<size_t>(a.h) * row;
+  const size_t e1 = e0 + a.band_rows * row < end ? e0 + a.band_rows * row : end;
+  float* out = a.out + b * end;
+  for (size_t e = e0 + threadIdx.x; e < e1; e += kThreads)
+    out[e] = __fdiv_rn(__fsub_rn(out[e], lo), range);
 }
 
 unsigned g_smem_set = 0;
@@ -347,6 +497,40 @@ int photometric_launch(const int64_t* p) {
   const cudaError_t err = ring::allow_max_smem(photometric_kernel, &g_smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   photometric_kernel<<<grid, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the band path: a = [x, noise, fparams, iparams, batch, h, w, nf, ni, medium,
+// band_rows, minmax, out, stream]; minmax (batch, ceil(h / band_rows), 2)
+// float32 scratch, read only by the medium variant
+int photometric_band_launch(const int64_t* p) {
+  BandArgs a;
+  a.x = reinterpret_cast<const float*>(p[0]);
+  a.noise = reinterpret_cast<const float*>(p[1]);
+  a.fp = reinterpret_cast<const float*>(p[2]);
+  a.ip = reinterpret_cast<const int*>(p[3]);
+  a.batch = static_cast<int>(p[4]);
+  a.h = static_cast<int>(p[5]);
+  a.w = static_cast<int>(p[6]);
+  a.nf = static_cast<int>(p[7]);
+  a.ni = static_cast<int>(p[8]);
+  a.medium = static_cast<int>(p[9]);
+  a.band_rows = static_cast<int>(p[10]);
+  a.minmax = reinterpret_cast<float*>(p[11]);
+  a.out = reinterpret_cast<float*>(p[12]);
+  const cudaStream_t stream = reinterpret_cast<cudaStream_t>(p[13]);
+  if (a.batch <= 0 || a.h < 3 || a.w < 3 || a.band_rows <= 0 ||
+      (a.medium && a.minmax == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.nf < (a.medium ? 24 : 12) || a.ni < (a.medium ? 4 : 8) || a.nf + a.ni > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.nbands = (a.h + a.band_rows - 1) / a.band_rows;
+  const int64_t blocks = static_cast<int64_t>(a.batch) * a.nbands;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  photometric_band_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !a.medium) return static_cast<int>(err);
+  photometric_stretch_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

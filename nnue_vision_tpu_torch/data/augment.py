@@ -12,16 +12,22 @@ Light: hflip (p .5), brightness/contrast ±0.1 (p .2), one 5% cutout (p .2).
 Medium and heavy: the geometric ops (flip, rot90, rotate, affine) each
 draw their gate and parameters and compose, per sample, into one inverse
 map (M, v) per block (`_mv_compose`, `_mv_where`), realized by one warp
-(K4, `ops/warp_kernel.py`); then the block's gated photometric chain runs
-as one K5 launch (`ops/photometric_kernel.py`). The heavy tier's second
-block (its own geometry, one more warp, then `heavy_extra`) runs after the
-medium photometric block, the reference op order. Every photometric op is
-a draw helper (`_*_draw`) and an apply step (`ops/photometric_kernel.py`),
-drawn in the JAX package's order. The draws of a step are packed on the
-host into one int32 buffer (float fields bit-cast) and uploaded once
-(`draw_tier`); the two full-batch unit-normal noise tensors are drawn on
-the images' device from a generator of that device, seeded once from the
-host generator (`device_generator`).
+chosen by shape with the JAX package's rule (`_warp`, augment.py:403-425;
+`two_pass_warp`): for a square image with h·w·w ≤ 2^17 (32×32, up to
+50×50) the two-pass resample (K4, `ops/warp_kernel.py`, which on the card
+takes an even n and raises otherwise), else the single-pass bilinear
+gather `warp_gather` (JAX `_warp_gather`, computed by XLA there and by
+plain torch here, on both devices), which at 224×224 is another function
+for a fractional rotation. Then the block's gated photometric chain runs
+as one K5 launch (`ops/photometric_kernel.py`) at any image size. The
+heavy tier's second block (its own geometry, one more warp, then
+`heavy_extra`) runs after the medium photometric block, the reference op
+order. Every photometric op is a draw helper (`_*_draw`) and an apply step
+(`ops/photometric_kernel.py`), drawn in the JAX package's order. The draws
+of a step are packed on the host into one int32 buffer (float fields
+bit-cast) and uploaded once (`draw_tier`); the two full-batch unit-normal
+noise tensors are drawn on the images' device from a generator of that
+device, seeded once from the host generator (`device_generator`).
 
 The tensor's device picks the realization: the kernels on a CUDA tensor,
 their plain versions on a CPU one.
@@ -272,16 +278,73 @@ def draw_heavy_geometry(gen, b, h, w) -> MV:
 
 class TierDraws(NamedTuple):
     """One step's medium/heavy draws on the images' device: the warp params
-    (B, 8) and photometric (fparams, iparams) of each block, views into one
-    uploaded buffer."""
+    (B, 8), packed for `warp`'s choice at the drawn shape, and photometric
+    (fparams, iparams) of each block, views into one uploaded buffer."""
     warp1: torch.Tensor
     photo1: Tuple[torch.Tensor, torch.Tensor]
     warp2: Optional[torch.Tensor]
     photo2: Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
+def two_pass_warp(h: int, w: int) -> bool:
+    """JAX `_warp`'s rule off the TPU: the two-pass resample for a square
+    image with h·w·w ≤ 2^17, the single-pass gather otherwise."""
+    return h == w and h * w * w <= 1 << 17
+
+
+def pack_gather_params(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, 8) float32 [m00, m01, m10, m11, v0, v1, 0, 0], `warp_gather`'s
+    layout (the same width as `pack_warp_params`)."""
+    b = m.shape[0]
+    return torch.cat([m.reshape(b, 4), v, torch.zeros((b, 2))],
+                     dim=1).to(torch.float32).contiguous()
+
+
+def warp_gather(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """One composed inverse map per sample as a single bilinear pass over
+    (B, H, W, C) float32 at any shape, zero outside the frame (JAX
+    `_warp_gather` and `_bilinear_gather`, augment.py:61-94, 184-202, in
+    their float32 expression order): four corner gathers over the
+    flattened frame, each zeroed where it lies outside, blended along x,
+    then along y. `params` from `pack_gather_params`."""
+    b, h, w, c = x.shape
+    dev = x.device
+    m = params[:, :4].reshape(b, 2, 2, 1, 1)
+    v = params[:, 4:6].reshape(b, 2, 1, 1)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None] - cy
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :] - cx
+    src_y = m[:, 0, 0] * yy + m[:, 0, 1] * xx + v[:, 0] + cy
+    src_x = m[:, 1, 0] * yy + m[:, 1, 1] * xx + v[:, 1] + cx
+    y0, x0 = torch.floor(src_y), torch.floor(src_x)
+    wy, wx = (src_y - y0)[..., None], (src_x - x0)[..., None]
+    y0, x0 = y0.to(torch.int64), x0.to(torch.int64)
+    flat = x.reshape(b, h * w, c)
+
+    def corner(yi, xi):
+        valid = ((yi >= 0) & (yi < h) & (xi >= 0) & (xi < w))[..., None]
+        idx = (torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1))
+        got = torch.gather(flat, 1, idx.reshape(b, h * w, 1).expand(b, h * w, c))
+        return torch.where(valid, got.reshape(b, h, w, c), 0.0)
+
+    top = corner(y0, x0) * (1.0 - wx) + corner(y0, x0 + 1) * wx
+    bot = corner(y0 + 1, x0) * (1.0 - wx) + corner(y0 + 1, x0 + 1) * wx
+    return top * (1.0 - wy) + bot * wy
+
+
+def warp(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """The block's warp by `two_pass_warp`: `warp_bilinear` (K4 on a CUDA
+    tensor) or `warp_gather`; `params` packed for that choice
+    (`_warp_params`)."""
+    if two_pass_warp(x.shape[1], x.shape[2]):
+        return warp_bilinear(x, params)
+    return warp_gather(x, params)
+
+
 def _warp_params(mv: MV, h: int, w: int) -> torch.Tensor:
-    return pack_warp_params(*warp_coefficients(mv[0], mv[1], h, w))
+    if two_pass_warp(h, w):
+        return pack_warp_params(*warp_coefficients(mv[0], mv[1], h, w))
+    return pack_gather_params(*mv)
 
 
 def draw_tier(gen: torch.Generator, strength: str, b: int, h: int, w: int,
@@ -318,14 +381,14 @@ def _noise(x: torch.Tensor, noise_gen: torch.Generator) -> torch.Tensor:
 
 def apply_tier(x: torch.Tensor, draws: TierDraws,
                noise_gen: torch.Generator) -> torch.Tensor:
-    """Warp (K4) → medium photometric block (K5), then for heavy a second
-    warp → heavy_extra block, with the two noise tensors drawn from
-    `noise_gen` on x's device."""
-    x = warp_bilinear(x, draws.warp1)
+    """Warp (K4, or the gather) → medium photometric block (K5), then for
+    heavy a second warp → heavy_extra block, with the two noise tensors
+    drawn from `noise_gen` on x's device."""
+    x = warp(x, draws.warp1)
     x = photometric_block(x, _noise(x, noise_gen), *draws.photo1,
                           variant="medium")
     if draws.warp2 is not None:
-        x = warp_bilinear(x, draws.warp2)
+        x = warp(x, draws.warp2)
         x = photometric_block(x, _noise(x, noise_gen), *draws.photo2,
                               variant="heavy_extra")
     return x

@@ -1,15 +1,26 @@
-"""Datasets: CIFAR-10/100 from disk and the synthetic generators.
+"""Datasets: CIFAR-10/100 from disk, ImageNet class folders, and the
+synthetic generators.
 
 Port of `nnue_vision_tpu/data/datasets.py` (numpy only, so it is copied
 rather than imported: that package's `data/__init__` imports jax). The same
-seeds give the same arrays: samples are NHWC float32 in [0, 1] at 32×32,
-labels int64, and augmentation and normalization happen on the device.
+arguments and seeds give the same arrays: samples are NHWC float32 in
+[0, 1] at the dataset's `target_size` (by default its native size from
+`NATIVE_SIZES`: 32×32, or 224×224 for ImageNet), labels int64, and
+augmentation and normalization happen on the device.
+
+The registry (`AVAILABLE_DATASETS`, `get_dataset_info`) names each
+dataset's classes, class count and input size. An ImageNet split is read
+from `data_root/imagenet/{train,val}/<class>/*` (one folder per class, in
+sorted order; PIL is imported only there and is optional, as in the JAX
+package); every loaded split is resized to `target_size` with
+`_resize_bilinear`. `binary_classification={"positive_classes": [...]}`
+remaps the labels to 0/1 by class name.
 
 Unlike the JAX package, the port never downloads: a CIFAR split that is not
-on disk under `default_data_root()` falls back to the synthetic generator,
-as the JAX package does on a host without network. ImageNet folders, the
-binary-classification remap and resizing wait for a ported caller
-(ROADMAP Queue A item 5).
+on disk under `data_root` (default `default_data_root()`), or an ImageNet
+split whose folder is absent, falls back to the synthetic generator at the
+target size with the registry's class count, as the JAX package does on a
+host without network; `synthetic_fallback=False` raises instead.
 """
 
 from __future__ import annotations
@@ -20,13 +31,61 @@ import shutil
 import tarfile
 import tempfile
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-NUM_CLASSES = {"cifar10": 10, "cifar100": 100, "synthetic": 10,
-               "synthetic-hard": 10}
-IMAGE_SIZE = (32, 32)
+AVAILABLE_DATASETS: Dict[str, dict] = {
+    "cifar10": {
+        "name": "CIFAR-10",
+        "classes": [
+            "airplane", "automobile", "bird", "cat", "deer",
+            "dog", "frog", "horse", "ship", "truck",
+        ],
+        "num_classes": 10,
+        "input_size": (32, 32),
+        "channels": 3,
+    },
+    "cifar100": {
+        "name": "CIFAR-100",
+        "classes": [f"class_{i}" for i in range(100)],
+        "num_classes": 100,
+        "input_size": (32, 32),
+        "channels": 3,
+    },
+    "imagenet": {
+        "name": "ImageNet",
+        "classes": [f"n{i:08d}" for i in range(1000)],
+        "num_classes": 1000,
+        "input_size": (224, 224),
+        "channels": 3,
+    },
+    "synthetic": {
+        "name": "Synthetic",
+        "classes": [f"class_{i}" for i in range(10)],
+        "num_classes": 10,
+        "input_size": (32, 32),
+        "channels": 3,
+    },
+    "synthetic-hard": {
+        "name": "Synthetic-Hard",
+        "classes": [f"class_{i}" for i in range(10)],
+        "num_classes": 10,
+        "input_size": (32, 32),
+        "channels": 3,
+    },
+}
+
+NATIVE_SIZES = {name: info["input_size"] for name, info in AVAILABLE_DATASETS.items()}
+
+
+def get_dataset_info(dataset_name: str) -> dict:
+    if dataset_name not in AVAILABLE_DATASETS:
+        raise ValueError(
+            f"Unknown dataset: {dataset_name}. "
+            f"Available: {list(AVAILABLE_DATASETS.keys())}"
+        )
+    return AVAILABLE_DATASETS[dataset_name]
 
 
 def default_data_root() -> Path:
@@ -89,6 +148,31 @@ def _extract_to_cache(tarball: Path, name: str, dirname: str) -> Path:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     return cache / dirname
+
+
+def _resize_bilinear(images: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Host-side bilinear resize of (N, H, W, C) float arrays to `size`
+    (corners aligned; datasets.py:170-191 of the JAX package)."""
+    n, h, w, c = images.shape
+    th, tw = size
+    if (h, w) == (th, tw):
+        return images
+    ys = np.linspace(0, h - 1, th)
+    xs = np.linspace(0, w - 1, tw)
+    y0 = np.floor(ys).astype(int)
+    x0 = np.floor(xs).astype(int)
+    y1 = np.minimum(y0 + 1, h - 1)
+    x1 = np.minimum(x0 + 1, w - 1)
+    wy = (ys - y0)[None, :, None, None]
+    wx = (xs - x0)[None, None, :, None]
+    a = images[:, y0][:, :, x0]
+    b = images[:, y0][:, :, x1]
+    cc = images[:, y1][:, :, x0]
+    d = images[:, y1][:, :, x1]
+    return (
+        a * (1 - wy) * (1 - wx) + b * (1 - wy) * wx
+        + cc * wy * (1 - wx) + d * wy * wx
+    ).astype(np.float32)
 
 
 def _synthetic_dataset(
@@ -184,28 +268,48 @@ def _synthetic_hard_dataset(
 
 class GenericVisionDataset:
     """In-memory dataset of (NHWC float32 [0,1] image, int label) samples,
-    with the JAX package's split and truncation rules."""
+    with the JAX package's arguments, split and truncation rules.
+    `use_augmentation` and `augmentation_strength` are recorded, as in the
+    JAX package; the train loop augments on the device."""
 
     def __init__(
         self,
         dataset_name: str = "cifar10",
         split: str = "train",
+        target_size: Optional[Tuple[int, int]] = None,
         max_samples: Optional[int] = None,
         subset: float = 1.0,
+        data_root: Optional[str] = None,
+        binary_classification: Optional[dict] = None,
+        use_augmentation: Optional[bool] = None,
+        augmentation_strength: str = "medium",
+        synthetic_fallback: bool = True,
         synthetic_size: int = 512,
         seed: int = 0,
         synthetic_class_seed: Optional[int] = None,
     ):
-        if dataset_name not in NUM_CLASSES:
-            raise ValueError(f"Unknown dataset: {dataset_name}. "
-                             f"Available: {list(NUM_CLASSES)}")
+        self.dataset_name = dataset_name
+        self.split = split
+        self.dataset_info = get_dataset_info(dataset_name)
+        self.data_root = Path(data_root) if data_root else default_data_root()
+        self.target_size = tuple(target_size or NATIVE_SIZES[dataset_name])
+        self.augmentation_strength = augmentation_strength
         is_train = split in ("train", "training")
+        self.use_augmentation = (
+            use_augmentation if use_augmentation is not None else is_train)
+
         loaded = None
         if dataset_name in ("cifar10", "cifar100"):
-            loaded = _load_cifar_from_disk(default_data_root(), dataset_name,
+            loaded = _load_cifar_from_disk(self.data_root, dataset_name,
                                            is_train)
+        elif dataset_name == "imagenet":
+            loaded = self._load_imagefolder(is_train)
         self.is_synthetic = loaded is None
         if loaded is None:
+            if not synthetic_fallback and not dataset_name.startswith("synthetic"):
+                raise FileNotFoundError(
+                    f"{dataset_name} not found under {self.data_root} and "
+                    "synthetic fallback disabled")
             n = synthetic_size if is_train else max(64, synthetic_size // 4)
             generator = (
                 _synthetic_hard_dataset
@@ -216,13 +320,27 @@ class GenericVisionDataset:
             if synthetic_class_seed is not None:
                 gen_kwargs["class_seed"] = int(synthetic_class_seed)
             loaded = generator(
-                NUM_CLASSES[dataset_name],
-                IMAGE_SIZE,
+                self.dataset_info["num_classes"],
+                self.target_size,
                 n,
                 seed=seed + (0 if is_train else 10_000),
                 **gen_kwargs,
             )
         images, labels = loaded
+        images = _resize_bilinear(images, self.target_size)
+
+        # binary remap by positive class names
+        if binary_classification:
+            classes = self.dataset_info["classes"]
+            positive = [classes.index(c)
+                        for c in binary_classification.get("positive_classes", [])
+                        if c in classes]
+            labels = np.isin(labels, positive).astype(np.int64)
+            self.class_names = ["negative", "positive"]
+            self.num_classes = 2
+        else:
+            self.class_names = self.dataset_info["classes"]
+            self.num_classes = self.dataset_info["num_classes"]
 
         # max_samples first, then subset
         if max_samples is not None:
@@ -234,6 +352,30 @@ class GenericVisionDataset:
         self.images = np.ascontiguousarray(images, np.float32)
         self.labels = np.ascontiguousarray(labels, np.int64)
 
+    def _load_imagefolder(self, is_train: bool):
+        """`data_root/imagenet/{train,val}/<class>/*`, classes in sorted
+        folder order and files in sorted order, each image resized to the
+        target size; None when the folder is absent, empty, or PIL is not
+        installed."""
+        split_dir = self.data_root / "imagenet" / ("train" if is_train else "val")
+        if not split_dir.exists():
+            return None
+        try:
+            from PIL import Image  # optional dependency
+        except ImportError:
+            return None
+        images, labels = [], []
+        classes = sorted(d.name for d in split_dir.iterdir() if d.is_dir())
+        for li, cls in enumerate(classes):
+            for f in sorted((split_dir / cls).glob("*")):
+                with Image.open(f) as im:
+                    img = np.asarray(im.convert("RGB"), np.float32) / 255.0
+                images.append(_resize_bilinear(img[None], self.target_size)[0])
+                labels.append(li)
+        if not images:
+            return None
+        return np.stack(images), np.asarray(labels, np.int64)
+
     def __len__(self) -> int:
         return len(self.labels)
 
@@ -241,3 +383,11 @@ class GenericVisionDataset:
         if idx >= len(self.labels):
             raise IndexError(idx)
         return self.images[idx], int(self.labels[idx])
+
+    def get_class_distribution(self) -> Dict[str, int]:
+        """{class name: samples} in the order the labels first occur."""
+        dist: Dict[str, int] = {}
+        for lab in self.labels.tolist():
+            name = self.class_names[lab]
+            dist[name] = dist.get(name, 0) + 1
+        return dist

@@ -59,6 +59,7 @@ SIGNATURES = {
     "lerp_pass_blocks_per_sm": ([_I] * 3, _I),
     "photometric_launch": ([_P], _I),
     "photometric_blocks_per_sm": ([_I] * 2, _I),
+    "photometric_band_launch": ([_P], _I),
     "etiny_block_smem": ([_I] * 8, _I),
     "etiny_block_tile": ([_I] * 8, _I),
     "etiny_block_launch": ([_P] + [_I] * 12 + [_P] * 6, _I),

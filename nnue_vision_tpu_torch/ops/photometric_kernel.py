@@ -22,10 +22,18 @@ both to float32 rounding.
 
 `photometric_block` dispatches on the device of the images: a CPU tensor
 takes the plain version, a CUDA tensor the kernel, which launches or raises.
-The kernel is a persistent grid that walks images through one
-shared-memory slot per block, fed by bulk copies (the noise is read only
-where its gate is on); `ops/_ring.py` sizes the grid and launches. It
-takes images of whole 16-byte units (H·W % 4 == 0).
+Where one image and the blur's rows fit a block's shared memory
+(`slot_fits`: up to 96×96), the kernel is a persistent grid that walks
+images through one shared-memory slot per block, fed by bulk copies (the
+noise is read only where its gate is on); `ops/_ring.py` sizes the grid
+and launches. A larger image (224×224, or any shape past the slot) takes
+the band path (`photometric_band_kernel`, then for the medium variant
+`photometric_stretch_kernel`): one block per band of `band_rows(w)` rows of
+an image, the chain up to posterize per pixel with the per-band min and
+max, then the equalize's stretch for the images whose gate is on. Both
+paths are bit-equal to the plain version and count their launches apart
+(`photometric_kernel`, `photometric_band_kernel`: one per call). Both take
+images of whole 16-byte units (H·W % 4 == 0).
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from nnue_vision_tpu_torch.ops import _ring
 
 # Launches since the last reset_launch_counts(); the wrapper adds one where
 # it launches the kernel, and nowhere else.
-LAUNCHES = {"photometric_kernel": 0}
+LAUNCHES = {"photometric_kernel": 0, "photometric_band_kernel": 0}
 
 # fparams column layout (per sample); gates are 0.0/1.0 floats
 MEDIUM_F = 24  # bc(3) hsv1(4) blur(1) noise(2) cut(1) hsv2(4) shadow(5)
@@ -47,6 +55,23 @@ HEAVY_F = 12   # bc(3) hsv(4) blur(1) noise(2) cutA(1) cutB(1)
 HEAVY_I = 8    # two cutout rectangles
 VARIANTS = {"medium": (MEDIUM_F, MEDIUM_I), "heavy_extra": (HEAVY_F, HEAVY_I)}
 _F32 = torch.float32
+# one block's shared memory on the H100, less 1 KB for the kernel's static
+# shared memory, and the slot path's use of it (csrc/photometric.cu
+# photometric_smem_bytes: the parameter header, the image and the blur's
+# rows with a zero row above and below)
+SMEM_MAX = 232448 - 1024
+BAND_CELLS = 2048  # pixels per block of the band path
+
+
+def slot_fits(h: int, w: int) -> bool:
+    """Whether the slot path holds an h×w image: its header, the image and
+    the blur's h + 2 rows fit one block's shared memory."""
+    return 256 + (2 * h + 2) * w * 3 * 4 <= SMEM_MAX
+
+
+def band_rows(w: int) -> int:
+    """Rows per block of the band path: about BAND_CELLS pixels."""
+    return max(1, BAND_CELLS // w)
 
 
 def reset_launch_counts() -> None:
@@ -227,14 +252,24 @@ def _launch(x, noise, fparams, iparams, variant):
     if b == 0:
         return out
     xp, op = x.data_ptr(), out.data_ptr()
+    nf, ni = VARIANTS[variant]
+    medium = int(variant == "medium")
+    head = (xp, noise.data_ptr(), fparams.data_ptr(), iparams.data_ptr(),
+            b, h, w, nf, ni, medium)
+    if not slot_fits(h, w):  # the band path: both kernels, one count
+        rows = band_rows(w)
+        minmax = torch.empty((b * -(-h // rows) * 2 if medium else 0,),
+                             dtype=_F32, device=dev)
+        _ring.launch(dev, "photometric_band_kernel", "photometric_band_launch",
+                     head + (rows, minmax.data_ptr() if medium else 0, op))
+        LAUNCHES["photometric_band_kernel"] += 1
+        return out
     if (xp | op) & 15:
         raise ValueError("photometric_kernel: x must start at a 16-byte "
                          "boundary")
-    nf, ni = VARIANTS[variant]
     grid = _ring.grid(dev, b, "photometric_blocks_per_sm", h, w)
     _ring.launch(dev, "photometric_kernel", "photometric_launch",
-                 (xp, noise.data_ptr(), fparams.data_ptr(), iparams.data_ptr(),
-                  b, h, w, nf, ni, int(variant == "medium"), grid, op))
+                 head + (grid, op))
     LAUNCHES["photometric_kernel"] += 1
     return out
 

@@ -15,6 +15,11 @@
         --distill_from logs/checkpoints/<run>/best_model.ckpt
     python -m nnue_vision_tpu_torch.train etinynet \\
         --config config/train_etinynet_test.py --device cpu
+    python -m nnue_vision_tpu_torch.train etinynet \\
+        --config config/train_etinynet_imagenet.py    # 224×224, on the card
+    NV_SKIP_ENGINE=1 python -m nnue_vision_tpu_torch.train etinynet \\
+        --config config/train_etinynet_imagenet.py --etinynet_variant micro \\
+        --batch_size 4 --synthetic_size 8 --max_epochs 1 --device cpu
 
 The port trains NNUE and EtinyNet on one device: the CUDA card unless
 --device names another (the root CLI likewise trains on JAX's default
@@ -22,9 +27,12 @@ device, the accelerator); without a card, --device cuda raises rather
 than train on the CPU. Before the first step the C++ engine is built into
 build/torch_engine/ and probed with four training images, as the root CLI
 does (NV_SKIP_ENGINE=1 skips it). The overrides are the root CLI's that
-apply to these models, plus --synthetic_size, which sizes a synthetic
-training set (the production configs name CIFAR-10, whose files the
-repository does not hold); runs are tracked locally under --log_dir.
+apply to these models, plus --etinynet_variant (a narrower EtinyNet, e.g.
+the micro one for a CPU run of a production config) and --synthetic_size,
+which sizes a synthetic training set (the production configs name CIFAR-10 and ImageNet, whose
+files the repository does not hold: a dataset that is not on disk, under
+data/raw or NV_DATA_DIR, trains on its synthetic fallback at its native
+size, 224×224 for ImageNet); runs are tracked locally under --log_dir.
 A config with checkpoint_backend="orbax" and resume=True continues from
 its latest step checkpoint.
 """
@@ -42,7 +50,7 @@ _OVERRIDES = (
     "augmentation_strength", "num_classes", "dataset_name", "seed",
     "synthetic_class_seed", "synthetic_size", "ef_warmup_epochs",
     "checkpoint_metric", "distill_from",
-    "eval_train_samples", "eval_batch_size",
+    "eval_train_samples", "eval_batch_size", "etinynet_variant",
 )
 
 
@@ -72,7 +80,7 @@ def setup_argument_parser() -> argparse.ArgumentParser:
                         choices=["light", "medium", "heavy"],
                         help="Augmentation strength")
     parser.add_argument("--dataset_name", type=str,
-                        choices=["cifar10", "cifar100", "synthetic",
+                        choices=["cifar10", "cifar100", "imagenet", "synthetic",
                                  "synthetic-hard"],
                         help="Dataset to use")
     parser.add_argument("--num_classes", type=int, help="Number of classes")
@@ -81,6 +89,9 @@ def setup_argument_parser() -> argparse.ArgumentParser:
                         help="Synthetic-hard generator variant")
     parser.add_argument("--synthetic_size", type=int,
                         help="Training images of a synthetic dataset")
+    parser.add_argument("--etinynet_variant",
+                        choices=["1.0", "0.75", "0.98M", "micro"],
+                        help="Override the EtinyNet width variant")
     parser.add_argument("--distill_from", type=str,
                         help="Checkpoint path of a frozen teacher for "
                              "knowledge distillation")

@@ -252,8 +252,11 @@ def train_model(config: Any, model_type: str,
     train_loader, val_loader, test_loader = create_data_loaders(
         dataset_name=getattr(config, "dataset_name", "cifar10"),
         batch_size=config.batch_size,
+        target_size=None,
         max_samples_per_split=getattr(config, "max_samples_per_split", None),
         subset=getattr(config, "subset", 1.0),
+        use_augmentation=getattr(config, "use_augmentation", True),
+        augmentation_strength=getattr(config, "augmentation_strength", "medium"),
         seed=getattr(config, "seed", 42),
         synthetic_size=getattr(config, "synthetic_size", 512),
         synthetic_class_seed=getattr(config, "synthetic_class_seed", None),

@@ -1,5 +1,8 @@
 """The warp (K4) and photometric (K5) Hopper kernels held bit-equal to their
-plain versions on a card, and a heavy-tier batch augmented on the card.
+plain versions on a card, K5's band path for images past one shared-memory
+slot (224×224, 160×200, and small images cut into many bands), a
+heavy-tier batch at 32×32 and a medium one at 224×224 (the gather warp,
+no K4) augmented on the card, and K4 refusing an odd side.
 
 Marked `gpu`; each test skips where there is no CUDA device. The file
 imports no jax, so it also runs on a machine without it:
@@ -175,3 +178,86 @@ def test_ring_wrappers_refuse(cuda):
         pk.photometric_block(y, y, f, i, variant="medium")
     with pytest.raises(ValueError, match="int32"):
         pk.photometric_block(x, x, f, i.long(), variant="medium")
+
+
+@pytest.mark.parametrize("b,h,w", [(256, 224, 224), (37, 224, 224), (37, 160, 200),
+                                   (5, 100, 100)])
+@pytest.mark.parametrize("variant", ["medium", "heavy_extra"])
+def test_photometric_band_path_equals_plain(cuda, variant, b, h, w):
+    """Images past one shared-memory slot take the band path (one count
+    per call), with every gate on, drawn and off."""
+    assert not pk.slot_fits(h, w)
+    gen = torch.Generator().manual_seed(b + h + w)
+    draw = (taug.draw_medium_photometric if variant == "medium"
+            else taug.draw_heavy_photometric)
+    f, i = draw(gen, b, h, w)
+    x = torch.rand((b, h, w, 3), generator=gen).to(cuda)
+    noise = torch.randn((b, h, w, 3), generator=gen).to(cuda)
+    on, off = f.clone(), f.clone()
+    on[:, GATES[variant]] = 1.0
+    off[:, GATES[variant]] = 0.0
+    for fp in (f, on, off):
+        args = (x, noise, fp.to(cuda), i.to(cuda))
+        before = dict(pk.LAUNCHES)
+        got = pk.photometric_block(*args, variant=variant)
+        assert pk.LAUNCHES["photometric_band_kernel"] == before["photometric_band_kernel"] + 1
+        assert pk.LAUNCHES["photometric_kernel"] == before["photometric_kernel"]
+        want = pk.photometric_block_reference(*args, variant=variant)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("b,h,w", [(7, 8, 8), (5, 13, 12), (3, 3, 4)])
+@pytest.mark.parametrize("variant", ["medium", "heavy_extra"])
+def test_photometric_band_path_at_small_shapes(cuda, monkeypatch, variant, b, h, w,
+                                               rows):
+    """The band path forced onto small images cut into many bands: band
+    edges, the halo rows of the blur and the equalize across bands."""
+    monkeypatch.setattr(pk, "slot_fits", lambda h, w: False)
+    monkeypatch.setattr(pk, "band_rows", lambda w: rows)
+    gen = torch.Generator().manual_seed(b * h * w + rows)
+    draw = (taug.draw_medium_photometric if variant == "medium"
+            else taug.draw_heavy_photometric)
+    f, i = draw(gen, b, h, w)
+    x = torch.rand((b, h, w, 3), generator=gen).to(cuda)
+    noise = torch.randn((b, h, w, 3), generator=gen).to(cuda)
+    for gate in [None] + GATES[variant]:
+        fp = f.clone()
+        if gate is not None:
+            fp[:, GATES[variant]] = 0.0
+            fp[:, gate] = 1.0
+        args = (x, noise, fp.to(cuda), i.to(cuda))
+        got = pk.photometric_block(*args, variant=variant)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pk.photometric_block_reference(*args, variant=variant)), gate
+
+
+def test_medium_batch_at_224_on_the_card(cuda):
+    """augment_batch at 224×224: the gather warp (no K4 launch) and one K5
+    launch on the band path, equal to the plain versions on the same
+    draws."""
+    images = torch.rand((16, 224, 224, 3), generator=torch.Generator().manual_seed(5))
+    images = images.to(cuda)
+    w0, p0 = wk.LAUNCHES["warp_kernel"], dict(pk.LAUNCHES)
+    draws = taug.draw_tier(torch.Generator().manual_seed(6), "medium", 16, 224, 224, cuda)
+    got = taug.apply_tier(images, draws, torch.Generator(device=cuda).manual_seed(7))
+    assert wk.LAUNCHES["warp_kernel"] == w0
+    assert pk.LAUNCHES["photometric_band_kernel"] == p0["photometric_band_kernel"] + 1
+    assert pk.LAUNCHES["photometric_kernel"] == p0["photometric_kernel"]
+    x = taug.warp_gather(images, draws.warp1)
+    x = pk.photometric_block_reference(
+        x, torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(7),
+                       device=cuda), *draws.photo1, variant="medium")
+    torch.cuda.synchronize()
+    assert torch.equal(got, x)
+
+
+def test_odd_square_in_the_two_pass_range_raises(cuda):
+    """A 33×33 batch takes the two-pass by JAX's rule; K4 wants an even n
+    and raises rather than fall back to the plain two-pass."""
+    assert taug.two_pass_warp(33, 33)
+    draws = taug.draw_tier(torch.Generator().manual_seed(8), "medium", 4, 33, 33, cuda)
+    with pytest.raises(ValueError, match="n even"):
+        taug.warp(torch.rand((4, 33, 33, 3), device=cuda), draws.warp1)

@@ -17,6 +17,7 @@ MODULES = [
     "nnue_vision_tpu_torch",
     "nnue_vision_tpu_torch.bridge",
     "nnue_vision_tpu_torch.data.augment",
+    "nnue_vision_tpu_torch.data.dataset_inspector",
     "nnue_vision_tpu_torch.data.datasets",
     "nnue_vision_tpu_torch.data.loaders",
     "nnue_vision_tpu_torch.formats",

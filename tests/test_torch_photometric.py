@@ -119,9 +119,13 @@ def test_plain_matches_pallas(variant, gates):
 
 
 @pytest.mark.parametrize("variant", ["medium", "heavy_extra"])
-@pytest.mark.parametrize("size", [32, 16])
+@pytest.mark.parametrize("size", [32, 16, 64, (40, 48)])
 def test_plain_matches_jax_unfused_chain(variant, size):
-    x, noise, f, i, theta = _draws(variant, 10, size, size, seed=size)
+    """At 32×32 and below, and at the sizes where the JAX package runs its
+    unfused chain and the card the band path (64×64, non-square 40×48)."""
+    h, w = (size, size) if isinstance(size, int) else size
+    x, noise, f, i, theta = _draws(variant, 10, h, w,
+                                   seed=h if h == w else h + w)
     got = _port(tpk.photometric_block, x, noise, f, i, variant)
     want = _jax_unfused(x, noise, f, i, theta, variant)
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)

@@ -379,7 +379,7 @@ def test_data_root_defaults_inside_the_checkout(monkeypatch):
     repo = Path(tdata.__file__).resolve().parents[2]
     assert tdata.default_data_root() == repo / "data" / "raw"
     with pytest.raises(ValueError, match="Unknown dataset"):
-        tdata.GenericVisionDataset("imagenet")
+        tdata.GenericVisionDataset("mnist")
 
 
 def test_loader_index_order_equals_jax():
