@@ -2,7 +2,8 @@
 
 The JAX package beside it is the reference this port is held against; the
 port imports `torch` and never `jax`. Ported so far: int8 serving and
-training of both model families (NNUE and EtinyNet) on one device:
+training of both model families (NNUE and EtinyNet), on one device
+or data-parallel over several:
 
 * `ops/engine_sim.py`: the bit-exact NNUE int8 engine simulation in plain
   torch — the oracle and the CPU path.
@@ -24,6 +25,13 @@ training of both model families (NNUE and EtinyNet) on one device:
   the C++ engine's build and start-up probe (`training/engine_build.py`),
   the engine backend (`evaluate_compiled_model`), bf16 compute for both
   families, distillation and step-checkpoint resume.
+
+* `parallel/`: data parallelism over `torch.distributed`, one process per
+  card (`distributed.py`: the group's initialization, torchrun's variables,
+  `spawn`; `mesh.py`: the mesh, its sharding helpers, the tensor-parallel
+  NNUE plan and the differentiable collectives): `train_model` and its CLI
+  train over a data group, and the evals and int8 serving split a batch
+  over it.
 
 * `profile_mega_bisect.py` and `profile_warp_split.py`: the profiling
   probes, on the stage-cut mega kernel and the single warp passes

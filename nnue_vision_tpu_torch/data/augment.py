@@ -31,6 +31,12 @@ device, seeded once from the host generator (`device_generator`).
 
 The tensor's device picks the realization: the kernels on a CUDA tensor,
 their plain versions on a CPU one.
+
+`shard=(index, count)`: the images are shard `index` of `count` equal
+shards of a global batch (a data-parallel rank's rows). Every draw, and
+the device noise, is made for the global batch, and the shard's rows are
+kept, so the shards of a dp step see what one process sees on the whole
+batch.
 """
 
 from __future__ import annotations
@@ -57,6 +63,14 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 STRENGTHS = ("light", "medium", "heavy")
 
 MV = Tuple[torch.Tensor, torch.Tensor]  # (M (B, 2, 2), v (B, 2)) float32
+Shard = Tuple[int, int]  # (index, count) of equal shards of a global batch
+WHOLE: Shard = (0, 1)
+
+
+def shard_rows(b: int, shard: Shard) -> slice:
+    """Shard `shard`'s rows of a global batch of b."""
+    index, count = shard
+    return slice(index * (b // count), (index + 1) * (b // count))
 
 
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
@@ -348,16 +362,19 @@ def _warp_params(mv: MV, h: int, w: int) -> torch.Tensor:
 
 
 def draw_tier(gen: torch.Generator, strength: str, b: int, h: int, w: int,
-              device) -> TierDraws:
-    """All of a medium or heavy step's per-sample draws, in the JAX
-    package's order (medium geometry, medium photometric, heavy geometry,
-    heavy photometric), packed on the host into one int32 buffer (float
-    fields bit-cast) and uploaded once."""
+              device, shard: Shard = WHOLE) -> TierDraws:
+    """All of a medium or heavy step's per-sample draws for a batch of b,
+    in the JAX package's order (medium geometry, medium photometric, heavy
+    geometry, heavy photometric), packed on the host into one int32 buffer
+    (float fields bit-cast) and uploaded once; of a sharded batch, only
+    the shard's rows."""
     fields = [_warp_params(draw_medium_geometry(gen, b, h, w), h, w),
               *draw_medium_photometric(gen, b, h, w)]
     if strength == "heavy":
         fields += [_warp_params(draw_heavy_geometry(gen, b, h, w), h, w),
                    *draw_heavy_photometric(gen, b, h, w)]
+    rows = shard_rows(b, shard)
+    fields = [f[rows] for f in fields]
     flat = torch.cat([f.reshape(-1).view(torch.int32) if f.is_floating_point()
                       else f.reshape(-1) for f in fields])
     buf = flat.to(device)
@@ -374,59 +391,75 @@ def draw_tier(gen: torch.Generator, strength: str, b: int, h: int, w: int,
     return TierDraws(views[0], (views[1], views[2]), None, None)
 
 
-def _noise(x: torch.Tensor, noise_gen: torch.Generator) -> torch.Tensor:
-    return torch.randn(x.shape, generator=noise_gen, device=x.device,
-                       dtype=torch.float32)
+def _noise(x: torch.Tensor, noise_gen: torch.Generator,
+           shard: Shard = WHOLE) -> torch.Tensor:
+    """Unit-normal noise of x's shape, drawn for the global batch of x's
+    shard (a copy of the shard's rows: aligned for the kernel)."""
+    count = shard[1]
+    noise = torch.randn((x.shape[0] * count,) + tuple(x.shape[1:]),
+                        generator=noise_gen, device=x.device,
+                        dtype=torch.float32)
+    return noise if count == 1 else noise[shard_rows(len(noise), shard)].clone()
 
 
 def apply_tier(x: torch.Tensor, draws: TierDraws,
-               noise_gen: torch.Generator) -> torch.Tensor:
+               noise_gen: torch.Generator, shard: Shard = WHOLE
+               ) -> torch.Tensor:
     """Warp (K4, or the gather) → medium photometric block (K5), then for
     heavy a second warp → heavy_extra block, with the two noise tensors
     drawn from `noise_gen` on x's device."""
     x = warp(x, draws.warp1)
-    x = photometric_block(x, _noise(x, noise_gen), *draws.photo1,
+    x = photometric_block(x, _noise(x, noise_gen, shard), *draws.photo1,
                           variant="medium")
     if draws.warp2 is not None:
         x = warp(x, draws.warp2)
-        x = photometric_block(x, _noise(x, noise_gen), *draws.photo2,
+        x = photometric_block(x, _noise(x, noise_gen, shard), *draws.photo2,
                               variant="heavy_extra")
     return x
 
 
-def _light(gen: torch.Generator, x: torch.Tensor) -> torch.Tensor:
+def _light(gen: torch.Generator, x: torch.Tensor,
+           shard: Shard = WHOLE) -> torch.Tensor:
     b, h, w, _ = x.shape
+    b_all = b * shard[1]
+    rows = shard_rows(b_all, shard)
     dev = x.device
-    flip = _bernoulli(gen, 0.5, b).to(dev)
+
+    def mine(draws):
+        return (t[rows].to(dev) for t in draws)
+
+    (flip,) = mine((_bernoulli(gen, 0.5, b_all),))
     x = torch.where(flip, x.flip(2), x)
-    x = apply_brightness_contrast(
-        x, *(t.to(dev) for t in _bc_draw(gen, b, 0.2, 0.1)))
+    x = apply_brightness_contrast(x, *mine(_bc_draw(gen, b_all, 0.2, 0.1)))
     return apply_cutout(
-        x, *(t.to(dev) for t in _cutout_draw(gen, b, h, w, 0.2, (0.05, 0.051))))
+        x, *mine(_cutout_draw(gen, b_all, h, w, 0.2, (0.05, 0.051))))
 
 
 def augment_batch(gen: torch.Generator, images: torch.Tensor,
                   strength: str = "medium",
-                  noise_gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """One augmentation tier on a float [0,1] NHWC batch. The medium and
-    heavy tiers draw their noise from `noise_gen`, a generator on the
-    images' device (default: one made from `gen` for this call)."""
+                  noise_gen: Optional[torch.Generator] = None,
+                  shard: Shard = WHOLE) -> torch.Tensor:
+    """One augmentation tier on a float [0,1] NHWC batch (shard `shard` of
+    a global batch). The medium and heavy tiers draw their noise from
+    `noise_gen`, a generator on the images' device (default: one made from
+    `gen` for this call)."""
     if strength not in STRENGTHS:
         raise ValueError(f"strength must be one of {STRENGTHS}")
     if strength == "light":
-        return _light(gen, images)
+        return _light(gen, images, shard)
     b, h, w, _ = images.shape
-    draws = draw_tier(gen, strength, b, h, w, images.device)
+    draws = draw_tier(gen, strength, b * shard[1], h, w, images.device, shard)
     if noise_gen is None:
         noise_gen = device_generator(gen, images.device)
-    return apply_tier(images.to(torch.float32), draws, noise_gen)
+    return apply_tier(images.to(torch.float32), draws, noise_gen, shard)
 
 
 def preprocess_batch(gen: torch.Generator, images: torch.Tensor,
                      strength: str = "medium", augment: bool = True,
-                     noise_gen: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
+                     noise_gen: Optional[torch.Generator] = None,
+                     shard: Shard = WHOLE) -> torch.Tensor:
     """augment (train only) → normalize, the device-side entry point of the
     train and eval loops."""
-    x = augment_batch(gen, images, strength, noise_gen) if augment else images
+    x = (augment_batch(gen, images, strength, noise_gen, shard) if augment
+         else images)
     return normalize_images(x)

@@ -3,8 +3,9 @@
 
 Val and test both read the test split, never augmented (the train loop
 augments train batches only); train shuffles (numpy
-`default_rng(seed + epoch)`, the JAX package's order) and drops the last
-partial batch, val and test keep it. The JAX package builds the test split
+`default_rng(seed + epoch)`, the JAX package's order, so every rank of a
+data-parallel run draws the same global batches and keeps its rows) and
+drops the last partial batch, val and test keep it. The JAX package builds the test split
 twice; here the val and test loaders share one dataset, the same arrays.
 Batches are numpy; the train loop gathers them on the device by index.
 `get_dataset_stats` and `calculate_dataset_statistics` describe a dataset

@@ -17,14 +17,23 @@ and the quantizer reads what it reads there. Activations are NHWC; the
 BatchNorm is written out: the JAX package normalizes with the *biased*
 batch variance and updates the running statistics with it, `new = 0.9·old
 + 0.1·batch` (`F.batch_norm` would use the unbiased one). The statistics
-and the affine run in float32 and the output is cast back to the
-activation dtype. The running statistics are buffers, updated in place by
-a forward in training mode (`model.train()`), which is what JAX's
-`new_stats` carries out of `etinynet_apply`.
+and the affine run in float32 (float64 for float64 activations) and the
+output is cast back to the activation dtype. The running statistics are
+buffers, updated in place by a forward in training mode (`model.train()`),
+which is what JAX's `new_stats` carries out of `etinynet_apply`. Under data parallelism
+(`data_axis` set on every norm, `bind_data_axis`) the training-mode
+statistics are those of the global batch, as GSPMD reduces them in the JAX
+package: two differentiable all-reduces, the sum for the mean and then the
+sum of (x − mean)² for the biased variance (the scale-only norms' mean
+square likewise), so the running statistics stay equal on every rank.
 
 With `dtype="bfloat16"` the convs and matmuls take bf16 operands (cast
 explicitly at each, as JAX does; no autocast), while params, the norm
-statistics and the logits stay float32. ReLU6 is `_clip` (jnp.clip's half
+statistics and the logits stay float32. `dtype="float64"` (not in the JAX
+package) runs the activations and the norms' statistics in float64 on the
+same float32 params: a verification mode, where the order of a sum stops
+mattering, so a data-parallel step can be held to one process's at a full
+batch. ReLU6 is `_clip` (jnp.clip's half
 gradient at a bound).
 
 `engine_friendly=True` trains the function the int8 engine computes: no
@@ -60,6 +69,7 @@ from nnue_vision_tpu_torch.formats import (
 )
 from nnue_vision_tpu_torch.models.nnue import _clip
 from nnue_vision_tpu_torch.ops.engine_sim import resolve_device
+from nnue_vision_tpu_torch.parallel.mesh import all_reduce
 from nnue_vision_tpu_torch.quantize import quantize_bias_i32, quantize_weight_i8
 
 ETINYNET_VARIANTS = {
@@ -99,7 +109,8 @@ ETINYNET_VARIANTS = {
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,7 +167,9 @@ def _check_config(cfg: EtinyNetConfig) -> None:
 
 class BatchNorm(nn.Module):
     """JAX's `_batch_norm` over NHWC: params `scale`, `bias`; running
-    statistics `mean`, `var` as buffers."""
+    statistics `mean`, `var` as buffers. `data_axis`: the data axis of a
+    mesh whose global batch the training statistics span (None: this
+    batch)."""
 
     def __init__(self, ch: int, device=None):
         super().__init__()
@@ -164,12 +177,22 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch, device=device))
         self.register_buffer("mean", torch.zeros(ch, device=device))
         self.register_buffer("var", torch.ones(ch, device=device))
+        self.data_axis = None
+
+    def _global_mean(self, v: torch.Tensor) -> torch.Tensor:
+        """The per-channel mean of v over the global batch's B, H, W."""
+        n = v.shape[0] * v.shape[1] * v.shape[2] * self.data_axis.size
+        return all_reduce(v.sum(dim=(0, 1, 2)), self.data_axis) / n
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
-            mean = xf.mean(dim=(0, 1, 2))
-            var = xf.var(dim=(0, 1, 2), unbiased=False)
+            if self.data_axis is not None:
+                mean = self._global_mean(xf)
+                var = self._global_mean((xf - mean) ** 2)
+            else:
+                mean = xf.mean(dim=(0, 1, 2))
+                var = xf.var(dim=(0, 1, 2), unbiased=False)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean
                                 + (1 - BN_MOMENTUM) * mean.detach())
@@ -185,9 +208,10 @@ class BatchNorm(nn.Module):
         """JAX's `_rms_norm`: y = x·g·rsqrt(E[x²] + eps), foldable into the
         conv before it as a per-channel scale. The running mean square is
         kept in `var`; `mean` and `bias` are not used."""
-        xf = x.to(torch.float32)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
-            ms = (xf * xf).mean(dim=(0, 1, 2))
+            ms = (self._global_mean(xf * xf) if self.data_axis is not None
+                  else (xf * xf).mean(dim=(0, 1, 2)))
             with torch.no_grad():
                 self.var.copy_(BN_MOMENTUM * self.var
                                + (1 - BN_MOMENTUM) * ms.detach())

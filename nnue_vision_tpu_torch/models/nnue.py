@@ -20,6 +20,14 @@ FT, the pairwise products and the dense layers compute in bf16 (each
 operand cast explicitly where JAX casts it; no autocast), while the params
 stay float32: QAT fake-quantizes them in float32 and the result is cast,
 the threshold mean is taken in float32, and the logits come back float32.
+
+Tensor parallelism (the JAX package's dp×tp mesh, `parallel/mesh.py`
+`shard_params`): with `tp_axis` set, `ft_w`, `ft_b` and `fc1_w` hold this
+rank's slice of L1; the forward computes its slice of the FT accumulator,
+all-gathers the slices before the pairwise product (which mixes the two
+halves), and runs `fc1` on its input-dimension shard, all-reducing the
+partial sums before the bias. QAT splits `fc1_w`'s columns at the global
+half, wherever a shard's columns lie.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from nnue_vision_tpu_torch.quantize import (
     quantize_weight_i8,
 )
 from nnue_vision_tpu_torch.ops.engine_sim import engine_conv_stride, resolve_device
+from nnue_vision_tpu_torch.parallel.mesh import all_gather, all_reduce
 
 DEFAULT_L1 = 1024
 DEFAULT_L2 = 128
@@ -191,6 +200,8 @@ class NNUE(nn.Module):
         self.out_w = p(cfg.num_classes, l3)
         self.out_b = p(cfg.num_classes)
         self.nnue2score = nn.Parameter(torch.tensor(600.0, device=device))
+        self.tp_axis = None  # the model axis when sharded (shard_params)
+        self.tp_sharded = ()
 
     def _qat_params(self) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
@@ -205,10 +216,11 @@ class NNUE(nn.Module):
         p["conv_w"] = cw + (cq - cw).detach()
         p["ft_w"] = _wq(p["ft_w"], 64)
         p["ft_b"] = _bq(p["ft_b"], 64)
-        p["fc1_w"] = torch.cat(
-            [_wq(p["fc1_w"][:, :half], 64), _wq(p["fc1_w"][:, half:], 32)],
-            dim=1,
-        )
+        # product columns at 64, linear ones at 32, split at the global half
+        w = p["fc1_w"]
+        start = self.tp_axis.index * w.shape[1] if self.tp_axis else 0
+        cut = min(max(half - start, 0), w.shape[1])
+        p["fc1_w"] = torch.cat([_wq(w[:, :cut], 64), _wq(w[:, cut:], 32)], dim=1)
         p["fc1_b"] = _bq(p["fc1_b"], 2048)
         p["fc2_w"] = _wq(p["fc2_w"], 64)
         p["fc2_b"] = _bq(p["fc2_b"], 4096)
@@ -253,6 +265,7 @@ class NNUE(nn.Module):
             features = F.pad(flat, (0, pad))
 
         ft = features @ p["ft_w"].to(dtype) + p["ft_b"].to(dtype)
+        ft = all_gather(ft, self.tp_axis, dim=1)  # the L1 slices, whole
         half = cfg.l1_size // 2
         if cfg.qat:
             # int16 FT clipped to [0,127] at scale 64, pairwise products at
@@ -260,13 +273,13 @@ class NNUE(nn.Module):
             ft = _clip(ft, 0.0, 127.0 / 64.0)
             a, bb = ft[:, :half], ft[:, half:]
             l0 = torch.cat([_clip(a * bb, 0.0, 127.0 / 32.0), a], dim=1)
-            h1 = _clip(self._linear(l0, p, "fc1"), 0.0, 127.0 / 64.0)
+            h1 = _clip(self._fc1(l0, p), 0.0, 127.0 / 64.0)
             h2 = _clip(self._linear(h1, p, "fc2"), 0.0, 127.0 / 64.0)
         else:
             # Reference float semantics: unclamped pairwise + ReLU.
             a, bb = ft[:, :half], ft[:, half:]
             l0 = torch.cat([a * bb, a], dim=1)
-            h1 = torch.relu(self._linear(l0, p, "fc1"))
+            h1 = torch.relu(self._fc1(l0, p))
             h2 = torch.relu(self._linear(h1, p, "fc2"))
         logits = self._linear(h2, p, "out").to(torch.float32)
 
@@ -279,6 +292,15 @@ class NNUE(nn.Module):
     @staticmethod
     def _linear(x, p, name):
         return x @ p[f"{name}_w"].T.to(x.dtype) + p[f"{name}_b"].to(x.dtype)
+
+    def _fc1(self, l0, p):
+        """fc1; sharded, on this rank's input columns, the partial sums
+        all-reduced over the model axis before the bias."""
+        if self.tp_axis is None:
+            return self._linear(l0, p, "fc1")
+        k = p["fc1_w"].shape[1]
+        part = l0.narrow(1, self.tp_axis.index * k, k) @ p["fc1_w"].T.to(l0.dtype)
+        return all_reduce(part, self.tp_axis) + p["fc1_b"].to(l0.dtype)
 
 
 def nnue_init(cfg: NNUEConfig, generator: torch.Generator, device="cuda"

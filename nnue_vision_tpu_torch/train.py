@@ -35,14 +35,34 @@ data/raw or NV_DATA_DIR, trains on its synthetic fallback at its native
 size, 224×224 for ImageNet); runs are tracked locally under --log_dir.
 A config with checkpoint_backend="orbax" and resume=True continues from
 its latest step checkpoint.
+
+Data-parallel training (one process per card, as the root CLI's default
+mesh spans every local chip): on a host with several visible cards, a
+plain run with max_devices other than 1 starts one worker per card (NCCL,
+a local rendezvous); under torchrun each process joins the group torchrun
+describes; across hosts, or on the CPU (gloo), give each process
+--coordinator, --num-hosts and --process-id:
+
+    torchrun --nproc_per_node 4 -m nnue_vision_tpu_torch.train nnue \
+        --config config/train_nnue_hard.py
+    python -m nnue_vision_tpu_torch.train nnue --config config/train_nnue_test.py \
+        --device cpu --coordinator file:///tmp/rdv --num-hosts 2 --process-id 0
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import socket
 import sys
 
+import torch
+
 from config import ConfigError, load_config
+from nnue_vision_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    spawn,
+)
 from nnue_vision_tpu_torch.training.logging import early_log
 
 _OVERRIDES = (
@@ -107,6 +127,15 @@ def setup_argument_parser() -> argparse.ArgumentParser:
                              "first N samples")
     parser.add_argument("--eval_batch_size", type=int,
                         help="Batch size for per-epoch evals")
+    parser.add_argument("--coordinator", type=str,
+                        help="Rendezvous of a data-parallel run, host:port or "
+                             "a file:// URL (torchrun's MASTER_ADDR:MASTER_PORT "
+                             "when absent); a process drives one card")
+    parser.add_argument("--num-hosts", type=int,
+                        help="Processes (cards) in the run (torchrun's "
+                             "WORLD_SIZE when absent)")
+    parser.add_argument("--process-id", type=int,
+                        help="This process's rank (torchrun's RANK when absent)")
     return parser
 
 
@@ -127,7 +156,27 @@ def load_and_setup_config(args: argparse.Namespace, model_type: str):
     return config
 
 
+def _one_worker_per_card(args, config) -> int:
+    """The number of local cards to start one worker each on: those visible,
+    for a plain run (no group given, none from torchrun) on the default
+    card with max_devices other than 1; else 0."""
+    if (args.coordinator or args.num_hosts or "WORLD_SIZE" in os.environ
+            or args.device != "cuda" or not torch.cuda.is_available()
+            or int(getattr(config, "max_devices", 0) or 0) == 1):
+        return 0
+    count = torch.cuda.device_count()
+    return count if count > 1 else 0
+
+
+def _card_worker(rank: int, argv, coordinator: str, nprocs: int) -> None:
+    rc = main(list(argv) + ["--coordinator", coordinator, "--num-hosts",
+                            str(nprocs), "--process-id", str(rank)])
+    if rc:
+        sys.exit(rc)
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = setup_argument_parser().parse_args(argv)
     try:
         config = load_and_setup_config(args, args.model_type)
@@ -135,10 +184,27 @@ def main(argv=None) -> int:
         early_log(f"Error loading configuration: {e}")
         return 1
 
+    cards = _one_worker_per_card(args, config)
+    if cards:
+        with socket.socket() as s:  # a free local port for the rendezvous
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        early_log(f"{cards} cards visible: one worker each (NCCL)")
+        spawn(_card_worker, cards, (argv, f"127.0.0.1:{port}", cards),
+              timeout_s=None)
+        return 0
+
     from nnue_vision_tpu_torch.training.loop import train_model
 
-    return train_model(config, args.model_type, wandb_run_id=args.wandb_run_id,
-                       device=args.device)
+    joined = initialize_distributed(
+        args.coordinator, args.num_hosts, args.process_id,
+        backend="gloo" if torch.device(args.device).type == "cpu" else None)
+    try:
+        return train_model(config, args.model_type,
+                           wandb_run_id=args.wandb_run_id, device=args.device)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

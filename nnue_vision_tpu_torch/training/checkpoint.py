@@ -16,6 +16,8 @@ per step under its root, holding `state.pt` (`torch.save` of the given
 state: the model's state dict, the optimizer state, the generators) and
 `metadata.json`, written under a temporary name and renamed into place,
 the oldest steps beyond `max_to_keep` removed. Writes are synchronous.
+In a data-parallel run rank 0 writes both kinds (a barrier follows each
+write, `training/loop.py`) and every rank reads a step it resumes from.
 """
 
 from __future__ import annotations

@@ -22,6 +22,13 @@ images and a repro script under `logs/compiled_eval_failures/`.
 
 All take a loader of raw (images [0, 1], labels) numpy batches, or a
 `ResidentEvalLoader`, whose split sits normalized on the device.
+
+Under a data-parallel mesh (`mesh=`), `evaluate_model` and
+`evaluate_int8_sim` split each batch over the data axis: each rank runs
+its rows through the float model or the int8 backend (K1, K2 or the sim;
+K6 is `ops/etiny_kernels.py`'s), and the logits and active counts are
+gathered (`parallel/mesh.py` `shard_map`), so every rank computes the
+metrics of the whole split, the int8 ones bit-equal to one process.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import tempfile
 import time
 from datetime import datetime
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +65,7 @@ from nnue_vision_tpu_torch.ops.nnue_kernels import (
     nnue_engine_forward_mega,
     pallas_head_params,
 )
+from nnue_vision_tpu_torch.parallel.mesh import Mesh, shard_map
 from nnue_vision_tpu_torch.training.engine_build import BUILD_DIR, tool_name
 from nnue_vision_tpu_torch.training.metrics import compute_metrics
 from nnue_vision_tpu_torch.training.step import eval_step
@@ -116,17 +124,18 @@ def _batches(loader, device):
         yield images.contiguous(), labels
 
 
-def evaluate_model(model: nn.Module, loader, *, device=None
+def evaluate_model(model: nn.Module, loader, *, device=None,
+                   mesh: Optional[Mesh] = None
                    ) -> Tuple[float, Dict[str, float]]:
     """Float-path evaluation: (mean per-sample CE loss averaged over
-    batches, metrics)."""
+    batches, metrics); under a mesh, each batch split over its data axis."""
     if device is None:
         device = next(model.parameters()).device
     total_loss, n_batches = 0.0, 0
     outs, targets = [], []
     for x, labels in _batches(loader, device):
         y = torch.as_tensor(np.asarray(labels), dtype=torch.int64, device=device)
-        loss, logits = eval_step(model, x, y)
+        loss, logits = eval_step(model, x, y, mesh)
         total_loss += float(loss) / len(labels)
         n_batches += 1
         outs.append(logits.cpu().numpy())
@@ -171,13 +180,14 @@ def _nnue_forward(sim_params, cfg, use_pallas):
 
 def evaluate_int8_sim(
     model: nn.Module, loader: Iterable[Tuple[np.ndarray, np.ndarray]], *,
-    use_pallas=False, device=None,
+    use_pallas=False, device=None, mesh: Optional[Mesh] = None,
 ) -> Dict[str, float]:
     """Metrics of the deployed int8 model over `loader`.
 
     `loader` yields (images (B, H, W, 3) float in [0, 1], labels (B,)),
     normalized here on `device` (default: the model's), or is a
-    `ResidentEvalLoader`.
+    `ResidentEvalLoader`. Under a mesh each batch is split over its data
+    axis and the outputs gathered.
     Returns acc/f1/precision/recall, `ms_per_sample` (host clock over the
     whole loop, which ends in a device-to-host copy of each batch's logits)
     and `latent_density`.
@@ -197,6 +207,11 @@ def evaluate_int8_sim(
         q = nnue_quantize(model)
         sim_params, cfg = nnue_sim_params(q, device=device)
         fwd = _nnue_forward(sim_params, cfg, use_pallas)
+    if mesh is not None:
+        whole = fwd
+
+        def fwd(x, h, w):
+            return shard_map(lambda rows: whole(rows, h, w), mesh)(x)
 
     outs, targets, densities = [], [], []
     n = 0

@@ -1,5 +1,5 @@
-"""The training loop on one device: train_model(config, "nnue" |
-"etinynet").
+"""The training loop: train_model(config, "nnue" | "etinynet"), on one
+device or data-parallel over a process group.
 
 Port of `nnue_vision_tpu/training/loop.py:57-90, 103-668`, with the same
 control flow, so the same steps take the same path: a training set that
@@ -30,7 +30,8 @@ written to `profile_dir/train_epoch0.trace.json` for chrome://tracing or
 Perfetto.
 
 Both families train in float32 or bfloat16 (`dtype`: the conv and matmul
-stack computes in it, the params stay float32). An EtinyNet's int8 eval
+stack computes in it, the params stay float32); an EtinyNet also in
+float64, a verification mode (`models/etinynet.py`). An EtinyNet's int8 eval
 is the engine sim whatever `compiled_backend` says, as in the JAX package.
 
 The C++ engine is held to the trained model as in the JAX loop: before the
@@ -56,8 +57,21 @@ replays epoch 0's shuffle and augmentation draws, the host and device
 generators and the loader's epoch: on the CPU a resumed run equals an
 uninterrupted one bit for bit.
 
-A mesh (`max_devices > 1`) is not ported yet and raises
-NotImplementedError.
+Data parallelism, as the JAX loop trains on a data mesh over every local
+chip: in a process group (`parallel/distributed.py`; one process per
+card) the loop trains over the largest n ≤ min(ranks, `max_devices` or
+all) that divides `batch_size` (JAX's width rule), so `max_devices=1`
+stays on one card; a rank outside those n says so and takes no step.
+Every rank builds the model from the same seed (checked by `replicate`),
+holds the whole training set, gathers its rows of each global batch, and
+draws the global batch's augmentation (K3, K4 and K5 run on its shard);
+the gradients are averaged over the group before the clip and the
+optimizer (`training/step.py`), an EtinyNet's norms reduce their
+statistics over the global batch, and the evals split each batch and
+gather its logits. Rank 0 alone runs the engine probe and the engine
+eval (their outcome broadcast, so a failure there stops every rank),
+logs, and writes checkpoints, each write followed by a barrier; every
+rank reads a resumed step checkpoint.
 """
 
 from __future__ import annotations
@@ -88,6 +102,14 @@ from nnue_vision_tpu_torch.models.nnue import (
 )
 from nnue_vision_tpu_torch.ops.engine_sim import resolve_device
 from nnue_vision_tpu_torch.ops.input_pipeline import prepare_gather_dataset
+from nnue_vision_tpu_torch.parallel.distributed import rank_and_world
+from nnue_vision_tpu_torch.parallel.mesh import (
+    Mesh,
+    bind_data_axis,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
 from nnue_vision_tpu_torch.training import checkpoint as ckpt
 from nnue_vision_tpu_torch.training.engine_build import (
     build_sanitizer_engine,
@@ -101,13 +123,16 @@ from nnue_vision_tpu_torch.training.evaluate import (
     maybe_resident,
 )
 from nnue_vision_tpu_torch.training.logging import (
+    default_run_name,
     early_log,
     init_run,
     replay_early_logs,
+    set_rank,
 )
 from nnue_vision_tpu_torch.training.optim import create_optimizer
 from nnue_vision_tpu_torch.training.step import (
     Teacher,
+    data_shard,
     gathered_train_step,
     make_train_state,
     scanned_train_steps_fused,
@@ -155,15 +180,47 @@ def build_model(config: Any, model_type: str, generator: torch.Generator,
     return nnue_init(model_cfg, generator, device=device), model_cfg
 
 
-def _refuse_unported(config: Any, model_type: str) -> None:
-    """NotImplementedError for what the port cannot train yet."""
-    if int(getattr(config, "max_devices", 0) or 0) > 1:
-        raise NotImplementedError(
-            "max_devices > 1 (a data-parallel mesh) is not ported to "
-            "nnue_vision_tpu_torch yet (ROADMAP Queue A item 4, mesh / DDP)")
+def _check_backend(config: Any) -> None:
     backend = getattr(config, "compiled_backend", "sim")
     if backend != "engine" and backend not in _USE_PALLAS:
         raise ValueError(f"unknown compiled_backend {backend!r}")
+
+
+def data_parallel_width(config: Any, world: int) -> int:
+    """JAX's width rule: the largest n ≤ min(world, `max_devices` or all)
+    that divides `batch_size`, so that every shard is equal."""
+    n = min(world, int(getattr(config, "max_devices", 0) or 0) or world)
+    while n > 1 and config.batch_size % n:
+        n -= 1
+    return n
+
+
+def _on_first_rank(mesh: Optional[Mesh], fn, what: str):
+    """fn() on the mesh's first rank alone (here without a mesh); the
+    outcome is broadcast, so that a failure there raises on every rank
+    instead of leaving the others waiting in a collective."""
+    if mesh is None:
+        return fn()
+    result, error = None, None
+    if mesh.first:
+        try:
+            result = fn()
+        except Exception as e:  # re-raised below, after the others know
+            error = e
+    ok, result = mesh.broadcast_object((error is None, result))
+    if error is not None:
+        raise error
+    if not ok:
+        raise RuntimeError(f"{what} failed on rank 0")
+    return result
+
+
+def _first_rank_writes(mesh: Optional[Mesh], fn) -> None:
+    """fn() (a file write) on the mesh's first rank, then a barrier."""
+    if mesh is None or mesh.first:
+        fn()
+    if mesh is not None:
+        mesh.barrier()
 
 
 def engine_probe(model, dataset, model_type: str) -> None:
@@ -226,9 +283,24 @@ def _stop_trace(trace: torch.profiler.profile, profile_dir: Path,
 def train_model(config: Any, model_type: str,
                 wandb_run_id: Optional[str] = None, *, device="cuda") -> int:
     """Train per `config` on `device`; returns 0. `wandb_run_id` names the
-    local run."""
-    _refuse_unported(config, model_type)
+    local run. In a process group every rank calls it, each with its card."""
+    _check_backend(config)
     dev = resolve_device(device)
+    rank, world = rank_and_world()
+    set_rank(rank)
+    mesh = None
+    if world > 1:
+        n = data_parallel_width(config, world)
+        mesh = make_mesh(n, device=dev)
+        width = (f"{n} of {world} ranks (batch_size {config.batch_size}, "
+                 f"max_devices {getattr(config, 'max_devices', None)})")
+        if not mesh.member:
+            print(f"rank {rank}: outside the data-parallel group of {width}; "
+                  "no step taken", flush=True)
+            return 0
+        early_log(f"Data-parallel over {width}")
+        if n == 1:
+            mesh = None
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     early_log(f"Using device {dev}"
@@ -236,8 +308,11 @@ def train_model(config: Any, model_type: str,
 
     run_cfg = {k: v for k, v in vars(config).items() if not k.startswith("__")}
     log_dir = getattr(config, "log_dir", "logs")
+    run_id = wandb_run_id or default_run_name()
+    if mesh is not None:
+        run_id = mesh.broadcast_object(run_id)  # one run on every rank
     run = init_run(getattr(config, "project_name", "nnue_vision_tpu"), run_cfg,
-                   run_id=wandb_run_id, log_dir=log_dir)
+                   run_id=run_id, log_dir=log_dir)
     early_log(f"Run: {run.name} ({run.url})")
     replay_early_logs()
     best_path = Path(log_dir) / "checkpoints" / run.name / "best_model.ckpt"
@@ -268,13 +343,17 @@ def train_model(config: Any, model_type: str,
     gen = torch.Generator().manual_seed(getattr(config, "seed", 42))
     model, model_cfg = build_model(config, model_type, gen, dev)
     early_log(f"Model: {model_type}, parameters: {count_parameters(model):,}")
+    if mesh is not None:
+        replicate(mesh, model)
+        bind_data_axis(model, mesh)
 
     steps_per_epoch = max(1, len(train_loader))
     optimizer = create_optimizer(config, steps_per_epoch)
-    state = make_train_state(model, optimizer)
+    state = make_train_state(model, optimizer, mesh)
     compiled_backend = getattr(config, "compiled_backend", "sim")
     if os.environ.get("NV_SKIP_ENGINE") != "1":
-        engine_probe(model, train_loader.dataset, model_type)
+        _on_first_rank(mesh, lambda: engine_probe(
+            model, train_loader.dataset, model_type), "the engine probe")
     elif compiled_backend == "engine":
         compiled_backend = "sim"
 
@@ -389,7 +468,8 @@ def train_model(config: Any, model_type: str,
                 )
             model.cfg = cfg_for(epoch)
             epoch_start = time.perf_counter()
-            trace = _start_trace(dev) if profile_dir and epoch == 0 else None
+            trace = (_start_trace(dev) if profile_dir and epoch == 0 and rank == 0
+                     else None)
             losses = []
 
             if device_data is not None:
@@ -424,10 +504,12 @@ def train_model(config: Any, model_type: str,
                     pos += len(chunk)
             else:
                 for batch_idx, (images, labels) in enumerate(train_loader):
+                    if mesh is not None:  # this rank's rows
+                        images, labels = shard_batch(mesh, (images, labels))
                     x = preprocess_batch(
                         gen, torch.from_numpy(images).to(dev),
                         strength=strength, augment=use_aug,
-                        noise_gen=noise_gen,
+                        noise_gen=noise_gen, shard=data_shard(mesh),
                     )
                     metrics = train_step(
                         state, x, torch.from_numpy(labels).to(dev),
@@ -448,14 +530,18 @@ def train_model(config: Any, model_type: str,
                     f"{losses[-1]}; {detail or 'params finite — loss path'}"
                 )
 
-            train_loss, train_metrics = evaluate_model(model, eval_train_loader)
-            val_loss, val_metrics = evaluate_model(model, eval_val_loader)
+            train_loss, train_metrics = evaluate_model(
+                model, eval_train_loader, mesh=mesh)
+            val_loss, val_metrics = evaluate_model(model, eval_val_loader,
+                                                   mesh=mesh)
             if compiled_backend == "engine":
-                compiled_metrics = evaluate_compiled_model(model, val_loader)
+                compiled_metrics = _on_first_rank(
+                    mesh, lambda: evaluate_compiled_model(model, val_loader),
+                    "the engine eval")
             else:
                 compiled_metrics = evaluate_int8_sim(
                     model, eval_val_loader,
-                    use_pallas=_USE_PALLAS[compiled_backend])
+                    use_pallas=_USE_PALLAS[compiled_backend], mesh=mesh)
 
             log_data = {
                 "train/epoch_loss": train_loss,
@@ -496,7 +582,7 @@ def train_model(config: Any, model_type: str,
                 # the best gate value rides along, so a resumed run never
                 # overwrites a better best model
                 t0 = time.perf_counter()
-                steps_ckpt.save(epoch, {
+                _first_rank_writes(mesh, lambda: steps_ckpt.save(epoch, {
                     "model": model.state_dict(),
                     "opt_state": state.opt_state,
                     "step": state.step,
@@ -506,11 +592,11 @@ def train_model(config: Any, model_type: str,
                     "loader_epoch": train_loader.epoch,
                 }, metadata={"model_type": model_type, "epoch": epoch,
                              "val_f1": float(val_metrics["f1"]),
-                             "best_val_f1": float(best_val_f1)})
+                             "best_val_f1": float(best_val_f1)}))
                 early_log(f"step checkpoint {epoch} written in "
                           f"{time.perf_counter() - t0:.4f} s")
             if is_new_best:
-                ckpt.save_checkpoint(
+                _first_rank_writes(mesh, lambda: ckpt.save_checkpoint(
                     best_path,
                     model_type=model_type,
                     model_config=model_cfg,
@@ -523,10 +609,11 @@ def train_model(config: Any, model_type: str,
                         "compiled_f1": compiled_metrics["f1"],
                     },
                     config_name=getattr(config, "name", ""),
-                )
+                ))
 
         model.cfg = model_cfg
-        test_loss, test_metrics = evaluate_model(model, eval_test_loader)
+        test_loss, test_metrics = evaluate_model(model, eval_test_loader,
+                                                 mesh=mesh)
         run.log({"test/f1": test_metrics["f1"], "test/loss": test_loss})
         early_log(
             f"Test: loss {test_loss:.4f} f1 {test_metrics['f1']:.4f} "

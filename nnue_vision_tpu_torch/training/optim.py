@@ -127,7 +127,10 @@ class Optimizer:
     `init(params)` makes the state: {"count": 0, "trace": {name: zeros}}
     for SGD, {"count", "mu", "nu"} for Adam. `step(params, grads, state)`
     updates the parameters and the state in place; a gradient of None
-    counts as zeros, so every parameter is decayed.
+    counts as zeros, so every parameter is decayed. `sq_norm`, given the
+    gradients by name, returns their squared global norm for the clip
+    where some are shards of a tensor-parallel model (default: the sum of
+    their squares).
     """
 
     def __init__(self, schedule: Callable[[int], float], *, kind: str,
@@ -152,12 +155,15 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor],
-             grads: Dict[str, Optional[torch.Tensor]], state: OptState) -> None:
+             grads: Dict[str, Optional[torch.Tensor]], state: OptState, *,
+             sq_norm: Optional[Callable[[Dict[str, torch.Tensor]],
+                                        torch.Tensor]] = None) -> None:
         names = list(params)
         g = [grads[n] if grads.get(n) is not None
              else torch.zeros_like(params[n]) for n in names]
         if self.max_grad_norm and self.max_grad_norm > 0:
-            norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
+            norm = torch.sqrt(sum(torch.sum(x * x) for x in g) if sq_norm is None
+                              else sq_norm(dict(zip(names, g))))
             keep = norm < self.max_grad_norm
             g = [torch.where(keep, x, x / norm * self.max_grad_norm) for x in g]
         if self.weight_decay:

@@ -24,7 +24,7 @@ pytestmark = pytest.mark.gpu
 GATES = {"medium": [0, 3, 7, 8, 10, 11, 15, 20, 22, 23],
          "heavy_extra": [0, 3, 7, 8, 10, 11]}
 # batches at the persistent grid's edges (132 SMs) and past one wave
-EDGE_BATCHES = [1, 37, 131, 132, 133, 1024, 4096]
+EDGE_BATCHES = [1, 37, 131, 132, 133, 512, 1024, 4096]  # 512: a dp rank's shard
 # the grid from the occupancy, one block per SM, and one block walking the
 # whole batch through its slot
 GRIDS = {"occupancy": None, "132": 132, "1": 1}

@@ -591,11 +591,11 @@ def test_ef_warmup_switches_config(tmp_path, monkeypatch, capsys):
     eval_flags = []
     f1s = iter([0.9, 0.9, 0.8, 0.8, 0.7, 0.7, 0.5])
 
-    def fake_eval(model, loader):
+    def fake_eval(model, loader, *, mesh=None):
         eval_flags.append(flag(model))
         return 1.0, {"f1": next(f1s), "acc": 0.5}
 
-    def fake_int8(model, loader, *, use_pallas=False):
+    def fake_int8(model, loader, *, use_pallas=False, mesh=None):
         eval_flags.append(flag(model))
         return {"f1": 0.5, "acc": 0.5, "ms_per_sample": 0.0, "latent_density": 0.0}
 
@@ -668,7 +668,7 @@ def test_synthetic_hard_ef_configs_are_not_refused(monkeypatch, name):
     monkeypatch.setenv("NV_SKIP_ENGINE", "1")
     cfg = load_config(str(REPO / "config" / f"train_etinynet_{name}.py"))
     assert cfg.engine_friendly and cfg.dataset_name == "synthetic-hard"
-    tloop._refuse_unported(cfg, "etinynet")
+    tloop._check_backend(cfg)
     model, mcfg = tloop.build_model(cfg, "etinynet", torch.Generator().manual_seed(0),
                                     "cpu")
     assert mcfg.engine_friendly and mcfg.ef_quantizers

@@ -125,6 +125,26 @@ def test_loss_grads_match_jax_f32():
                                    atol=1e-4 * scale, err_msg=name)
 
 
+def test_float64_forward_matches_jax_f32():
+    """dtype="float64", the port's verification mode (not in the JAX
+    package): float64 activations and norm statistics on the float32
+    params give JAX's float32 logits and new statistics at the float32
+    bar, float32 logits and float32 running statistics."""
+    jcfg, _ = _cfgs()
+    _, tcfg = _cfgs(dtype="float64")
+    params, stats = _model(seed=6)
+    x = _images(seed=7)
+    want, want_stats = jetiny.etinynet_apply(params, stats, jnp.asarray(x), jcfg,
+                                             train=True)
+    model = bridge.etinynet_from_jax(params, stats, tcfg, device="cpu").train()
+    got = model(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and model.stem_bn.mean.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    _, got_stats = bridge.etinynet_to_numpy(model)
+    _assert_tree_close(got_stats, jax.device_get(want_stats), atol=1e-5)
+
+
 def test_bf16_forward_matches_jax():
     """bf16 convs and matmuls, float32 norms, statistics and logits. The
     port's bf16 logits stay as close to JAX's bf16 logits as JAX's bf16

@@ -30,7 +30,8 @@ def _dataset(n, h, w, seed=0):
     return torch.from_numpy(rng.random((n, h, w, 3), np.float32))
 
 
-@pytest.mark.parametrize("h,w,batch", [(32, 32, 512), (16, 16, 37), (10, 10, 12)])
+@pytest.mark.parametrize("h,w,batch", [(32, 32, 512), (32, 32, 256), (16, 16, 37),
+                                       (10, 10, 12)])
 def test_kernel_equals_plain(cuda, h, w, batch):
     n = 64
     ds = ip.prepare_gather_dataset(_dataset(n, h, w).to(cuda))

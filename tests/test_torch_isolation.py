@@ -31,6 +31,9 @@ MODULES = [
     "nnue_vision_tpu_torch.ops.photometric_kernel",
     "nnue_vision_tpu_torch.ops.timing",
     "nnue_vision_tpu_torch.ops.warp_kernel",
+    "nnue_vision_tpu_torch.parallel",
+    "nnue_vision_tpu_torch.parallel.distributed",
+    "nnue_vision_tpu_torch.parallel.mesh",
     "nnue_vision_tpu_torch.profile_mega_bisect",
     "nnue_vision_tpu_torch.profile_train_step",
     "nnue_vision_tpu_torch.profile_warp_split",

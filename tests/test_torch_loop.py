@@ -130,13 +130,20 @@ def test_cli_trains(env, capsys):
 @pytest.mark.parametrize("attr,value,match", [
     ("max_devices", 4, "mesh"),
 ])
-def test_unported_options_raise(env, attr, value, match):
-    """A data-parallel mesh is the one option the port's loop refuses."""
+def test_unported_options_raise(env, capsys, attr, value, match):
+    """The loop refuses no option now: a data-parallel width
+    (`max_devices` > 1) in one process trains on its one device, as the
+    JAX loop does on one chip; only a `compiled_backend` that is none
+    (here "mesh") raises, before any work."""
     cfg, tmp_path = env
     setattr(cfg, attr, value)
-    with pytest.raises(NotImplementedError, match=match):
+    assert tloop.train_model(cfg, "nnue", device="cpu") == 0
+    assert "Data-parallel" not in capsys.readouterr().out
+    cfg.compiled_backend = match
+    cfg.log_dir = str(tmp_path / "refused")
+    with pytest.raises(ValueError, match="compiled_backend"):
         tloop.train_model(cfg, "nnue", device="cpu")
-    assert not (tmp_path / "logs").exists()  # raised before any work
+    assert not (tmp_path / "refused").exists()  # raised before any work
 
 
 def test_cuda_request_raises_without_cuda(env):
