@@ -4,8 +4,9 @@ its EtinyNet int8 serving path, its EtinyNet training path, its
 engine_friendly EtinyNet path (progressive QAT → LSQ-folded `.etiny` →
 K6), its profiling path, the train loop's engine probe and engine
 backend, bf16 NNUE, distillation and resume, EtinyNet-1.0 at ImageNet's
-224×224, and data-parallel training and sharded serving over spawned
-ranks once on one CUDA card.
+224×224, data-parallel training and sharded serving over spawned
+ranks, and the deployment entry points (the serialize, evaluate and stream
+CLIs, the model facade, the upstream import) once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -197,6 +198,35 @@ Phases, one line each (any failure raises and exits non-zero):
              from the threshold), L1 split over the model axis; loss and
              params within 1e-5 of one process
 35. launches the kernels launched on each rank in 31-33
+36. serialize  python -m nnue_vision_tpu_torch.serialize as four subprocesses
+             at once, on the card: (a) phase 10's best_model.ckpt (flagship
+             widths), (b) an upstream-layout state dict at those widths
+             (seeded torch.Generator, under "state_dict", torch.save),
+             (c) phase 18's engine_friendly best_model.ckpt, (d) phase 15's
+             0.98M one without --force (the deployment warning on stderr);
+             each file's bytes equal to the in-process quantize + write;
+             the .nnue files through K1 and the .etiny files through K6 at
+             batch 8192, torch.equal to the sim; the C++ engine held to K1 on
+             64 val images (as phase 23); the CLIs' wall seconds
+37. evaluate python -m nnue_vision_tpu_torch.evaluate on (a) with --compiled
+             on phase 10's 5,000 held-out images: its int8-sim metrics
+             (all but ms_per_sample) equal to evaluate_int8_sim with
+             use_pallas="mega" (K1) to every printed digit, its engine
+             accuracy and F1 equal to its int8-sim ones; wall seconds
+38. stream   the stream demo's pan on (a)'s .nnue, 256 streams × 64 frames:
+             every frame's incremental logits torch.equal to K1's full
+             forward and the sim's; python -m
+             nnue_vision_tpu_torch.stream_inference_demo exits 0; after 40,
+             ms per frame of the full forward through K1, through the sim
+             and of the incremental forward (CUDA events around the frame
+             loop, median of 20)
+39. facade   models.api.NNUE at flagship widths on the card: its call
+             torch.equal to its module's forward, its .quantize() through K1
+             torch.equal to the sim; models.api.EtinyNet("0.98M")'s
+             count_flops and count_parameters; (b) through
+             torch_import.load_torch_checkpoint_auto onto the card, every
+             param equal to the saved tensor
+40. launches K1 and K6 launched in 36-39 (every count set to 0 before 36)
 
 Every train_model run (phases 10, 15, 18, 21, 24-26, 28) builds the C++ engine
 (a no-op after phase 2) and probes it before its first step, as a user's
@@ -207,8 +237,8 @@ plain version, the card's bound for the same work and, where one PyTorch
 call computes the same function, that call; K6's are its 12 LB blocks
 alone at batch 8192, graph-timed too, once on the 0.98M model and again,
 as a second entry, on the engine_friendly 0.75 `.etiny` of phase 18, whose
-launches the first entry's count includes; K7's level 3; K3, K4, K5, the
-single pass and K8 also graph-timed, with their host cost per call; K5's
+launches the first entry's count includes; K7's level 3; K1, K2, K3, K4,
+K5, the single pass and K8 also graph-timed, with their host cost per call; K5's
 band path at 224 as a second K5 entry; each kernel of 31-33 also its
 launches per rank, which its `launches` includes), the card's name and
 power limit, and the last line
@@ -225,6 +255,7 @@ import io
 import json
 import math
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -251,6 +282,10 @@ from nnue_vision_tpu_torch import (
 )
 from config import load_config
 from nnue_vision_tpu_torch import deploy_etiny, profile_mega_bisect, profile_warp_split
+from nnue_vision_tpu_torch import stream_inference_demo as sid
+from nnue_vision_tpu_torch import torch_import
+from nnue_vision_tpu_torch.data.loaders import create_data_loaders
+from nnue_vision_tpu_torch.models import api
 from nnue_vision_tpu_torch.profile_augment import grid_sample_pass, host_ms
 from nnue_vision_tpu_torch.quantize import quantize_weight_i8
 from nnue_vision_tpu_torch.bridge import nnue_from_jax_params
@@ -1956,6 +1991,259 @@ def dp_phases(errs: Errors, smi: str, model, qe) -> dict:
     return dp
 
 
+# ---------------------------------------------------------------------------
+# phases 36-40: the deployment entry points
+# ---------------------------------------------------------------------------
+
+# a few requests: the CLIs on checkpoints of earlier phases (the evaluate
+# CLI on phase 10's held-out split: its dataset, size and seed), the stream
+# at the demo's defaults
+EVAL_SPLIT = ("--dataset", "synthetic-hard", "--synthetic_size", "20000",
+              "--batch_size", "1024", "--seed", str(SEED))
+STREAM_FRAMES, STREAM_BATCH = 64, 256
+ENGINE_IMAGES = 64
+UPSTREAM_KEYS = {  # the port's NNUE parameter → its upstream state-dict key
+    "conv_w": "conv.weight", "visual_threshold": "visual_threshold",
+    "ft_w": "input.weight", "ft_b": "input.bias",
+    "fc1_w": "classifier.classifier.0.weight",
+    "fc1_b": "classifier.classifier.0.bias",
+    "fc2_w": "classifier.classifier.2.weight",
+    "fc2_b": "classifier.classifier.2.bias",
+    "out_w": "classifier.classifier.4.weight",
+    "out_b": "classifier.classifier.4.bias", "nnue2score": "nnue2score",
+}
+
+
+def port_cli(module: str, *args) -> tuple:
+    """`python -m nnue_vision_tpu_torch.<module> ARGS` from the repository
+    root, on the card (the default): (stdout, stderr, wall seconds); a
+    non-zero exit fails the run."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"nnue_vision_tpu_torch.{module}", *map(str, args)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{module} {args} exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    return proc.stdout, proc.stderr, seconds
+
+
+def cli_lines(out: str) -> dict:
+    """{"float" | "int8-sim" | "engine": {metric: printed text}}."""
+    lines = {}
+    for line in out.splitlines():
+        tag, _, rest = line.partition(": ")
+        if tag in ("float", "int8-sim", "engine"):
+            lines[tag] = dict(kv.split("=") for kv in rest.split())
+    return lines
+
+
+def upstream_state_dict(cfg: NNUEConfig, gen: torch.Generator) -> dict:
+    """An upstream NNUE state dict at `cfg`'s widths (`input.weight` is
+    (F, L1)), with the JAX package's init ranges, from `gen`."""
+    fs = cfg.feature_set
+    ch, l1, l2, l3, c = (fs.num_features_per_square, cfg.l1_size, cfg.l2_size,
+                         cfg.l3_size, cfg.num_classes)
+
+    def u(fan_in, *shape):
+        return (torch.rand(shape, generator=gen) * 2 - 1) / math.sqrt(fan_in)
+
+    return {
+        "conv.weight": u(27, ch, 3, 3, 3),
+        "visual_threshold": torch.full((ch,), 0.1),
+        "input.weight": torch.randn((fs.num_features, l1), generator=gen) * 0.1,
+        "input.bias": torch.randn((l1,), generator=gen) * 0.05,
+        "classifier.classifier.0.weight": u(l1, l2, l1),
+        "classifier.classifier.0.bias": u(l1, l2),
+        "classifier.classifier.2.weight": u(l2, l3, l2),
+        "classifier.classifier.2.bias": u(l2, l3),
+        "classifier.classifier.4.weight": u(l3, c, l3),
+        "classifier.classifier.4.bias": u(l3, c),
+        "nnue2score": torch.tensor(600.0),
+    }
+
+
+def serve_file(errs: Errors, path: Path, gen: torch.Generator, tag: str) -> None:
+    """A written `.nnue` through K1, or `.etiny` through K6, at the timing
+    batch, torch.equal to the sim."""
+    x = normalize_images(torch.rand((TIMING_BATCH, H, W, 3), generator=gen,
+                                    device="cuda")).contiguous()
+    kw = dict(image_h=H, image_w=W)
+    if path.suffix == ".nnue":
+        sim, kw["cfg"] = nnue_sim_params(read_nnue(path), device="cuda")
+        head = nk.mega_head_params(sim, kw["cfg"], H, W)
+        errs.outputs("nnue_mega_kernel", f"{tag} K1 vs sim",
+                     nk.nnue_engine_forward_mega(head, x.reshape(len(x), -1), **kw),
+                     nnue_engine_forward(sim, x, **kw))
+    else:
+        sim, kw["cfg"] = etiny_sim_params(read_etiny(path), device="cuda")
+        errs.equal("etiny_block_kernel", f"{tag} K6 vs sim",
+                   ek.etiny_forward_kernel(ek.etiny_kernel_params(sim, kw["cfg"]), x,
+                                           **kw),
+                   etiny_engine_forward(sim, x, **kw))
+    torch.cuda.synchronize()
+
+
+def stream_check(errs: Errors, sim, cfg, head, frames: torch.Tensor) -> None:
+    """Every frame's incremental logits torch.equal to K1's full forward and
+    to the plain sim's."""
+    kw = dict(cfg=cfg, image_h=H, image_w=W)
+    flat = frames.reshape(len(frames), len(frames[0]), -1)
+    for t, inc in enumerate(sid.incremental_logits(sim, cfg, frames), start=1):
+        k1 = nk.nnue_engine_forward_mega(head, flat[t], **kw)[0]
+        errs.equal("nnue_mega_kernel", f"stream frame {t}: K1 vs incremental",
+                   k1, inc)
+        check(torch.equal(inc, sid.full_logits(sim, cfg, frames[t])),
+              f"stream frame {t}: incremental differs from the sim")
+    torch.cuda.synchronize()
+
+
+def deploy_phases(errs: Errors, smi: str, nnue_payload: dict, ef_payload: dict,
+                  etiny_payload: dict, val) -> dict:
+    """Phases 36-40: the serialize, evaluate and stream CLIs, the facade and
+    the upstream import on the card. `nnue_payload` is phase 10's
+    best_model.ckpt (flagship widths), `ef_payload` phase 18's
+    engine_friendly one, `etiny_payload` phase 15's 0.98M one (not
+    engine_friendly); `val` phase 10's val split. Returns K1's and K6's
+    launches in 36-39."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 36)
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    reset_launches()
+
+    # 36. serialize — (a) phase 10's checkpoint, (b) an upstream state
+    # dict, (c) phase 18's ef checkpoint, (d) phase 15's 0.98M, no --force
+    ckpts = {}
+    for name, payload in (("a", nnue_payload), ("c", ef_payload),
+                          ("d", etiny_payload)):
+        ckpts[name] = tmp / f"{name}.ckpt"
+        with open(ckpts[name], "wb") as f:
+            pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+    up_cfg = nnue_from_checkpoint(nnue_payload, device="cuda").cfg
+    up_sd = upstream_state_dict(up_cfg, torch.Generator().manual_seed(SEED))
+    ckpts["b"] = tmp / "b.pt"
+    torch.save({"state_dict": up_sd}, ckpts["b"])
+    outs = {k: tmp / f"{k}.{'etiny' if k in 'cd' else 'nnue'}" for k in ckpts}
+    with ThreadPoolExecutor(len(ckpts)) as pool:  # the four CLIs at once
+        runs = dict(zip(ckpts, pool.map(
+            lambda k: port_cli("serialize", ckpts[k], outs[k]), ckpts)))
+    models = {
+        "a": nnue_from_checkpoint(nnue_payload, device="cuda"),
+        "b": torch_import.load_torch_checkpoint_auto(ckpts["b"], device="cuda")[1],
+        "c": etinynet_from_checkpoint(ef_payload, device="cuda"),
+        "d": etinynet_from_checkpoint(etiny_payload, device="cuda"),
+    }
+    for k, model in models.items():
+        ref = tmp / f"{k}.inprocess{outs[k].suffix}"
+        if outs[k].suffix == ".nnue":
+            write_nnue(nnue_quantize(model), ref)
+        else:
+            write_etiny(etinynet_quantize(model), ref)
+        check(outs[k].read_bytes() == ref.read_bytes(),
+              f"serialize ({k}): the CLI's bytes differ from the in-process ones")
+        serve_file(errs, outs[k], gen, f"serialized ({k})")
+    warning = "NOT trained engine_friendly"
+    check(warning in runs["d"][1], "no deployment warning for the 0.98M checkpoint")
+    check(all(warning not in runs[k][1] for k in "abc"), "a warning for an "
+          "NNUE or an engine_friendly checkpoint")
+    engine = hold_engine(errs, models["a"], val.images[:ENGINE_IMAGES],
+                         val.labels[:ENGINE_IMAGES], ENGINE_IMAGES,
+                         "serialized (a)")
+    say("serialize", "python -m nnue_vision_tpu_torch.serialize, wall seconds "
+        "(the four at once): " + ", ".join(
+            f"({k}) {outs[k].stat().st_size}-byte {outs[k].suffix} "
+            f"{runs[k][2]:.2f} s" for k in ckpts)
+        + "; each file's bytes equal to the in-process quantize + write; the "
+        f".nnue files through K1 and the .etiny files through K6 at B="
+        f"{TIMING_BATCH} equal to the sim (tolerance: none, torch.equal); the "
+        "0.98M checkpoint's deployment warning on stderr; the C++ engine on "
+        f"{engine['n']} val images equal to K1 as printed")
+
+    # 37. evaluate — the CLI on (a) against K1 in process
+    out, _, seconds = port_cli("evaluate", ckpts["a"], *EVAL_SPLIT, "--compiled")
+    lines = cli_lines(out)
+    kw = dict(zip(EVAL_SPLIT[::2], EVAL_SPLIT[1::2]))
+    loader = create_data_loaders(
+        dataset_name=kw["--dataset"], batch_size=int(kw["--batch_size"]),
+        use_augmentation=False, seed=SEED,
+        synthetic_size=int(kw["--synthetic_size"]))[2]
+    mega = evaluate_int8_sim(models["a"], loader, use_pallas="mega")
+    for k in ("acc", "f1", "precision", "recall", "latent_density"):
+        check(lines["int8-sim"][k] == f"{mega[k]:.4f}", f"evaluate CLI int8-sim "
+              f"{k} {lines['int8-sim'][k]} differs from K1's {mega[k]:.4f}")
+    for k in ("acc", "f1"):
+        check(lines["engine"][k] == lines["int8-sim"][k],
+              f"evaluate CLI: engine {k} differs from int8-sim")
+    say("evaluate", f"python -m nnue_vision_tpu_torch.evaluate (a) --compiled on "
+        f"{len(loader.dataset.labels)} synthetic-hard held-out images in "
+        f"{seconds:.2f} s: " + " | ".join(
+            f"{tag}: " + " ".join(f"{k}={v}" for k, v in m.items())
+            for tag, m in lines.items())
+        + "; int8-sim equal to evaluate_int8_sim(use_pallas='mega') (K1) to "
+        "every printed digit, engine accuracy and F1 equal to int8-sim")
+
+    # 38. stream — the demo's pan on (a)'s .nnue, incremental against K1
+    sim, cfg = nnue_sim_params(read_nnue(outs["a"]), device="cuda")
+    head = nk.mega_head_params(sim, cfg, H, W)
+    frames = torch.from_numpy(sid.pan_frames(STREAM_FRAMES, STREAM_BATCH)).cuda()
+    stream_check(errs, sim, cfg, head, frames)
+    demo, _, demo_s = port_cli("stream_inference_demo")
+    check(f"{STREAM_FRAMES - 1} frames × {STREAM_BATCH} streams, 0 mismatches"
+          in demo, f"stream demo: {demo}")
+    say("stream", f"{STREAM_BATCH} streams × {STREAM_FRAMES} frames on (a)'s "
+        ".nnue: every frame's incremental logits equal to K1's and the sim's "
+        "(tolerance: none, torch.equal); python -m "
+        f"nnue_vision_tpu_torch.stream_inference_demo exit 0 in {demo_s:.2f} s: "
+        + " | ".join(demo.strip().splitlines()[:4]))
+
+    # 39. facade and import
+    fac = api.NNUE(num_classes=10, seed=SEED, device="cuda")
+    x = normalize_images(torch.rand((TIMING_BATCH, H, W, 3), generator=gen,
+                                    device="cuda")).contiguous()
+    with torch.no_grad():
+        check(torch.equal(fac(x), fac.module(x)), "facade differs from its module")
+    fsim, fcfg = nnue_sim_params(fac.quantize(), device="cuda")
+    fkw = dict(cfg=fcfg, image_h=H, image_w=W)
+    errs.outputs("nnue_mega_kernel", "facade .quantize() K1 vs sim",
+                 nk.nnue_engine_forward_mega(nk.mega_head_params(fsim, fcfg, H, W),
+                                             x.reshape(len(x), -1), **fkw),
+                 nnue_engine_forward(fsim, x, **fkw))
+    efac = api.EtinyNet("0.98M", num_classes=10, input_size=32, device="cuda")
+    imported = models["b"]
+    check(next(imported.parameters()).is_cuda, "the import is not on the card")
+    for name, key in UPSTREAM_KEYS.items():
+        check(torch.equal(getattr(imported, name).detach().cpu(), up_sd[key]),
+              f"imported {name} differs from the saved {key}")
+    say("facade", f"models.api.NNUE (flagship widths, {fac.count_parameters()} "
+        "params) on the card: its call equal to its module's forward, its "
+        f".quantize() through K1 at B={TIMING_BATCH} equal to the sim; "
+        f"models.api.EtinyNet('0.98M', 10 classes, 32x32): count_flops "
+        f"{efac.count_flops()}, count_parameters {efac.count_parameters()}; "
+        "torch_import of (b) on the card: every param equal to the saved tensor")
+
+    # 40. launches
+    counts = {k: launch_counts()[k] for k in ("nnue_mega_kernel", "etiny_block_kernel")}
+    check(all(n > 0 for n in counts.values()),
+          f"a kernel of 36-39 never launched: {counts}")
+    say("launches", "deployment " + json.dumps(counts))
+
+    # 38's timing, after the count: ms per frame of the three forwards
+    flat = frames.reshape(STREAM_FRAMES, STREAM_BATCH, -1)
+    skw = dict(cfg=cfg, image_h=H, image_w=W)
+    stream_ms = {name: time_median(fn) / STREAM_FRAMES for name, fn in {
+        "full forward, K1": lambda: [nk.nnue_engine_forward_mega(head, f, **skw)
+                                     for f in flat],
+        "full forward, sim": lambda: [sid.full_logits(sim, cfg, f) for f in frames],
+        "incremental": lambda: list(sid.incremental_logits(sim, cfg, frames)),
+    }.items()}
+    say("timing", f"stream, {STREAM_BATCH} streams, ms per frame (CUDA events "
+        f"around the {STREAM_FRAMES}-frame loop, median of {TIMING_RUNS}): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in stream_ms.items()) + f" on {smi}")
+    tmp_dir.cleanup()
+    return counts
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2113,10 +2401,13 @@ def main() -> int:
         say("timing", f"B={batch} {name}: kernel {k:.4f} ms "
             f"({batch / k * 1e3:,.0f} img/s), plain {p:.4f} ms "
             f"({batch / p * 1e3:,.0f} img/s) on {smi}")
-    graph_ms = chained_best_ms(
-        lambda: nk.nnue_engine_forward_mega(mega, flat, **kw)[0], GRAPH_REPS)
-    say("timing", f"B={TIMING_BATCH} mega f32, graph-timed ({GRAPH_REPS} calls "
-        f"per CUDA graph, best of 3): {graph_ms:.4f} ms on {smi}")
+    for name, fn in (
+            ("nnue_mega_kernel", lambda: nk.nnue_engine_forward_mega(mega, flat, **kw)[0]),
+            ("nnue_head_kernel", lambda: nk._head_launch(head, acc, **hkw)[0])):
+        extra[name] = (chained_best_ms(fn, GRAPH_REPS), host_ms(fn))
+        say("timing", f"B={TIMING_BATCH} {name}, graph-timed ({GRAPH_REPS} calls "
+            f"per CUDA graph, best of 3): {extra[name][0]:.4f} ms, host "
+            f"{extra[name][1]:.4f} ms per call on {smi}")
     info = (ctypes.c_int * 6)()
     for batch in (TIMING_BATCH, 512, 1):
         check(load_library().lib.nnue_mega_tile(
@@ -2697,6 +2988,9 @@ def main() -> int:
     dp = dp_phases(errs, smi, model, qe)
     for name, per_rank in dp.items():
         launches[name] += sum(per_rank)
+    for name, count in deploy_phases(errs, smi, payload, efpayload, epayload,
+                                     val).items():
+        launches[name] += count
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -33,6 +33,14 @@ or data-parallel over several:
   train over a data group, and the evals and int8 serving split a batch
   over it.
 
+* The deployment entry points: `serialize.py` and `evaluate.py` (the
+  root CLIs' counterparts: checkpoint → `.nnue` / `.etiny`, and float,
+  int8-sim and engine metrics), `torch_import.py` (upstream PyTorch
+  checkpoints), the incremental NNUE accumulator in `ops/engine_sim.py`
+  with `stream_inference_demo.py`, `models/api.py` (the object facade),
+  `training/utils.py` (run utilities) and `cloud/` (a one-H100 GPU VM
+  launcher; the loop stops the instance when a run ends).
+
 * `profile_mega_bisect.py` and `profile_warp_split.py`: the profiling
   probes, on the stage-cut mega kernel and the single warp passes
   (`ops/timing.py` times them in CUDA graphs), and `train_model`'s

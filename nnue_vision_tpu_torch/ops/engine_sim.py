@@ -6,6 +6,9 @@ the logits and active-feature counts of the C++ `nnue_inference` binary,
 and `etiny_engine_forward` the logits of `etinynet_inference`, bit for bit.
 They are the plain oracles the Hopper kernels of `nnue_kernels.py` and
 `etiny_kernels.py` are held against, and the paths a CPU tensor takes.
+`nnue_feature_mask`, `nnue_accumulator_refresh`, `nnue_accumulator_update`
+and `nnue_head_from_accumulator` split the NNUE forward at the FT
+accumulator for streams of frames (incremental updates).
 
 The integer contract is the JAX module's (see its docstring for the engine
 citations): `int32(x * 64.0f)` input quantization, int32 conv accumulation
@@ -213,22 +216,20 @@ def feature_transform(
     `thresh` is a float32 scalar tensor (nnue_engine.h:246 compares floats).
     """
     mask = buf.to(torch.float32) > thresh
-    # Feature transformer: int16 accumulator with wraparound
-    # (simd_scalar.cpp:78-95) == exact sum reduced mod 2^16.
-    ft = _dot(mask, params["ft_w"]) + params["ft_b"].to(torch.int64)
-    return torch.clamp(_wrap_i16(ft), 0, cfg.quantized_one), mask
+    return _ft_activation(nnue_accumulator_refresh(params, mask), cfg), mask
 
 
-def nnue_tail(
-    params: Dict[str, torch.Tensor], buf: torch.Tensor,
-    thresh: torch.Tensor, cfg: NNUESimCfg,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Engine from the (B, F) grid buffer to (logits, active_count):
-    `feature_transform`, then pairwise and the dense stack, with the
-    weights in `.nnue` layout: `ft_w` (F, L1), `fc*_w` (out, in)."""
-    ft, mask = feature_transform(params, buf, thresh, cfg)
-    active_count = mask.sum(dim=1, dtype=torch.int32)
+def _ft_activation(acc: torch.Tensor, cfg: NNUESimCfg) -> torch.Tensor:
+    """The FT accumulator's int16 wraparound (simd_scalar.cpp:78-95: the
+    exact sum reduced mod 2^16), then the clipped ReLU."""
+    return torch.clamp(_wrap_i16(acc.to(torch.int64)), 0, cfg.quantized_one)
 
+
+def nnue_head(params: Dict[str, torch.Tensor], ft: torch.Tensor,
+              cfg: NNUESimCfg) -> torch.Tensor:
+    """The engine after the feature transformer: (B, L1) clipped FT values
+    → pairwise → the dense stack → float logits (B, classes), with the
+    weights in `.nnue` layout: `fc*_w` (out, in)."""
     # Pairwise interaction (nnue_engine.cpp:491-500).
     half = cfg.l1 // 2
     a, b = ft[:, :half], ft[:, half:]
@@ -247,7 +248,17 @@ def nnue_tail(
     out = _dot(h2, params["out_w"].T) + params["out_b"].to(torch.int64)
     scale = torch.full((), cfg.out_scale, dtype=torch.float32,
                        device=out.device)
-    return out.to(torch.float32) / scale, active_count
+    return out.to(torch.float32) / scale
+
+
+def nnue_tail(
+    params: Dict[str, torch.Tensor], buf: torch.Tensor,
+    thresh: torch.Tensor, cfg: NNUESimCfg,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Engine from the (B, F) grid buffer to (logits, active_count):
+    `feature_transform`, then `nnue_head`."""
+    ft, mask = feature_transform(params, buf, thresh, cfg)
+    return nnue_head(params, ft, cfg), mask.sum(dim=1, dtype=torch.int32)
 
 
 def density_of(count: torch.Tensor, num_features: int) -> torch.Tensor:
@@ -295,6 +306,59 @@ def nnue_engine_forward(
     buf = nnue_conv_buffer(params, images, cfg=cfg, image_h=image_h)
     logits, count = nnue_tail(params, buf, params["visual_threshold"], cfg)
     return logits, density_of(count, cfg.num_features), count
+
+
+
+# ---------------------------------------------------------------------------
+# NNUE incremental accumulators (port of the JAX module's :381-449)
+# ---------------------------------------------------------------------------
+#
+# A stream of frames changes few grid cells per frame, so the FT
+# accumulator can follow the active-feature mask by adding the rows of the
+# features that switched on and subtracting those that switched off
+# (nnue_engine.cpp:257-267 upstream) instead of summing every active row.
+# The accumulator carries the exact sum, the int16 value before wraparound:
+# the head applies the wrap, so a chain of updates stays equal to a refresh.
+
+
+def nnue_accumulator_refresh(params: Dict[str, torch.Tensor],
+                             mask: torch.Tensor) -> torch.Tensor:
+    """Full refresh: ft_b + the FT rows of the active features. `mask`
+    (B, F) bool or {0, 1}; returns (B, L1) int64, before the wrap."""
+    return _dot(mask, params["ft_w"]) + params["ft_b"].to(torch.int64)
+
+
+def nnue_accumulator_update(
+    params: Dict[str, torch.Tensor], acc: torch.Tensor,
+    new_mask: torch.Tensor, old_mask: torch.Tensor,
+) -> torch.Tensor:
+    """Incremental update: `acc` plus the product of the delta mask
+    `new_mask - old_mask` (in {-1, 0, 1}) with the FT table, exactly equal
+    to `nnue_accumulator_refresh(params, new_mask)`. The delta is sparse for
+    a stream, but the product stays dense, as in the JAX package."""
+    delta = new_mask.to(torch.float64) - old_mask.to(torch.float64)
+    return acc.to(torch.int64) + _dot(delta, params["ft_w"])
+
+
+def nnue_head_from_accumulator(
+    params: Dict[str, torch.Tensor], acc: torch.Tensor, *, cfg: NNUESimCfg,
+) -> torch.Tensor:
+    """(B, L1) accumulator → logits (B, classes): the int16 wrap, the
+    clipped ReLU and `nnue_head`, bit-exact to the engine."""
+    return nnue_head(params, _ft_activation(acc, cfg), cfg)
+
+
+def nnue_feature_mask(
+    params: Dict[str, torch.Tensor], images: torch.Tensor, *,
+    cfg: NNUESimCfg, image_h: int, image_w: int,
+) -> torch.Tensor:
+    """(B, H, W, 3) float32 images → the engine's active-feature mask
+    (B, F) float32 in {0, 1}: `nnue_conv_buffer` and the threshold compare
+    over the whole zero-filled buffer (a negative threshold makes the
+    padding active, as in the engine)."""
+    del image_w  # the stride follows the height, as in the engine
+    buf = nnue_conv_buffer(params, images, cfg=cfg, image_h=image_h)
+    return (buf.to(torch.float32) > params["visual_threshold"]).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -72,6 +72,10 @@ gather its logits. Rank 0 alone runs the engine probe and the engine
 eval (their outcome broadcast, so a failure there stops every rank),
 logs, and writes checkpoints, each write followed by a barrier; every
 rank reads a resumed step checkpoint.
+
+When the run ends, in success or failure, rank 0 calls `stop_cloud`
+unless `keep_alive` is set: on a cloud instance that names itself
+(`cloud/launcher.py` `stop_instance`) the instance is deleted.
 """
 
 from __future__ import annotations
@@ -278,6 +282,19 @@ def _stop_trace(trace: torch.profiler.profile, profile_dir: Path,
     path = profile_dir / "train_epoch0.trace.json"
     trace.export_chrome_trace(str(path))
     early_log(f"profiler trace written to {path}")
+
+
+def stop_cloud(reason: str = "") -> None:
+    """Best-effort stop of the cloud instance this run is on (upstream
+    stop_runpod, train.py:450-453; `cloud/launcher.py` `stop_instance`, a
+    no-op off the cloud). A failure is logged and swallowed, so shutdown
+    never masks the training result."""
+    try:
+        from nnue_vision_tpu_torch.cloud.launcher import stop_instance
+
+        stop_instance(reason=reason)
+    except Exception as e:
+        early_log(f"cloud stop failed (ignored): {e}")
 
 
 def train_model(config: Any, model_type: str,
@@ -621,4 +638,6 @@ def train_model(config: Any, model_type: str,
         )
     finally:
         run.finish()
+        if rank == 0 and not getattr(config, "keep_alive", False):
+            stop_cloud("training finished")
     return 0

@@ -16,11 +16,16 @@ REPO = Path(__file__).resolve().parent.parent
 MODULES = [
     "nnue_vision_tpu_torch",
     "nnue_vision_tpu_torch.bridge",
+    "nnue_vision_tpu_torch.cloud",
+    "nnue_vision_tpu_torch.cloud.launcher",
     "nnue_vision_tpu_torch.data.augment",
     "nnue_vision_tpu_torch.data.dataset_inspector",
     "nnue_vision_tpu_torch.data.datasets",
     "nnue_vision_tpu_torch.data.loaders",
+    "nnue_vision_tpu_torch.deploy_etiny",
+    "nnue_vision_tpu_torch.evaluate",
     "nnue_vision_tpu_torch.formats",
+    "nnue_vision_tpu_torch.models.api",
     "nnue_vision_tpu_torch.models.etinynet",
     "nnue_vision_tpu_torch.models.nnue",
     "nnue_vision_tpu_torch.ops._build",
@@ -34,10 +39,14 @@ MODULES = [
     "nnue_vision_tpu_torch.parallel",
     "nnue_vision_tpu_torch.parallel.distributed",
     "nnue_vision_tpu_torch.parallel.mesh",
+    "nnue_vision_tpu_torch.profile_augment",
     "nnue_vision_tpu_torch.profile_mega_bisect",
     "nnue_vision_tpu_torch.profile_train_step",
     "nnue_vision_tpu_torch.profile_warp_split",
     "nnue_vision_tpu_torch.quantize",
+    "nnue_vision_tpu_torch.serialize",
+    "nnue_vision_tpu_torch.stream_inference_demo",
+    "nnue_vision_tpu_torch.torch_import",
     "nnue_vision_tpu_torch.training.checkpoint",
     "nnue_vision_tpu_torch.training.engine_build",
     "nnue_vision_tpu_torch.training.evaluate",
@@ -75,17 +84,51 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_cuda_request_raises_without_cuda():
+def test_cuda_request_raises_without_cuda(tmp_path):
+    """The serving params and every deployment entry point (the
+    serialize, evaluate and stream CLIs, the facades, the upstream import)
+    run on the card by default and raise here, where there is none."""
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
     import numpy as np
 
+    from nnue_vision_tpu_torch import evaluate, serialize, stream_inference_demo
+    from nnue_vision_tpu_torch import torch_import
+    from nnue_vision_tpu_torch.models import api
+    from nnue_vision_tpu_torch.models.nnue import GridFeatureSet, NNUEConfig, nnue_init
     from nnue_vision_tpu_torch.ops.engine_sim import nnue_sim_params
+    from nnue_vision_tpu_torch.training.checkpoint import save_checkpoint
     from tests.conftest import random_quantized_nnue
+    from tests.test_torch_upstream_import import upstream_nnue_state_dict
 
     q = random_quantized_nnue(np.random.default_rng(51))
     with pytest.raises((RuntimeError, AssertionError)):
         nnue_sim_params(q, device="cuda")
+
+    cfg = NNUEConfig(feature_set=GridFeatureSet(4, 4), l1_size=16, l2_size=8,
+                     l3_size=4, num_classes=10)
+    model = nnue_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ckpt = tmp_path / "best_model.ckpt"
+    save_checkpoint(ckpt, model_type="nnue", model_config=cfg, model=model,
+                    epoch=0, metrics={})
+    upstream = tmp_path / "upstream.pt"
+    torch.save(upstream_nnue_state_dict(), upstream)
+    calls = {
+        "serialize": lambda: serialize.main([str(ckpt), str(tmp_path / "m.nnue")]),
+        "evaluate": lambda: evaluate.main([str(ckpt), "--dataset", "synthetic-hard",
+                                           "--synthetic_size", "16"]),
+        "stream_inference_demo": lambda: stream_inference_demo.main(
+            ["--frames", "2", "--batch", "2"]),
+        "api.NNUE": lambda: api.NNUE(l1_size=16, l2_size=8, l3_size=4),
+        "api.EtinyNet": lambda: api.EtinyNet(variant="micro", num_classes=10,
+                                             input_size=32),
+        "torch_import": lambda: torch_import.load_torch_checkpoint_auto(upstream),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not (tmp_path / "m.nnue").exists()
+    assert torch_import.load_torch_checkpoint_auto(upstream, device="cpu")[0] == "nnue"
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -163,3 +163,30 @@ def test_quantized_model_evaluates_on_the_card(cuda, tmp_path):
     assert nk.LAUNCHES["nnue_mega_kernel"] > 0
     for key in ("acc", "f1", "precision", "recall", "latent_density"):
         assert got[key] == plain[key]
+
+
+def test_facade_and_incremental_head_on_the_card(cuda):
+    """`models.api.NNUE` at flagship widths on the card: its call equal to
+    its module's forward, its `.quantize()` served through K1 equal to the
+    sim; a stream's incremental head equal to K1 and the sim per frame."""
+    from nnue_vision_tpu_torch.models import api
+
+    model = api.NNUE(num_classes=10, seed=3, device=cuda)
+    x = torch.rand((64, 32, 32, 3), generator=torch.Generator().manual_seed(4)
+                   ).to(cuda)
+    with torch.no_grad():
+        assert torch.equal(model(x), model.module(x))
+    sim, cfg = tsim.nnue_sim_params(model.quantize(), device=cuda)
+    head = nk.mega_head_params(sim, cfg, 32, 32)
+    kw = dict(cfg=cfg, image_h=32, image_w=32)
+    mask = tsim.nnue_feature_mask(sim, x[:32], **kw)
+    acc = tsim.nnue_accumulator_refresh(sim, mask)
+    for frame in (x[:32], x[32:], x[:32]):
+        new = tsim.nnue_feature_mask(sim, frame, **kw)
+        acc = tsim.nnue_accumulator_update(sim, acc, new, mask)
+        mask = new
+        inc = tsim.nnue_head_from_accumulator(sim, acc, cfg=cfg)
+        k1 = nk.nnue_engine_forward_mega(head, frame.reshape(32, -1).contiguous(),
+                                         **kw)[0]
+        assert torch.equal(inc, k1)
+        assert torch.equal(inc, tsim.nnue_engine_forward(sim, frame, **kw)[0])
