@@ -5,8 +5,9 @@ engine_friendly EtinyNet path (progressive QAT → LSQ-folded `.etiny` →
 K6), its profiling path, the train loop's engine probe and engine
 backend, bf16 NNUE, distillation and resume, EtinyNet-1.0 at ImageNet's
 224×224, data-parallel training and sharded serving over spawned
-ranks, and the deployment entry points (the serialize, evaluate and stream
-CLIs, the model facade, the upstream import) once on one CUDA card.
+ranks, the deployment entry points (the serialize, evaluate and stream
+CLIs, the model facade, the upstream import), and the train chunk as one
+CUDA graph (K3, or K4 and K5, inside it) once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -48,7 +49,7 @@ Phases, one line each (any failure raises and exits non-zero):
 12. timing   K3 vs plain at batch 512 and 8192 (CUDA events, median of 20 in
              turns), at 512 also graph-timed and its host cost per call; ms
              per train step over a 39-step chunk (host clock, one sync at the
-             end)
+             end): eager, captured and replayed, replayed
 13. etiny-serve  a 0.98M-width EtinyNet from a numpy seed (random weights and
              norm statistics) → etinynet_quantize → write_etiny → read_etiny,
              and a stress model at full int8 ranges; batches 1, 37, 1024 and
@@ -126,7 +127,8 @@ Phases, one line each (any failure raises and exits non-zero):
              equal to the loop's; the engine's
              compiled/ms_per_sample beside K1's (evaluate_int8_sim "mega")
              on the same batches; ms per fused step in bf16 and float32 at
-             batch 128 (39 steps, host clock, one sync, in turns)
+             batch 128 (39-step chunks as CUDA graph replays, host clock, one
+             sync, in turns)
 25. distill  the teacher: one epoch of config/train_etinynet_hard_float.py
              (micro, float); the student: config/train_etinynet_distill.py
              (micro, engine_friendly, alpha 0.3, T 4) with distill_from that
@@ -227,10 +229,33 @@ Phases, one line each (any failure raises and exits non-zero):
              torch_import.load_torch_checkpoint_auto onto the card, every
              param equal to the saved tensor
 40. launches K1 and K6 launched in 36-39 (every count set to 0 before 36)
+41. graph-nnue  config/train_nnue_hard.py (full width, batch 512), 39-step
+             fused chunks (K3 inside): with cuDNN's deterministic algorithms,
+             one eager warm-up chunk, then two chunks through the state's
+             CUDA graph (captured on the first, each one replay) torch.equal
+             to two eager chunks from a copy of the state (losses,
+             accuracies, params, optimizer state, generator), K3's launches
+             equal; then at the loop's cuDNN setting a new capture (its
+             seconds, nodes, peak memory), the eager path's own spread over
+             one chunk beside the graph's gap to it (printed: by default a
+             conv's weight gradient may sum with atomics), and ms per step
+             eager and graphed in turns, with peak device memory
+42. graph-etiny  the same for config/train_etinynet.py (0.98M, bf16, heavy
+             tier, batch 1024), 8-step chunks through scanned_train_steps (K4
+             and K5 inside) against 8 gathered_train_step calls
+43. launches K3, K4 and K5 launched by 41-42's graphed chunks, counted through
+             the replays (each replay adds the launches its wrappers made
+             during capture)
 
 Every train_model run (phases 10, 15, 18, 21, 24-26, 28) builds the C++ engine
 (a no-op after phase 2) and probes it before its first step, as a user's
-run does.
+run does. Its full chunks run through scanned_train_steps(_fused): on the
+card each signature's first full chunk runs eagerly, the second is captured
+as one CUDA graph and every later one replays it (in 15, 18's quantized
+epochs, 24 and 26's first run; 10, 26's resumed epoch and 28 have one full
+chunk, the eager one); phase 12 times a fused chunk eagerly, with its
+capture and as a replay, phase 24 its chunks as replays, and phase 31's
+one-rank turns stay eager, as the ranks run.
 
 Then one JSON line with each kernel's launches, error and times (kernel,
 plain version, the card's bound for the same work and, where one PyTorch
@@ -248,6 +273,7 @@ power limit, and the last line
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import functools
@@ -345,8 +371,10 @@ from nnue_vision_tpu_torch.training.optim import (
 )
 from nnue_vision_tpu_torch.training.step import (
     Teacher,
+    TrainState,
     gathered_train_step,
     make_train_state,
+    scanned_train_steps,
     scanned_train_steps_fused,
     train_step,
 )
@@ -1069,13 +1097,16 @@ def loop_phases(errs: Errors, smi: str, model, emodel, ds, dataset,
     tlabels = torch.from_numpy(ds.labels).cuda()
     tchunk = np.random.default_rng(SEED).permutation(len(ds.labels))[
         :STEP_TIMING * bcfg.batch_size].reshape(STEP_TIMING, bcfg.batch_size)
-    times = step_ms_in_turns({
-        name: (lambda st=make_train_state(m, bopt): scanned_train_steps_fused(
-            st, dataset, tlabels, tchunk, pgen, optimizer=bopt, height=H,
-            width=W)["loss"]) for name, m in (("float32", m32), ("bfloat16", btrained))})
+    runs = {name: (lambda st=make_train_state(m, bopt): scanned_train_steps_fused(
+        st, dataset, tlabels, tchunk, pgen, optimizer=bopt, height=H,
+        width=W)["loss"]) for name, m in (("float32", m32), ("bfloat16", btrained))}
+    for run in runs.values():  # the eager warm-up, then the capture
+        run(), run()
+    times = step_ms_in_turns(runs)
     say("timing", "NNUE train step at batch "
-        f"{bcfg.batch_size} ({STEP_TIMING}-step fused chunks, QAT, full width, "
-        "host clock, one sync, turns f32 bf16 bf16 f32): " + "; ".join(
+        f"{bcfg.batch_size} ({STEP_TIMING}-step fused chunks as CUDA graph "
+        "replays, QAT, full width, host clock, one sync, turns f32 bf16 bf16 "
+        "f32): " + "; ".join(
             f"{k} " + ", ".join(f"{v:.3f}" for v in vs) + " ms/step"
             for k, vs in times.items()) + f" on {smi}")
     for part in (bf["launches"], hold_launches):
@@ -1543,9 +1574,14 @@ def nnue_turns(mesh: tmesh.Mesh) -> dict:
                                      "cuda")
         opt = create_optimizer(cfg, DP_NNUE_STEPS)
         state = make_train_state(model, opt, mesh if two else None)
-        return lambda: scanned_train_steps_fused(
-            state, dataset, labels, idx, torch.Generator().manual_seed(SEED),
-            optimizer=opt, height=H, width=W)["loss"]
+
+        def run():
+            state.chunk_graph = None  # eager, as a mesh's chunks run
+            return scanned_train_steps_fused(
+                state, dataset, labels, idx, torch.Generator().manual_seed(SEED),
+                optimizer=opt, height=H, width=W)["loss"]
+
+        return run
 
     return dp_turns(mesh, make_run, DP_NNUE_STEPS)
 
@@ -2099,6 +2135,227 @@ def stream_check(errs: Errors, sim, cfg, head, frames: torch.Tensor) -> None:
     torch.cuda.synchronize()
 
 
+def state_copy(state) -> TrainState:
+    """An independent copy of a train state (model, optimizer state, step),
+    without its graph: its next full chunk runs eagerly."""
+    opt = {k: v if k == "count" else {n: t.clone() for n, t in v.items()}
+           for k, v in state.opt_state.items()}
+    return TrainState(copy.deepcopy(state.model), opt, state.step)
+
+
+def state_restore(state, saved) -> None:
+    """Write `saved` (a `state_copy`) into `state`'s own tensors, so that a
+    captured graph keeps writing the same buffers."""
+    state.model.load_state_dict(saved.model.state_dict())
+    for k, v in saved.opt_state.items():
+        if k == "count":
+            state.opt_state[k] = v
+        else:
+            for n, t in v.items():
+                state.opt_state[k][n].copy_(t)
+    state.step = saved.step
+
+
+def gen_copy(gen: torch.Generator) -> torch.Generator:
+    g = torch.Generator(device=gen.device)
+    g.set_state(gen.get_state())
+    return g
+
+
+def state_gap(a, b) -> float:
+    """The largest |a - b| over two states' params, norm statistics and
+    optimizer buffers."""
+    pairs = list(zip(a.model.state_dict().values(), b.model.state_dict().values()))
+    pairs += [(t, b.opt_state[k][n]) for k, v in a.opt_state.items()
+              if k != "count" for n, t in v.items()]
+    return max(float((t.double() - u.double()).abs().max()) for t, u in pairs)
+
+
+def states_equal(a, b) -> bool:
+    return (a.step == b.step and a.opt_state["count"] == b.opt_state["count"]
+            and all(torch.equal(t, u) for t, u in zip(
+                a.model.state_dict().values(), b.model.state_dict().values()))
+            and all(torch.equal(t, b.opt_state[k][n]) for k, v in a.opt_state.items()
+                    if k != "count" for n, t in v.items()))
+
+
+def graph_phase(tag: str, smi: str, state, gens: list, chunks: np.ndarray,
+                graphed, eager, kernels: dict) -> dict:
+    """Phases 41-42 on one path: `graphed(state, chunk, gens)` runs a chunk
+    through the state's CUDA graph, `eager(state, chunk, gens)` the same
+    steps eagerly; `kernels` {name: launches per chunk}.
+
+    With cuDNN's deterministic algorithms (by default a conv's weight
+    gradient may sum with atomics, so two eager runs from one state differ
+    in the last bits): after an eager warm-up chunk, two graphed chunks and
+    two eager chunks from a copy of the state equal bit for bit (metrics,
+    params, norm statistics, optimizer state, generators), each graphed
+    chunk exactly one replay, and the graphed chunks' launches of each
+    kernel equal the eager ones'. Then at the loop's setting: a new capture
+    (its seconds, nodes and peak memory), one chunk graphed beside two
+    eager chunks from one state (the eager path's own spread and the
+    graph's gap to it, printed), and ms per step graphed and eager in
+    turns, each run from the same saved state."""
+    steps, batch = chunks.shape[1:]
+    torch.backends.cudnn.deterministic = True
+    try:
+        graphed(state, chunks[0], gens)  # the signature's eager warm-up
+        check(state.chunk_graph.graph is None, f"{tag}: the first chunk captured")
+        ref, ref_gens = state_copy(state), [gen_copy(g) for g in gens]
+        got, want, launched = [], [], {}
+        for which, st, gs, fn, out in (("graphed", state, gens, graphed, got),
+                                       ("eager", ref, ref_gens, eager, want)):
+            reset_launches()
+            for n, c in enumerate(chunks[1:3]):
+                out.append(fn(st, c, gs))
+                if which == "graphed":
+                    check(st.chunk_graph.replays == n + 1,
+                          f"{tag}: chunk {n + 1} is not one replay")
+            launched[which] = {k: launch_counts()[k] for k in kernels}
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for n, (g, w) in enumerate(zip(got, want)):
+        for key in ("loss", "accuracy"):
+            check(torch.equal(g[key], w[key]), f"{tag}: graphed chunk {n + 1}'s "
+                  f"{key} differs from the eager chunk's (max "
+                  f"{float((g[key] - w[key]).abs().max())})")
+    check(states_equal(state, ref), f"{tag}: the graphed state differs from the "
+          f"eager one (max {state_gap(state, ref)})")
+    check(all(torch.equal(a.get_state(), b.get_state())
+              for a, b in zip(gens, ref_gens)), f"{tag}: the generators differ")
+    check(launched["graphed"] == launched["eager"]
+          == {k: 2 * n for k, n in kernels.items()},
+          f"{tag}: launches graphed {launched['graphed']}, eager "
+          f"{launched['eager']}, expected {kernels} per chunk")
+    losses = torch.cat([g["loss"] for g in got])
+    check(bool(torch.isfinite(losses).all()), f"{tag}: non-finite losses")
+    say(tag, f"deterministic cuDNN: 2 graphed chunks of {steps} steps at batch "
+        f"{batch} (after 1 eager warm-up) torch.equal to 2 eager chunks from "
+        "the same copied state: losses, accuracies, params, norm statistics, "
+        "optimizer state, generators (tolerance: none); one replay per chunk; "
+        f"launches graphed {launched['graphed']} == eager {launched['eager']}; "
+        f"losses {float(losses[0]):.4f} .. {float(losses[-1]):.4f}")
+
+    # the loop's setting: a new capture
+    state.chunk_graph = None
+    graphed(state, chunks[3], gens)  # eager warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    graphed(state, chunks[4], gens)  # capture, instantiate, replay
+    torch.cuda.synchronize()
+    graph = state.chunk_graph
+    capture = dict(capture_s=graph.capture_s, instantiate_s=graph.instantiate_s,
+                   nodes=graph.nodes, nodes_per_step=graph.nodes / steps,
+                   capture_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                   held_gb=base / 1e9)
+    # the eager path's own spread beside the graph's gap to it
+    e1, e2 = state_copy(state), state_copy(state)
+    g1, g2 = [gen_copy(g) for g in gens], [gen_copy(g) for g in gens]
+    graphed(state, chunks[5], gens)
+    eager(e1, chunks[5], g1)
+    eager(e2, chunks[5], g2)
+    spread, gap = state_gap(e1, e2), state_gap(state, e1)
+    say(tag, f"the loop's cuDNN setting: one chunk, two eager runs from one "
+        f"state differ by up to {spread!r}, the graph from the first by "
+        f"{gap!r} (params, norm statistics, optimizer state)")
+
+    # ms per step in turns (eager, graphed, graphed, eager) from one state
+    saved = state_copy(state)
+    saved_gens = [gen_copy(g) for g in gens]
+    times = {"eager": [], "graphed": []}
+    peaks = {"eager": 0.0, "graphed": 0.0}
+    for which in ("eager", "graphed", "graphed", "eager"):
+        st = e1 if which == "eager" else state
+        state_restore(st, saved)
+        for g, s in zip(gens if which == "graphed" else g1, saved_gens):
+            g.set_state(s.get_state())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = (graphed(state, chunks[6], gens) if which == "graphed"
+               else eager(e1, chunks[6], g1))
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) / steps * 1e3)
+        peaks[which] = max(peaks[which],
+                           (torch.cuda.max_memory_allocated() - base) / 1e9)
+        check(out["loss"].shape == (steps,), f"{tag}: {which} chunk's losses")
+    say("timing", f"{tag}: ms per step at batch {batch} over {steps}-step "
+        "chunks (host clock, one sync, turns eager graphed graphed eager): "
+        + "; ".join(f"{k} " + ", ".join(f"{v:.3f}" for v in vs)
+                    for k, vs in times.items())
+        + f"; peak device memory above the {base / 1e9:.2f} GB held: eager "
+        f"{peaks['eager']:.3f} GB, graphed replay {peaks['graphed']:.3f} GB; "
+        f"capture {capture['capture_s']:.3f} s, instantiate "
+        f"{capture['instantiate_s']:.3f} s, {capture['nodes']} graph nodes "
+        f"({capture['nodes_per_step']:.1f} per step), the capture's peak "
+        f"{capture['capture_peak_gb']:.3f} GB on {smi}")
+    return dict(launches=launched["graphed"], times=times, capture=capture,
+                spread=spread, gap=gap)
+
+
+def graph_phases(smi: str, dataset: torch.Tensor, labels: torch.Tensor) -> dict:
+    """Phases 41-43 on phase 9's synthetic-hard images (`dataset`, its
+    labels); returns the graphed chunks' kernel launches."""
+    rng = np.random.default_rng(SEED + 41)
+    n = labels.shape[0]
+
+    # 41. graph-nnue — the fused chunk of config/train_nnue_hard.py
+    cfg = load_config(TRAIN_CONFIG)
+    steps = int(cfg.steps_per_dispatch)
+    model, _ = tloop.build_model(cfg, "nnue", torch.Generator().manual_seed(SEED),
+                                 "cuda")
+    opt = create_optimizer(cfg, steps)
+    kw = dict(optimizer=opt, height=H, width=W)
+
+    def fused(st, chunk, gens):
+        return scanned_train_steps_fused(st, dataset, labels, chunk, gens[0], **kw)
+
+    def fused_eager(st, chunk, gens):
+        st.chunk_graph = None  # a state without a graph runs its chunk eagerly
+        return fused(st, chunk, gens)
+
+    nnue = graph_phase(
+        "graph-nnue", smi, make_train_state(model, opt),
+        [torch.Generator().manual_seed(SEED)],
+        rng.integers(0, n, (7, steps, cfg.batch_size)), fused, fused_eager,
+        {"light_pipeline_kernel": steps})
+
+    # 42. graph-etiny — config/train_etinynet.py on the heavy tier
+    ecfg = load_config(ETINY_CONFIG)
+    esteps = int(getattr(ecfg, "steps_per_dispatch", 8))
+    emodel, _ = tloop.build_model(ecfg, "etinynet",
+                                  torch.Generator().manual_seed(SEED), "cuda")
+    eopt = create_optimizer(ecfg, ETINY_TRAIN_SIZE // ecfg.batch_size)
+    ekw = dict(optimizer=eopt, strength=ecfg.augmentation_strength)
+
+    def heavy(st, chunk, gens):
+        return scanned_train_steps(st, dataset, labels, chunk, gens[0],
+                                   noise_gen=gens[1], **ekw)
+
+    def heavy_eager(st, chunk, gens):
+        ms = [gathered_train_step(st, dataset, labels, i, gens[0],
+                                  noise_gen=gens[1], **ekw) for i in chunk]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    egen = torch.Generator().manual_seed(SEED)
+    etiny = graph_phase(
+        "graph-etiny", smi, make_train_state(emodel, eopt),
+        [egen, aug.device_generator(egen, "cuda")],
+        rng.integers(0, n, (7, esteps, ecfg.batch_size)), heavy, heavy_eager,
+        {"warp_kernel": 2 * esteps, "photometric_kernel": 2 * esteps})
+
+    # 43. launches
+    launched = {**nnue["launches"], **etiny["launches"]}
+    check(all(v > 0 for v in launched.values()),
+          f"a kernel of 41-42 never launched: {launched}")
+    say("launches", "graphed chunks (the counts a replay adds: the launches "
+        "its wrapper made during capture) " + json.dumps(launched))
+    return launched
+
+
 def deploy_phases(errs: Errors, smi: str, nnue_payload: dict, ef_payload: dict,
                   etiny_payload: dict, val) -> dict:
     """Phases 36-40: the serialize, evaluate and stream CLIs, the facade and
@@ -2520,7 +2777,7 @@ def main() -> int:
     labels = torch.from_numpy(ds.labels).cuda()
     chunk = np.random.default_rng(SEED).permutation(len(ds.labels))[:39 * 512]
     chunk = chunk.reshape(39, 512)
-    for run in range(2):
+    for run in ("eager warm-up", "capture + replay", "replay"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = scanned_train_steps_fused(state, dataset, labels, chunk, pgen,
@@ -2528,7 +2785,7 @@ def main() -> int:
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / 39 * 1e3
         check(bool(torch.isfinite(m["loss"]).all()), "non-finite timing losses")
-        say("timing", f"train step (39-step fused chunk {run + 1}/2, batch 512): "
+        say("timing", f"train step (39-step fused chunk, {run}, batch 512): "
             f"{step_ms:.3f} ms/step ({512 / step_ms * 1e3:,.0f} img/s), host "
             f"clock, one sync, on {smi}")
 
@@ -2990,6 +3247,9 @@ def main() -> int:
         launches[name] += sum(per_rank)
     for name, count in deploy_phases(errs, smi, payload, efpayload, epayload,
                                      val).items():
+        launches[name] += count
+    for name, count in graph_phases(smi, dataset,
+                                    torch.from_numpy(ds.labels).cuda()).items():
         launches[name] += count
 
     print(json.dumps({"kernels": [

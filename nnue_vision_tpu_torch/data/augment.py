@@ -23,10 +23,15 @@ as one K5 launch (`ops/photometric_kernel.py`) at any image size. The
 heavy tier's second block (its own geometry, one more warp, then
 `heavy_extra`) runs after the medium photometric block, the reference op
 order. Every photometric op is a draw helper (`_*_draw`) and an apply step
-(`ops/photometric_kernel.py`), drawn in the JAX package's order. The draws
-of a step are packed on the host into one int32 buffer (float fields
-bit-cast) and uploaded once (`draw_tier`); the two full-batch unit-normal
-noise tensors are drawn on the images' device from a generator of that
+(`ops/photometric_kernel.py`), drawn in the JAX package's order. Each tier
+is a draw and an apply: `draw_batch` makes all of a step's draws on the
+host and packs them into one int32 buffer (float fields bit-cast, bools as
+0/1), `batch_draws` reads them as views of that buffer once it lies on the
+images' device, and `apply_draws` runs the tier with no copy to the
+device inside it, so a CUDA graph can replay it on new draws
+(`training/step.py`); `draw_tier` is the three for one step with one
+upload. The two full-batch unit-normal noise tensors of the medium and
+heavy tiers are drawn on the images' device from a generator of that
 device, seeded once from the host generator (`device_generator`).
 
 The tensor's device picks the realization: the kernels on a CUDA tensor,
@@ -41,17 +46,20 @@ batch.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from nnue_vision_tpu_torch.ops.photometric_kernel import (
+    VARIANTS,
     apply_brightness_contrast,
     apply_cutout,
     photometric_block,
 )
 from nnue_vision_tpu_torch.ops.warp_kernel import (
+    PARAMS as WARP_PARAMS,
     pack_warp_params,
     warp_bilinear,
     warp_coefficients,
@@ -73,10 +81,18 @@ def shard_rows(b: int, shard: Shard) -> slice:
     return slice(index * (b // count), (index + 1) * (b // count))
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(device: torch.device, dtype: torch.dtype):
+    """The ImageNet statistics as (3,) tensors on `device`, made once per
+    device and dtype (a copy to the card can not run inside a CUDA graph's
+    capture); never written."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.tensor(IMAGENET_STD, dtype=dtype, device=device))
+
+
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
     """(x - mean) / std with ImageNet statistics; NHWC float in [0,1]."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)
-    std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)
+    mean, std = _mean_std(images.device, images.dtype)
     return (images - mean) / std
 
 
@@ -300,6 +316,19 @@ class TierDraws(NamedTuple):
     photo2: Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
+class LightDraws(NamedTuple):
+    """One step's light-tier draws on the images' device: the flip gate,
+    brightness/contrast (gate, brightness, contrast) and the cutout (gate,
+    y0, hh, x0, ww), read from one uploaded buffer."""
+    flip: torch.Tensor
+    bc: Tuple[torch.Tensor, ...]
+    cutout: Tuple[torch.Tensor, ...]
+
+
+Draws = Union[LightDraws, TierDraws]
+Spec = Tuple[Tuple[int, ...], torch.dtype]  # a packed field's shape and dtype
+
+
 def two_pass_warp(h: int, w: int) -> bool:
     """JAX `_warp`'s rule off the TPU: the two-pass resample for a square
     image with h·w·w ≤ 2^17, the single-pass gather otherwise."""
@@ -361,34 +390,102 @@ def _warp_params(mv: MV, h: int, w: int) -> torch.Tensor:
     return pack_gather_params(*mv)
 
 
-def draw_tier(gen: torch.Generator, strength: str, b: int, h: int, w: int,
-              device, shard: Shard = WHOLE) -> TierDraws:
-    """All of a medium or heavy step's per-sample draws for a batch of b,
-    in the JAX package's order (medium geometry, medium photometric, heavy
-    geometry, heavy photometric), packed on the host into one int32 buffer
-    (float fields bit-cast) and uploaded once; of a sharded batch, only
-    the shard's rows."""
-    fields = [_warp_params(draw_medium_geometry(gen, b, h, w), h, w),
-              *draw_medium_photometric(gen, b, h, w)]
-    if strength == "heavy":
-        fields += [_warp_params(draw_heavy_geometry(gen, b, h, w), h, w),
-                   *draw_heavy_photometric(gen, b, h, w)]
-    rows = shard_rows(b, shard)
-    fields = [f[rows] for f in fields]
-    flat = torch.cat([f.reshape(-1).view(torch.int32) if f.is_floating_point()
-                      else f.reshape(-1) for f in fields])
-    buf = flat.to(device)
-    views, pos = [], 0
+def _padded(n: int) -> int:
+    """Elements of a packed field of n: whole 16-byte units, so that every
+    field starts where the kernels' vector loads may read it."""
+    return -(-n // 4) * 4
+
+
+def pack_fields(fields: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Host tensors (float32, int32 or bool) → one flat int32 tensor, each
+    field in turn, float fields bit-cast, bools as 0 or 1, each padded to a
+    16-byte unit (`field_views` reads them back)."""
+    parts = []
     for f in fields:
-        view = buf[pos:pos + f.numel()]
-        if f.is_floating_point():
+        if f.dtype == torch.bool:
+            f = f.to(torch.int32)
+        flat = f.reshape(-1)
+        flat = flat.view(torch.int32) if flat.is_floating_point() else flat
+        pad = _padded(flat.numel()) - flat.numel()
+        parts += [flat, torch.zeros(pad, dtype=torch.int32)] if pad else [flat]
+    return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int32)
+
+
+def packed_size(specs: Sequence[Spec]) -> int:
+    return sum(_padded(math.prod(shape)) for shape, _ in specs)
+
+
+def field_views(buf: torch.Tensor, specs: Sequence[Spec]) -> List[torch.Tensor]:
+    """The fields `pack_fields` packed into the flat int32 `buf` (on any
+    device), by (shape, dtype): views, and for a bool field its compare
+    with 0."""
+    out, pos = [], 0
+    for shape, dtype in specs:
+        n = math.prod(shape)
+        view = buf[pos:pos + n]
+        if dtype == torch.float32:
             view = view.view(torch.float32)
-        views.append(view.view(f.shape))
-        pos += f.numel()
+        view = view.view(shape)
+        out.append(view != 0 if dtype == torch.bool else view)
+        pos += _padded(n)
+    return out
+
+
+def draw_specs(strength: str, b: int) -> List[Spec]:
+    """The packed fields of one step's draws for a batch of b rows."""
+    f32, i32, gate = torch.float32, torch.int32, torch.bool
+    if strength == "light":
+        one = (b, 1, 1, 1)
+        return ([(one, gate)] + [(one, gate), (one, f32), (one, f32)]
+                + [(one, gate)] + [((b,), i32)] * 4)
+    nf, ni = VARIANTS["medium"]
+    specs = [((b, WARP_PARAMS), f32), ((b, nf), f32), ((b, ni), i32)]
     if strength == "heavy":
-        return TierDraws(views[0], (views[1], views[2]), views[3],
-                         (views[4], views[5]))
-    return TierDraws(views[0], (views[1], views[2]), None, None)
+        nf, ni = VARIANTS["heavy_extra"]
+        specs += [((b, WARP_PARAMS), f32), ((b, nf), f32), ((b, ni), i32)]
+    return specs
+
+
+def draw_batch(gen: torch.Generator, strength: str, b: int, h: int, w: int,
+               shard: Shard = WHOLE) -> torch.Tensor:
+    """All of one step's per-sample draws for a batch of b of (h, w) images,
+    made on the host in the JAX package's order and packed (`pack_fields`,
+    `draw_specs`) into one flat int32 tensor; of a sharded batch (b the
+    global batch), only the shard's rows. Light: flip, brightness/
+    contrast, cutout. Medium and heavy: medium geometry, medium
+    photometric, then for heavy the heavy geometry and photometric."""
+    if strength not in STRENGTHS:
+        raise ValueError(f"strength must be one of {STRENGTHS}")
+    if strength == "light":
+        fields = [_bernoulli(gen, 0.5, b), *_bc_draw(gen, b, 0.2, 0.1),
+                  *_cutout_draw(gen, b, h, w, 0.2, (0.05, 0.051))]
+    else:
+        fields = [_warp_params(draw_medium_geometry(gen, b, h, w), h, w),
+                  *draw_medium_photometric(gen, b, h, w)]
+        if strength == "heavy":
+            fields += [_warp_params(draw_heavy_geometry(gen, b, h, w), h, w),
+                       *draw_heavy_photometric(gen, b, h, w)]
+    rows = shard_rows(b, shard)
+    return pack_fields([f[rows] for f in fields])
+
+
+def batch_draws(buf: torch.Tensor, strength: str, b: int) -> Draws:
+    """One step's draws for b rows, read from `buf` (`draw_batch`'s packing)
+    on the images' device: no copy, so a CUDA graph can read them from a
+    buffer it was captured on."""
+    v = field_views(buf, draw_specs(strength, b))
+    if strength == "light":
+        return LightDraws(v[0], tuple(v[1:4]), tuple(v[4:9]))
+    if strength == "heavy":
+        return TierDraws(v[0], (v[1], v[2]), v[3], (v[4], v[5]))
+    return TierDraws(v[0], (v[1], v[2]), None, None)
+
+
+def draw_tier(gen: torch.Generator, strength: str, b: int, h: int, w: int,
+              device, shard: Shard = WHOLE) -> Draws:
+    """`draw_batch` uploaded once to `device` and read by `batch_draws`."""
+    buf = draw_batch(gen, strength, b, h, w, shard).to(device)
+    return batch_draws(buf, strength, b // shard[1])
 
 
 def _noise(x: torch.Tensor, noise_gen: torch.Generator,
@@ -418,21 +515,21 @@ def apply_tier(x: torch.Tensor, draws: TierDraws,
     return x
 
 
-def _light(gen: torch.Generator, x: torch.Tensor,
-           shard: Shard = WHOLE) -> torch.Tensor:
-    b, h, w, _ = x.shape
-    b_all = b * shard[1]
-    rows = shard_rows(b_all, shard)
-    dev = x.device
+def apply_light(x: torch.Tensor, draws: LightDraws) -> torch.Tensor:
+    """hflip → brightness/contrast → cutout, each where its gate is on."""
+    x = torch.where(draws.flip, x.flip(2), x)
+    x = apply_brightness_contrast(x, *draws.bc)
+    return apply_cutout(x, *draws.cutout)
 
-    def mine(draws):
-        return (t[rows].to(dev) for t in draws)
 
-    (flip,) = mine((_bernoulli(gen, 0.5, b_all),))
-    x = torch.where(flip, x.flip(2), x)
-    x = apply_brightness_contrast(x, *mine(_bc_draw(gen, b_all, 0.2, 0.1)))
-    return apply_cutout(
-        x, *mine(_cutout_draw(gen, b_all, h, w, 0.2, (0.05, 0.051))))
+def apply_draws(x: torch.Tensor, draws: Draws,
+                noise_gen: Optional[torch.Generator],
+                shard: Shard = WHOLE) -> torch.Tensor:
+    """The tier of `draws` on a float [0,1] NHWC batch: `apply_light`, or
+    `apply_tier` on the batch as float32."""
+    if isinstance(draws, LightDraws):
+        return apply_light(x, draws)
+    return apply_tier(x.to(torch.float32), draws, noise_gen, shard)
 
 
 def augment_batch(gen: torch.Generator, images: torch.Tensor,
@@ -443,15 +540,11 @@ def augment_batch(gen: torch.Generator, images: torch.Tensor,
     a global batch). The medium and heavy tiers draw their noise from
     `noise_gen`, a generator on the images' device (default: one made from
     `gen` for this call)."""
-    if strength not in STRENGTHS:
-        raise ValueError(f"strength must be one of {STRENGTHS}")
-    if strength == "light":
-        return _light(gen, images, shard)
     b, h, w, _ = images.shape
     draws = draw_tier(gen, strength, b * shard[1], h, w, images.device, shard)
-    if noise_gen is None:
+    if strength != "light" and noise_gen is None:
         noise_gen = device_generator(gen, images.device)
-    return apply_tier(images.to(torch.float32), draws, noise_gen, shard)
+    return apply_draws(images, draws, noise_gen, shard)
 
 
 def preprocess_batch(gen: torch.Generator, images: torch.Tensor,

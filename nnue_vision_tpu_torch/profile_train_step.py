@@ -7,31 +7,40 @@
         --synthetic_size 50000
 
 Builds the config's model (its seed's random init), uploads its training
-set and runs the path `train_model` takes: for an NNUE the light-tier fused
-path (`scanned_train_steps_fused`: one K3 launch and one train step per
-step), for an EtinyNet `gathered_train_step` on the config's augmentation
-tier (medium and heavy: K4 and K5 once per block):
+set and runs the chunk `train_model` runs: for an NNUE the light-tier fused
+chunk (`scanned_train_steps_fused`: one K3 launch and one train step per
+step), for an EtinyNet `scanned_train_steps` on the config's augmentation
+tier (medium and heavy: K4 and K5 once per block), `steps_per_dispatch`
+steps a chunk. On a card the loop's chunk is one CUDA graph replay
+("graphed"); beside it the same chunk runs eagerly, from a copy of the
+state that never keeps its graph ("eager", the loop's path before the
+graph and under a mesh):
 
-1. chunk     after one warm-up chunk, one chunk of `steps_per_dispatch`
-             steps on the host clock with one sync at the end: ms per step
-2. phases    each phase of one step alone, synced before and after, median
+1. capture   the graphed state's first chunk (eager, the warm-up) and its
+             second (the capture, then a replay): capture and instantiate
+             seconds, graph nodes, the capture's peak device memory
+2. chunk     ms per step of a chunk on the host clock with one sync at the
+             end, in turns eager, graphed, graphed, eager, with each run's
+             peak device memory
+3. phases    each phase of one step alone, synced before and after, median
              of 20: the input (K3, or the augmentation tier with its
              draws), forward + loss, backward, optimizer, and an NNUE's
              weight clip
-3. profile   one more chunk under torch.profiler: device operations per
-             step, device busy time (the union of their intervals) against
-             the chunk's wall time, and the ops by device time, written to
-             DIR/profile_table.txt
+4. profile   one eager and one graphed chunk under torch.profiler: device
+             operations per step, device busy time (the union of their
+             intervals) against the chunk's wall time, and the ops by
+             device time, written to DIR/profile_table_{eager,graphed}.txt
 
 Prints one JSON object with these numbers and, on a card, its name and
-power limit from nvidia-smi. On the CPU the device numbers are null. The
-profiler slows the host, so the busy share is read against the profiled
-chunk's own wall time.
+power limit from nvidia-smi. On the CPU both chunks run eagerly and the
+device and graph numbers are null. The profiler slows the host, so the
+busy share is read against the profiled chunk's own wall time.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import sys
@@ -55,8 +64,9 @@ from nnue_vision_tpu_torch.ops.timing import card
 from nnue_vision_tpu_torch.training.loop import build_model
 from nnue_vision_tpu_torch.training.optim import create_optimizer
 from nnue_vision_tpu_torch.training.step import (
-    gathered_train_step,
+    TrainState,
     make_train_state,
+    scanned_train_steps,
     scanned_train_steps_fused,
 )
 
@@ -112,27 +122,48 @@ def profile(config_path: str, device: str, out: Path, model_type: str = "nnue",
     strength = getattr(cfg, "augmentation_strength", "medium")
     noise_gen = device_generator(gen, dev)
     rng = np.random.default_rng(cfg.seed)
+    # the graphed state, and the eager one: a copy that drops its graph
+    states = {"graphed": state,
+              "eager": TrainState(copy.deepcopy(model), copy.deepcopy(state.opt_state))}
 
-    def chunk():
+    def chunk(which: str):
+        st = states[which]
+        if which == "eager":
+            st.chunk_graph = None
         idx = np.stack([rng.permutation(n)[:batch] for _ in range(steps)])
         if fused:
-            return scanned_train_steps_fused(state, dataset, labels, idx, gen,
+            return scanned_train_steps_fused(st, dataset, labels, idx, gen,
                                              optimizer=optimizer, height=h,
                                              width=w)
-        return {"loss": torch.stack([
-            gathered_train_step(state, images, labels, i, gen,
-                                optimizer=optimizer, strength=strength,
-                                noise_gen=noise_gen)["loss"]
-            for i in idx])}
+        return scanned_train_steps(st, images, labels, idx, gen,
+                                   optimizer=optimizer, strength=strength,
+                                   noise_gen=noise_gen)
 
-    chunk()  # warm-up: cuDNN/cuBLAS choices, the kernel's build
-    sync()
-    t0 = time.perf_counter()
-    losses = chunk()["loss"]
-    sync()
-    step_ms = (time.perf_counter() - t0) / steps * 1e3
-    if not bool(torch.isfinite(losses).all()):
-        raise FloatingPointError("non-finite loss in the timed chunk")
+    def peak_gb(fn):
+        """(fn's result, its peak device memory above what was held)."""
+        if not cuda:
+            return fn(), None
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = fn()
+        sync()
+        return out, (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+    chunk("eager")  # warm-up: cuDNN/cuBLAS choices, the kernels' build
+    chunk("graphed")  # the graphed state's warm-up (eager)
+    _, capture_gb = peak_gb(lambda: chunk("graphed"))  # capture + replay
+    graph = state.chunk_graph if cuda else None
+    step_ms = {"eager": [], "graphed": []}
+    peak = {"eager": [], "graphed": []}
+    for which in ("eager", "graphed", "graphed", "eager"):
+        sync()
+        t0 = time.perf_counter()
+        losses, gb = peak_gb(lambda: chunk(which)["loss"])
+        step_ms[which].append((time.perf_counter() - t0) / steps * 1e3)
+        peak[which].append(gb)
+        if not bool(torch.isfinite(losses).all()):
+            raise FloatingPointError(f"non-finite loss in the timed {which} chunk")
 
     # each phase of one step alone
     params = dict(model.named_parameters())
@@ -184,35 +215,47 @@ def profile(config_path: str, device: str, out: Path, model_type: str = "nnue",
     if fused:
         phase_ms["weight_clip"] = timed(lambda: nnue_clip_weights(model))
 
-    # one chunk under the profiler
+    # one chunk of each under the profiler
     activities = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        chunk()
-        sync()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    device_ops = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = _busy_us((e.time_range.start, e.time_range.end)
-                       for e in device_ops)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_table.txt").write_text(prof.key_averages().table(
-        sort_by="self_device_time_total" if cuda else "self_cpu_time_total",
-        row_limit=60))
+    profiled = {}
+    for which in ("eager", "graphed"):
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            chunk(which)
+            sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        device_ops = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = _busy_us((e.time_range.start, e.time_range.end)
+                           for e in device_ops)
+        table = out / f"profile_table_{which}.txt"
+        table.write_text(prof.key_averages().table(
+            sort_by="self_device_time_total" if cuda else "self_cpu_time_total",
+            row_limit=60))
+        profiled[which] = {
+            "device_ops_per_step": len(device_ops) / steps if cuda else None,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps if cuda else None,
+            "profiled_wall_ms_per_step": wall_us / 1e3 / steps,
+            "device_busy_share": busy_us / wall_us if cuda else None,
+            "table": str(table),
+        }
 
     return {
         "config": config_path, "model_type": model_type, "device": str(dev),
         "card": card(dev),
         "batch": batch, "steps": steps,
-        "step_ms": step_ms, "images_per_s": batch / step_ms * 1e3,
+        "step_ms": step_ms,
+        "images_per_s": {k: batch / min(v) * 1e3 for k, v in step_ms.items()},
+        "peak_gb": {**peak, "capture": capture_gb},
+        "graph": None if graph is None else {
+            "capture_s": graph.capture_s, "instantiate_s": graph.instantiate_s,
+            "nodes": graph.nodes, "nodes_per_step": graph.nodes / steps,
+            "replays": graph.replays},
         "phase_ms": phase_ms,
-        "device_ops_per_step": len(device_ops) / steps if cuda else None,
-        "device_busy_ms_per_step": busy_us / 1e3 / steps if cuda else None,
-        "profiled_wall_ms_per_step": wall_us / 1e3 / steps,
-        "device_busy_share": busy_us / wall_us if cuda else None,
-        "table": str(out / "profile_table.txt"),
+        "profile": profiled,
     }
 
 
@@ -226,7 +269,7 @@ def main(argv=None) -> int:
                         help="override the config's synthetic training size")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--out", default="logs/profile",
-                        help="directory for profile_table.txt")
+                        help="directory for the profile tables")
     args = parser.parse_args(argv)
     overrides = {k: v for k, v in (("dataset_name", args.dataset_name),
                                    ("synthetic_size", args.synthetic_size))

@@ -4,13 +4,16 @@ device or data-parallel over a process group.
 Port of `nnue_vision_tpu/training/loop.py:57-90, 103-668`, with the same
 control flow, so the same steps take the same path: a training set that
 fits `device_resident_max_bytes` is uploaded once and batches are gathered
-by index on the device; for an NNUE on the light augmentation tier, when
-3× the dataset fits, full chunks of `steps_per_dispatch` steps run through
-`scanned_train_steps_fused` (one K3 launch per step), and every other
-step through `gathered_train_step` (the medium and heavy tiers: one warp
-(K4) and one photometric (K5) launch per block); the losses come back to
-the host once per chunk. Each epoch ends with the non-finite check, float
-train and val evals, and the int8 eval (`compiled_backend` "sim",
+by index on the device; full chunks of `steps_per_dispatch` steps run
+through `scanned_train_steps_fused` (one K3 launch per step) for an NNUE
+on the light augmentation tier when 3× the dataset fits, else through
+`scanned_train_steps` (the medium and heavy tiers: one warp (K4) and one
+photometric (K5) launch per block), each a CUDA graph on the card (the
+log names each graph when it is captured) and eager on the CPU and under
+a mesh; a last partial chunk runs step by step through
+`gathered_train_step`. The losses come back to the host once per chunk.
+Each epoch ends with the non-finite check, float train and val evals,
+and the int8 eval (`compiled_backend` "sim",
 "pallas" or "mega"), then best-model checkpointing on
 `checkpoint_metric`. `ef_warmup_epochs` trains a QAT NNUE without
 rounding first, and an engine_friendly EtinyNet as its continuous
@@ -139,6 +142,7 @@ from nnue_vision_tpu_torch.training.step import (
     data_shard,
     gathered_train_step,
     make_train_state,
+    scanned_train_steps,
     scanned_train_steps_fused,
     train_step,
 )
@@ -456,6 +460,21 @@ def train_model(config: Any, model_type: str,
     noise_gen = (device_generator(gen, dev)
                  if use_aug and strength in ("medium", "heavy") else None)
 
+    # the path full chunks take: each captured graph once, when it is
+    # captured (its first replay); the eager paths once a run
+    eager_logged = []
+
+    def log_chunk_path(state) -> None:
+        graph = state.chunk_graph
+        if dev.type == "cuda" and mesh is None:
+            if graph is not None and graph.replays == 1:
+                early_log(f"full chunks {graph.describe()}")
+        elif not eager_logged:
+            eager_logged.append(True)
+            early_log(f"full chunks of {steps_per_dispatch} steps: eager "
+                      + ("under a mesh (a gloo all-reduce can not be captured)"
+                         if mesh is not None else "on the CPU"))
+
     start_epoch = 0
     if steps_ckpt is not None and getattr(config, "resume", False):
         latest = steps_ckpt.latest_step()
@@ -495,13 +514,22 @@ def train_model(config: Any, model_type: str,
                 pos = 0
                 while pos < len(idx_batches):
                     chunk = idx_batches[pos : pos + steps_per_dispatch]
-                    if (gather_data is not None
-                            and len(chunk) == steps_per_dispatch > 1):
+                    full = len(chunk) == steps_per_dispatch > 1
+                    if full and gather_data is not None:
                         chunk_loss = scanned_train_steps_fused(
                             state, gather_data, device_data[1],
                             np.stack(chunk), gen, optimizer=opt_for(epoch),
                             height=height, width=width,
                         )["loss"]
+                        log_chunk_path(state)
+                    elif full:
+                        chunk_loss = scanned_train_steps(
+                            state, device_data[0], device_data[1],
+                            np.stack(chunk), gen, optimizer=opt_for(epoch),
+                            strength=strength, augment=use_aug,
+                            noise_gen=noise_gen, **distill,
+                        )["loss"]
+                        log_chunk_path(state)
                     else:
                         chunk_loss = torch.stack([
                             gathered_train_step(

@@ -29,6 +29,8 @@ import torch
 
 OptState = Dict[str, Any]
 _F32 = np.float32
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8  # Adam's (optax's defaults)
+SCALARS = 5  # a step's row of `Optimizer.step_scalars`
 
 
 def get_lr(it: int, *, cfg: Any) -> float:
@@ -126,8 +128,9 @@ class Optimizer:
 
     `init(params)` makes the state: {"count": 0, "trace": {name: zeros}}
     for SGD, {"count", "mu", "nu"} for Adam. `step(params, grads, state)`
-    updates the parameters and the state in place; a gradient of None
-    counts as zeros, so every parameter is decayed. `sq_norm`, given the
+    updates the parameters and the state's buffers in place (a captured
+    step keeps writing the same buffers); a gradient of None counts as
+    zeros, so every parameter is decayed. `sq_norm`, given the
     gradients by name, returns their squared global norm for the clip
     where some are shards of a tensor-parallel model (default: the sum of
     their squares).
@@ -153,11 +156,29 @@ class Optimizer:
             return {"count": 0, "trace": zeros()}
         return {"count": 0, "mu": zeros(), "nu": zeros()}
 
+    def step_scalars(self, count: int, steps: int = 1) -> np.ndarray:
+        """(steps, SCALARS) float32: for each step from `count` on, the
+        step's -LR, Adam's bias corrections c1 and c2 and their float32
+        reciprocals, the host values `step` computes when it is given none
+        (SGD reads only the first)."""
+        rows = []
+        for c in range(count, count + steps):
+            c1 = _F32(1) - _F32(_B1) ** _F32(c + 1)
+            c2 = _F32(1) - _F32(_B2) ** _F32(c + 1)
+            rows.append((-_F32(self.schedule(c)), c1, c2, _F32(1) / c1,
+                         _F32(1) / c2))
+        return np.array(rows, dtype=_F32).reshape(steps, SCALARS)
+
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor],
              grads: Dict[str, Optional[torch.Tensor]], state: OptState, *,
              sq_norm: Optional[Callable[[Dict[str, torch.Tensor]],
-                                        torch.Tensor]] = None) -> None:
+                                        torch.Tensor]] = None,
+             scalars: Optional[torch.Tensor] = None) -> None:
+        """One update, in place. `scalars`: this step's row of
+        `step_scalars` as a (SCALARS,) float32 tensor on the params' device,
+        read there instead of host floats (a CUDA graph bakes a host float
+        in as a constant); the update is the same bits either way."""
         names = list(params)
         g = [grads[n] if grads.get(n) is not None
              else torch.zeros_like(params[n]) for n in names]
@@ -170,25 +191,39 @@ class Optimizer:
             g = [x + self.weight_decay * params[n] for x, n in zip(g, names)]
 
         count = state["count"]
+        if scalars is None:
+            neg_lr, c1, c2, inv1, inv2 = self.step_scalars(count)[0].tolist()
+            over = _over_host
+        else:
+            neg_lr, c1, c2, inv1, inv2 = scalars.unbind()
+            over = _over
         if self.kind == "sgd":
             trace = state["trace"]
             for x, n in zip(g, names):
-                trace[n] = x + self.momentum * trace[n]
+                trace[n].copy_(x + self.momentum * trace[n])
             u = [trace[n] for n in names]
         else:
-            b1, b2, eps = 0.9, 0.999, 1e-8
-            c1 = float(_F32(1) - _F32(b1) ** _F32(count + 1))
-            c2 = float(_F32(1) - _F32(b2) ** _F32(count + 1))
             mu, nu = state["mu"], state["nu"]
             u = []
             for x, n in zip(g, names):
-                mu[n] = (1 - b1) * x + b1 * mu[n]
-                nu[n] = (1 - b2) * (x * x) + b2 * nu[n]
-                u.append((mu[n] / c1) / (torch.sqrt(nu[n] / c2) + eps))
-        neg_lr = -self.schedule(count)
+                mu[n].copy_((1 - _B1) * x + _B1 * mu[n])
+                nu[n].copy_((1 - _B2) * (x * x) + _B2 * nu[n])
+                u.append(over(mu[n], c1, inv1)
+                         / (torch.sqrt(over(nu[n], c2, inv2)) + _EPS))
         for un, n in zip(u, names):
             params[n].add_(un * neg_lr)
         state["count"] = count + 1
+
+
+def _over_host(x: torch.Tensor, c: float, inv: float) -> torch.Tensor:
+    return x / c
+
+
+def _over(x: torch.Tensor, c: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """x / c as `_over_host` computes it with c a host float: ATen divides a
+    CUDA tensor by a host scalar as the product with its float32 reciprocal
+    (`div_true_kernel_cuda`), a CPU tensor by true division."""
+    return x * inv if x.is_cuda else x / c
 
 
 def create_optimizer(cfg: Any, steps_per_epoch: int = 1) -> Optimizer:

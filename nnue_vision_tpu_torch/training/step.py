@@ -9,10 +9,27 @@ optimizer state in place. The loss is cross-entropy; after every optimizer
 step an NNUE's FT and classifier weights are clipped to [-1, 1] (an
 EtinyNet's are not, as in JAX).
 
-`scanned_train_steps_fused` is the fused light-tier path: one host draw of
-the augmentation parameters for all K steps of a chunk, one upload, then
-per step one K3 launch (`fused_light_pipeline`) and one train step. The
-losses come back as one (K,) tensor, so the chunk syncs with the host once.
+`scanned_train_steps` is JAX's K optimizer steps in one device dispatch
+(its jitted `lax.scan`): all K steps' host draws are made first, in the
+order K `gathered_train_step` calls make them, and packed with the batch
+indices and each step's optimizer scalars (`Optimizer.step_scalars`) into
+one (K, S) int32 buffer, uploaded once; then per step: gather the rows,
+apply the tier (`data/augment.py` `apply_draws`: K4 and K5 on the medium
+and heavy tiers), normalize, train. `scanned_train_steps_fused` is the
+fused light-tier chunk: per step one K3 launch (`fused_light_pipeline`)
+and one train step. Both return the steps' metrics as (K,) tensors, so
+a chunk syncs with the host once.
+
+On a card a chunk is a CUDA graph (`ChunkGraph`, held by the TrainState):
+the first full chunk of a signature (the model, its config and buffers,
+the optimizer and its state's buffers, the data, tier, teacher, K, B and
+device) runs eagerly on a side stream, the warm-up that capture needs;
+the second captures the K-step body, and every later one is one copy of
+its packed draws into the graph's static buffer and one `replay()`. A
+changed signature drops the graph and starts again. A failed capture or
+replay raises; nothing falls back. On the CPU, and under a mesh (a gloo
+all-reduce can not be captured), the same body runs eagerly. Either way
+the result equals K `gathered_train_step` calls bit for bit.
 
 Data parallelism (a `Mesh` in the TrainState, `parallel/mesh.py`): each
 rank holds the whole model and trains on its shard of the global batch.
@@ -27,16 +44,32 @@ computes what one process computes on the whole batch.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Dict, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
 
-from nnue_vision_tpu_torch.data.augment import preprocess_batch, shard_rows
+from nnue_vision_tpu_torch.data.augment import (
+    apply_draws,
+    batch_draws,
+    draw_batch,
+    draw_specs,
+    field_views,
+    normalize_images,
+    pack_fields,
+    packed_size,
+    preprocess_batch,
+    shard_rows,
+)
 from nnue_vision_tpu_torch.models.nnue import NNUE, nnue_clip_weights
+from nnue_vision_tpu_torch.ops import input_pipeline as ip
+from nnue_vision_tpu_torch.ops import photometric_kernel as pk
+from nnue_vision_tpu_torch.ops import warp_kernel as wk
 from nnue_vision_tpu_torch.ops.input_pipeline import (
     LightParams,
     draw_light_params,
@@ -50,17 +83,24 @@ from nnue_vision_tpu_torch.parallel.mesh import (
     average_gradients,
     shard_map,
 )
-from nnue_vision_tpu_torch.training.optim import Optimizer, OptState
+from nnue_vision_tpu_torch.training.optim import SCALARS, Optimizer, OptState
+
+_I32, _F32 = torch.int32, torch.float32
+# the launch counts of the kernels a chunk can run (K3, K4, K5)
+_COUNTERS = (ip.LAUNCHES, wk.LAUNCHES, pk.LAUNCHES)
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters and norm statistics), the optimizer state,
-    the step count, and the mesh the step runs over (None: one process)."""
+    the step count, the mesh the step runs over (None: one process), and on
+    a card the CUDA graph of the last full chunk's signature."""
     model: nn.Module
     opt_state: OptState
     step: int = 0
     mesh: Optional[Mesh] = None
+    chunk_graph: Optional["ChunkGraph"] = dataclasses.field(default=None,
+                                                            repr=False)
 
 
 def make_train_state(model: nn.Module, optimizer: Optimizer,
@@ -121,12 +161,14 @@ def distillation_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
-               *, optimizer: Optimizer, teacher: Optional[Teacher] = None
+               *, optimizer: Optimizer, teacher: Optional[Teacher] = None,
+               scalars: Optional[torch.Tensor] = None
                ) -> Dict[str, torch.Tensor]:
     """One optimizer step on normalized images (B, H, W, 3) and labels (B,),
     then, for an NNUE, the FT and classifier weights clipped to [-1, 1].
     Under a mesh the images and labels are this rank's shard, and the
     gradients, loss and accuracy are averaged over the mesh first.
+    `scalars`: the step's optimizer scalars on the device (`Optimizer.step`).
     Returns {"loss", "accuracy"} as device scalars."""
     model = state.model.train()
     params = dict(model.named_parameters())
@@ -140,7 +182,8 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
         grads, (loss, acc) = average_gradients(
             state.mesh, grads, params,
             sharded=getattr(model, "tp_sharded", ()), scalars=(loss, acc))
-    optimizer.step(params, grads, state.opt_state, sq_norm=_sq_norm(model))
+    optimizer.step(params, grads, state.opt_state, sq_norm=_sq_norm(model),
+                   scalars=scalars)
     if isinstance(model, NNUE):
         nnue_clip_weights(model)
     state.step += 1
@@ -175,6 +218,207 @@ def gathered_train_step(state: TrainState, device_images: torch.Tensor,
                       teacher=teacher)
 
 
+def _launch_counts() -> Dict[Tuple[int, str], int]:
+    return {(i, name): n for i, counter in enumerate(_COUNTERS)
+            for name, n in counter.items()}
+
+
+def _set_launch_counts(counts: Dict[Tuple[int, str], int]) -> None:
+    for (i, name), n in counts.items():
+        _COUNTERS[i][name] = n
+
+
+def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The nodes of a captured graph (kept with `keep_graph=True`), asked of
+    the CUDA driver."""
+    driver = ctypes.CDLL("libcuda.so.1")
+    driver.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    err = driver.cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {err}")
+    return n.value
+
+
+def _buffers(model: nn.Module, opt_state: OptState) -> Tuple[int, ...]:
+    """The addresses a captured step reads and writes: the model's
+    parameters and buffers, and the optimizer state's buffers."""
+    ptrs = [t.data_ptr() for t in model.parameters()]
+    ptrs += [t.data_ptr() for t in model.buffers()]
+    ptrs += [t.data_ptr() for k, v in sorted(opt_state.items()) if k != "count"
+             for t in v.values()]
+    return tuple(ptrs)
+
+
+class ChunkGraph:
+    """K train steps of one signature as one CUDA graph (the JAX package's
+    jitted `lax.scan` of the step).
+
+    `key` is the signature: tensors enter it as addresses, modules,
+    optimizers and generators as themselves (compared by identity), configs
+    by value. `buf` is the static (K, S) int32 input the body reads: each
+    chunk's packed draws, indices and optimizer scalars are copied into it
+    before the chunk runs. The first chunk (`warm_up`) runs the body
+    eagerly on the graph's side stream; the next captures it and every one
+    after that only replays. A replay runs none of the body's Python: the
+    host's optimizer count and step advance by K, and each kernel's launch
+    count by the launches its wrapper made during capture (the capture's own
+    calls launch nothing and are taken back out). `generators` (the medium
+    and heavy tiers' device noise) are registered with the graph, so that
+    each replay advances their Philox offset as K eager steps would.
+    """
+
+    def __init__(self, key: tuple, rows: torch.Tensor, device: torch.device,
+                 generators: Tuple[torch.Generator, ...] = ()):
+        self.key = key
+        self.steps = rows.shape[0]
+        self.buf = torch.empty(rows.shape, dtype=_I32, device=device)
+        self.stream = torch.cuda.Stream(device)
+        self.generators = generators
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Dict[str, torch.Tensor] = {}
+        self.launches: Dict[Tuple[int, str], int] = {}
+        self.capture_s = self.instantiate_s = 0.0
+        self.nodes = 0
+        self.replays = 0
+
+    def _load(self, rows: torch.Tensor) -> None:
+        # pinned, so the copy is queued on the stream; the host's caching
+        # allocator keeps the pinned block until the copy has run
+        self.buf.copy_(rows.pin_memory(), non_blocking=True)
+
+    def warm_up(self, rows: torch.Tensor, body: Callable) -> Dict[str, torch.Tensor]:
+        self._load(rows)
+        current = torch.cuda.current_stream(self.buf.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = body(self.buf)
+        current.wait_stream(self.stream)
+        return out
+
+    def _capture(self, state: TrainState, body: Callable) -> None:
+        count, step = state.opt_state["count"], state.step
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        try:
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, stream=self.stream):
+                out = body(self.buf)
+            t1 = time.perf_counter()
+            graph.instantiate()
+            self.instantiate_s = time.perf_counter() - t1
+            self.capture_s = t1 - t0
+            after = _launch_counts()
+            self.launches = {k: after[k] - before[k] for k in before
+                             if after[k] != before[k]}
+        finally:
+            _set_launch_counts(before)
+            state.opt_state["count"], state.step = count, step
+        self.nodes = _graph_nodes(graph)
+        self.graph, self.out = graph, out
+
+    def run(self, state: TrainState, rows: torch.Tensor,
+            body: Callable) -> Dict[str, torch.Tensor]:
+        """One chunk: load `rows`, capture on the first call, replay."""
+        self._load(rows)
+        if self.graph is None:
+            self._capture(state, body)
+        self.graph.replay()
+        self.replays += 1
+        state.opt_state["count"] += self.steps
+        state.step += self.steps
+        for (i, name), n in self.launches.items():
+            _COUNTERS[i][name] += n
+        state.model.train()
+        return {k: v.clone() for k, v in self.out.items()}
+
+    def describe(self) -> str:
+        return (f"graphed: {self.steps} steps as one CUDA graph of "
+                f"{self.nodes} nodes, captured in {self.capture_s:.3f} s and "
+                f"instantiated in {self.instantiate_s:.3f} s")
+
+
+def _run_chunk(state: TrainState, device: torch.device, key: tuple,
+               rows: torch.Tensor, body: Callable,
+               generators: Tuple[torch.Generator, ...] = ()
+               ) -> Dict[str, torch.Tensor]:
+    """`body` (K steps reading their inputs from a (K, S) int32 tensor on
+    `device`) on the chunk's packed host `rows`: eagerly on the CPU and
+    under a mesh, else through the state's `ChunkGraph` for `key`."""
+    if device.type != "cuda" or state.mesh is not None:
+        return body(rows.to(device))
+    graph = state.chunk_graph
+    if graph is None or graph.key != key:
+        state.chunk_graph = None  # the old graph's memory goes first
+        graph = ChunkGraph(key, rows, device, generators)
+        out = graph.warm_up(rows, body)
+        state.chunk_graph = graph
+        return out
+    return graph.run(state, rows, body)
+
+
+def _stack(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    return {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
+
+
+def scanned_train_steps(state: TrainState, device_images: torch.Tensor,
+                        device_labels: torch.Tensor, idx_chunk: np.ndarray,
+                        gen: torch.Generator, *, optimizer: Optimizer,
+                        strength: str = "medium", augment: bool = True,
+                        noise_gen: Optional[torch.Generator] = None,
+                        teacher: Optional[Teacher] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """K = len(idx_chunk) `gathered_train_step`s in one dispatch (JAX's
+    `scanned_train_steps`): `idx_chunk` (K, B) the batches' indices (under
+    a mesh the global batches, of which this rank trains its rows). Every
+    host draw of the K steps is made first, in the order K
+    `gathered_train_step` calls make them, so the generators end where
+    theirs do and the result is theirs bit for bit. The medium and heavy
+    tiers need `noise_gen`. Returns {"loss", "accuracy"} as (K,) tensors."""
+    idx_chunk = np.asarray(idx_chunk)
+    steps, batch = idx_chunk.shape
+    _check_indices(idx_chunk, device_labels.shape[0])
+    if augment and strength != "light" and noise_gen is None:
+        raise ValueError("the medium and heavy tiers draw their noise from "
+                         "noise_gen; pass one")
+    shard = data_shard(state.mesh)
+    idx_chunk = idx_chunk[:, shard_rows(batch, shard)]
+    b = idx_chunk.shape[1]
+    h, w = device_images.shape[1], device_images.shape[2]
+    scalars = optimizer.step_scalars(state.opt_state["count"], steps)
+    rows = torch.stack([pack_fields([
+        torch.from_numpy(idx_chunk[k]).to(_I32),
+        draw_batch(gen, strength, batch, h, w, shard) if augment
+        else torch.zeros(0, dtype=_I32),
+        torch.from_numpy(scalars[k])]) for k in range(steps)])
+    n_draws = packed_size(draw_specs(strength, b)) if augment else 0
+    specs = [((b,), _I32), ((n_draws,), _I32), ((SCALARS,), _F32)]
+
+    def body(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+        metrics = []
+        for k in range(steps):
+            i, draws, sc = field_views(buf[k], specs)
+            x = device_images.index_select(0, i)
+            if augment:
+                x = apply_draws(x, batch_draws(draws, strength, b), noise_gen,
+                                shard)
+            metrics.append(train_step(
+                state, normalize_images(x), device_labels.index_select(0, i),
+                optimizer=optimizer, teacher=teacher, scalars=sc))
+        return _stack(metrics)
+
+    model = state.model
+    key = ("gathered", model, model.cfg, _buffers(model, state.opt_state),
+           optimizer, device_images.device, device_images.data_ptr(), tuple(device_images.shape),
+           device_labels.data_ptr(), strength if augment else None, teacher,
+           noise_gen, steps, b)
+    gens = (noise_gen,) if augment and strength != "light" else ()
+    return _run_chunk(state, device_images.device, key, rows, body, gens)
+
+
 def scanned_train_steps_fused(state: TrainState, gather_dataset: torch.Tensor,
                               device_labels: torch.Tensor,
                               idx_chunk: np.ndarray, gen: torch.Generator, *,
@@ -201,17 +445,30 @@ def scanned_train_steps_fused(state: TrainState, gather_dataset: torch.Tensor,
     cols = shard_rows(batch, data_shard(state.mesh))
     idx_chunk, idx_eff = idx_chunk[:, cols], idx_eff[:, cols]
     params = LightParams(*(t[:, cols].contiguous() for t in params))
-    dev = gather_dataset.device
-    idx_eff = torch.as_tensor(idx_eff, dtype=torch.int32).to(dev)
-    labels = device_labels[torch.as_tensor(idx_chunk, dtype=torch.int64).to(dev)]
-    pf, pi = params.pf.to(dev), params.pi.to(dev)
+    b = idx_chunk.shape[1]
+    scalars = optimizer.step_scalars(state.opt_state["count"], steps)
+    rows = torch.stack([pack_fields([
+        torch.from_numpy(idx_eff[k]).to(_I32),
+        torch.from_numpy(idx_chunk[k]).to(_I32), params.pf[k], params.pi[k],
+        torch.from_numpy(scalars[k])]) for k in range(steps)])
+    specs = [((b,), _I32), ((b,), _I32), ((b, 2), _F32), ((b, 4), _I32),
+             ((SCALARS,), _F32)]
 
-    metrics = []
-    for k in range(steps):
-        x = fused_light_pipeline(gather_dataset, idx_eff[k], pf[k], pi[k],
-                                 h=height, w=width)
-        metrics.append(train_step(state, x, labels[k], optimizer=optimizer))
-    return {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
+    def body(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+        metrics = []
+        for k in range(steps):
+            i_eff, i, pf, pi, sc = field_views(buf[k], specs)
+            x = fused_light_pipeline(gather_dataset, i_eff, pf, pi, h=height,
+                                     w=width)
+            metrics.append(train_step(state, x, device_labels.index_select(0, i),
+                                      optimizer=optimizer, scalars=sc))
+        return _stack(metrics)
+
+    model = state.model
+    key = ("fused", model, model.cfg, _buffers(model, state.opt_state),
+           optimizer, gather_dataset.device, gather_dataset.data_ptr(), tuple(gather_dataset.shape),
+           device_labels.data_ptr(), steps, b)
+    return _run_chunk(state, gather_dataset.device, key, rows, body)
 
 
 @torch.no_grad()

@@ -274,8 +274,8 @@ def test_jax_teacher_drives_the_distill_config_through_the_cli(
 
 def test_nnue_distillation_turns_the_fused_path_off(tmp_path, monkeypatch, capsys):
     """An NNUE on the light tier with a teacher trains through
-    `gathered_train_step` (the JAX loop's gate), with the default alpha and
-    temperature."""
+    `scanned_train_steps` and `gathered_train_step` (the JAX loop's gate),
+    with the default alpha and temperature."""
     monkeypatch.setenv("NV_SKIP_ENGINE", "1")
     monkeypatch.chdir(tmp_path)
     cfg = load_config(str(REPO / "config" / "train_nnue_test.py"))
@@ -290,9 +290,11 @@ def test_nnue_distillation_turns_the_fused_path_off(tmp_path, monkeypatch, capsy
     cfg.steps_per_dispatch = 2
     cfg.distill_from = str(teacher_ckpt)
     teachers = []
-    real = tloop.gathered_train_step
+    real, real_scanned = tloop.gathered_train_step, tloop.scanned_train_steps
     monkeypatch.setattr(tloop, "gathered_train_step", lambda *a, **kw: (
         teachers.append(kw["teacher"]), real(*a, **kw))[1])
+    monkeypatch.setattr(tloop, "scanned_train_steps", lambda *a, **kw: (
+        teachers.extend([kw["teacher"]] * len(a[3])), real_scanned(*a, **kw))[1])
     assert tloop.train_model(cfg, "nnue", device="cpu") == 0
     out = capsys.readouterr().out
     assert "fused input pipeline active" not in out

@@ -588,6 +588,14 @@ def test_ef_warmup_switches_config(tmp_path, monkeypatch, capsys):
         opt_states.append(state.opt_state)
         return {"loss": torch.ones(()), "accuracy": torch.ones(())}
 
+    def fake_scanned(state, di, dl, idx_chunk, gen, **kw):
+        for idx in idx_chunk:
+            fake_gathered(state, di, dl, idx, gen, optimizer=kw["optimizer"],
+                          strength=kw["strength"], augment=kw["augment"],
+                          noise_gen=kw["noise_gen"])
+        return {"loss": torch.ones(len(idx_chunk)),
+                "accuracy": torch.ones(len(idx_chunk))}
+
     eval_flags = []
     f1s = iter([0.9, 0.9, 0.8, 0.8, 0.7, 0.7, 0.5])
 
@@ -602,6 +610,7 @@ def test_ef_warmup_switches_config(tmp_path, monkeypatch, capsys):
     saved = []
     monkeypatch.setenv("NV_SKIP_ENGINE", "1")
     monkeypatch.setattr(tloop, "gathered_train_step", fake_gathered)
+    monkeypatch.setattr(tloop, "scanned_train_steps", fake_scanned)
     monkeypatch.setattr(tloop, "evaluate_model", fake_eval)
     monkeypatch.setattr(tloop, "evaluate_int8_sim", fake_int8)
     monkeypatch.setattr(tloop.ckpt, "save_checkpoint",

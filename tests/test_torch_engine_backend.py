@@ -240,6 +240,8 @@ def test_broken_engine_stops_the_run_before_any_step(env, monkeypatch):
     steps = []
     monkeypatch.setattr(tloop, "gathered_train_step",
                         lambda *a, **k: steps.append(1))
+    monkeypatch.setattr(tloop, "scanned_train_steps",
+                        lambda *a, **k: steps.append(1))
     with pytest.raises(RuntimeError, match="engine failed"):
         tloop.train_model(cfg, "nnue", device="cpu")
     assert steps == []

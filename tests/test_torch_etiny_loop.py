@@ -99,20 +99,22 @@ def test_train_model_heavy_bf16(env, monkeypatch):
 def test_f3_light_tier_etinynet_takes_the_gathered_step(env, monkeypatch):
     """F3: the fused light-tier path (K3, then the NNUE weight clip) is for
     an NNUE only, as in the JAX loop; an EtinyNet on the light tier trains
-    through `gathered_train_step`."""
+    through `scanned_train_steps` (full chunks) and `gathered_train_step`."""
     cfg, _ = env
     cfg.use_augmentation = True
     cfg.augmentation_strength = "light"
     cfg.steps_per_dispatch = 2
-    fused, gathered = [], []
+    fused, steps = [], []
     monkeypatch.setattr(tloop, "scanned_train_steps_fused",
                         lambda *a, **k: fused.append(1))
-    real = tloop.gathered_train_step
+    real, real_scanned = tloop.gathered_train_step, tloop.scanned_train_steps
     monkeypatch.setattr(tloop, "gathered_train_step",
-                        lambda *a, **k: gathered.append(1) or real(*a, **k))
+                        lambda *a, **k: steps.append(1) or real(*a, **k))
+    monkeypatch.setattr(tloop, "scanned_train_steps", lambda *a, **k: (
+        steps.extend([1] * len(a[3])), real_scanned(*a, **k))[1])
     before = dict(ip.LAUNCHES)
     assert tloop.train_model(cfg, "etinynet", device="cpu") == 0
-    assert fused == [] and len(gathered) == 8
+    assert fused == [] and len(steps) == 8
     assert ip.LAUNCHES == before
 
 
@@ -149,15 +151,19 @@ def test_cli_trains_etinynet(env, capsys):
 
 
 def test_profile_probe_runs_an_etinynet_on_cpu(tmp_path):
-    """The train-step probe takes the gathered heavy-tier path for an
-    EtinyNet; on the CPU its device numbers are null."""
+    """The train-step probe takes the scanned heavy-tier chunk for an
+    EtinyNet (eager and, on a card, graphed; both eager here); on the CPU
+    its device and graph numbers are null."""
     from nnue_vision_tpu_torch import profile_train_step
 
     out = profile_train_step.profile(
         TEST_CONFIG, "cpu", tmp_path / "prof", "etinynet",
         {"augmentation_strength": "heavy", "steps_per_dispatch": 2})
     assert out["model_type"] == "etinynet" and out["steps"] == 2
-    assert out["step_ms"] > 0 and out["card"] is None
+    assert out["card"] is None and out["graph"] is None
+    assert all(v > 0 for which in ("eager", "graphed")
+               for v in out["step_ms"][which])
     assert set(out["phase_ms"]) == {"augment", "forward_loss", "backward",
                                     "optimizer"}
-    assert out["device_busy_share"] is None
+    assert all(out["profile"][which]["device_busy_share"] is None
+               for which in ("eager", "graphed"))

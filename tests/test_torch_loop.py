@@ -155,15 +155,20 @@ def test_cuda_request_raises_without_cuda(env):
 
 
 def test_profile_probe_runs_on_cpu(tmp_path):
-    """The train-step profile probe runs the fused chunk, the phases and
-    the profiler; on the CPU its device numbers are null."""
+    """The train-step profile probe runs the fused chunk (eager and, on a
+    card, graphed; both eager here), the phases and the profiler; on the
+    CPU its device and graph numbers are null."""
     from nnue_vision_tpu_torch import profile_train_step
 
     out = profile_train_step.profile(TEST_CONFIG, "cpu", tmp_path / "prof")
     assert out["steps"] == 8 and out["batch"] == 4
-    assert out["step_ms"] > 0 and out["card"] is None
+    assert out["card"] is None and out["graph"] is None
+    for which in ("eager", "graphed"):
+        assert len(out["step_ms"][which]) == 2
+        assert all(v > 0 for v in out["step_ms"][which])
+        assert out["profile"][which]["device_busy_share"] is None
+        assert "aten::" in (tmp_path / "prof" /
+                            f"profile_table_{which}.txt").read_text()
     assert set(out["phase_ms"]) == {"k3", "forward_loss", "backward",
                                     "optimizer", "weight_clip"}
-    assert out["device_busy_share"] is None
-    assert "aten::" in (tmp_path / "prof" / "profile_table.txt").read_text()
     assert profile_train_step._busy_us([(0, 2), (1, 3), (5, 6)]) == 4

@@ -111,6 +111,8 @@ def test_train_model_orbax_backend_and_resume(tmp_path, monkeypatch, capsys):
     calls = []
     monkeypatch.setattr(tloop, "gathered_train_step",
                         lambda *a, **k: calls.append(1))
+    monkeypatch.setattr(tloop, "scanned_train_steps",
+                        lambda *a, **k: calls.append(1))
     cfg.resume = True
     assert tloop.train_model(cfg, "nnue", device="cpu") == 0
     assert calls == [], "resume re-ran finished epochs"
