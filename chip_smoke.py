@@ -18,8 +18,9 @@ Phases, one line each (any failure raises and exits non-zero):
              registers per kernel, and in the built library's SASS the count
              of int8 tensor-core (IMMA) and cp.async (LDGSTS) instructions of
              the serving kernels (K1, K2, K6, K7), which must reach both, and
-             of bulk copies (UBLKCP) of the ring kernels (K4, its single pass,
-             K8, K5), which must reach them and spill nothing; beside nvcc,
+             of bulk copies (UBLKCP) of the ring kernels (K3, K4, its single
+             pass, K8, K5), which must reach them and spill nothing (K3's
+             count and registers on a line of their own); beside nvcc,
              in a thread, compile_cpp_engine builds the C++ engine's two
              inference tools (cmake + ninja into build/torch_engine/)
 3. model     flagship-width NNUE (config/train_nnue.py widths) from a numpy
@@ -36,7 +37,9 @@ Phases, one line each (any failure raises and exits non-zero):
              8192 also graph-timed (ops/timing.py)
 9. pipeline  the light-pipeline kernel (K3) on the 20,000 synthetic-hard
              training images at batch 512, 256 (a rank's shard in 31) and
-             37, with flips, holes and
+             37, and on 255 random images each at 77×77 (not whole 16-byte
+             units) at batch 37 and at 224×224 (56 bands an image) at batch
+             64, with flips, holes and
              brightness/contrast drawn, torch.equal to its plain version;
              identity params equal normalize_images of the gathered rows
 10. train    train_model on config/train_nnue_hard.py (full width, batch
@@ -47,7 +50,11 @@ Phases, one line each (any failure raises and exits non-zero):
 11. launches all three kernels launched on their paths (serving: 4-6,
              training: 10)
 12. timing   K3 vs plain at batch 512 and 8192 (CUDA events, median of 20 in
-             turns), at 512 also graph-timed and its host cost per call; ms
+             turns), each also graph-timed with its bytes bound and its host
+             cost per call, and where a block's time goes (the SM cycles of a
+             block's first item: scalars, copy, compute, store; median over
+             the blocks of 5 launches, ops/input_pipeline.py
+             light_pipeline_phases); ms
              per train step over a 39-step chunk (host clock, one sync at the
              end): eager, captured and replayed, replayed
 13. etiny-serve  a 0.98M-width EtinyNet from a numpy seed (random weights and
@@ -264,7 +271,8 @@ alone at batch 8192, graph-timed too, once on the 0.98M model and again,
 as a second entry, on the engine_friendly 0.75 `.etiny` of phase 18, whose
 launches the first entry's count includes; K7's level 3; K1, K2, K3, K4,
 K5, the single pass and K8 also graph-timed, with their host cost per call; K5's
-band path at 224 as a second K5 entry; each kernel of 31-33 also its
+band path at 224 as a second K5 entry; K3 at batch 8192 as a second K3 entry,
+with the first entry's launches; each kernel of 31-33 also its
 launches per rank, which its `launches` includes), the card's name and
 power limit, and the last line
 {"ok": true, "device": {...}}.
@@ -395,6 +403,8 @@ FLAGSHIP = NNUEConfig(  # config/train_nnue.py
 )
 TRAIN_CONFIG = "config/train_nnue_hard.py"
 PIPELINE_BATCHES = (512, 256, 37)  # 256: a rank's shard in phase 31
+# K3 past the flagship's shape: not whole 16-byte units, and in bands
+PIPELINE_SHAPES = ((77, 77, 37), (224, 224, 64))
 PIPELINE_TIMING_BATCHES = (512, 8192)
 ETINY_CONFIG = "config/train_etinynet.py"
 ETINY_TRAIN_SIZE = 50000  # CIFAR-10's train split, in synthetic-hard images
@@ -406,6 +416,7 @@ EF_EPOCHS = 3  # the config's 60, cut
 EF_WARMUP = 1  # the config's 25, cut: epoch 0 warms up, epochs 1-2 quantized
 EF_K6 = "etiny_block_kernel (0.75 engine_friendly .etiny)"
 K5_BAND = "photometric_band_kernel"  # K5's band path, at 224×224
+K3_8192 = "light_pipeline_kernel (B=8192)"  # K3 timed at batch 8192
 GATES = {"medium": [0, 3, 7, 8, 10, 11, 15, 20, 22, 23],
          "heavy_extra": [0, 3, 7, 8, 10, 11]}
 SOURCES = {
@@ -420,6 +431,7 @@ SOURCES = {
     "nogather_pass_kernel": "nnue_vision_tpu_torch/csrc/warp.cu",
     EF_K6: "nnue_vision_tpu_torch/csrc/etiny_block.cu",
     K5_BAND: "nnue_vision_tpu_torch/csrc/photometric.cu",
+    K3_8192: "nnue_vision_tpu_torch/csrc/light_pipeline.cu",
 }
 REPLACES = {
     "nnue_mega_kernel": "nnue_vision_tpu/ops/pallas_kernels.py:161",
@@ -433,6 +445,7 @@ REPLACES = {
     "nogather_pass_kernel": "scripts/profile_warp_split.py:51",
     EF_K6: "nnue_vision_tpu/ops/etiny_pallas.py:105",
     K5_BAND: "nnue_vision_tpu/ops/photometric_kernel.py:114",
+    K3_8192: "nnue_vision_tpu/ops/input_pipeline.py:147",
 }
 # The card's published rates (NVIDIA's data sheet; H100 SXM, 700 W) beside
 # HBM_BYTES_PER_S: dense int8 tensor-core operations (the highest integer
@@ -445,7 +458,8 @@ GRAPH_REPS = 50  # calls per CUDA graph in the graph-timed rows
 # the tensor-core kernels and the bulk-copy kernels, as their names appear
 # (mangled) in the SASS, and the instructions counted there
 TENSOR_CORE_KERNELS = ("etiny_block_kernel", "nnue_mega_kernel", "nnue_head_kernel")
-BULK_KERNELS = ("warp_kernel", "lerp_pass_kernel", "photometric_kernel")
+BULK_KERNELS = ("light_pipeline_kernel", "warp_kernel", "lerp_pass_kernel",
+                "photometric_kernel")
 SASS_KERNELS = TENSOR_CORE_KERNELS + BULK_KERNELS
 SASS_OPS = ("IMMA", "LDGSTS", "UBLKCP")
 WARP_SPLIT_REPS = "100"
@@ -2541,8 +2555,8 @@ def main() -> int:
         check(name in sass and sass[name]["IMMA"] > 0 and sass[name]["LDGSTS"] > 0,
               f"{name}: no int8 tensor-core or cp.async instruction in its SASS")
     usage = ptxas_usage(built.log)
-    for name in ("warp_kernel", "lerp_pass_kernel<1>", "lerp_pass_kernel<0>",
-                 "photometric_kernel"):
+    for name in ("light_pipeline_kernel", "warp_kernel", "lerp_pass_kernel<1>",
+                 "lerp_pass_kernel<0>", "photometric_kernel"):
         check(name in sass and sass[name]["UBLKCP"] > 0,
               f"{name}: no bulk-copy (UBLKCP) instruction in its SASS")
         check(name in usage and usage[name][1:] == (0, 0),
@@ -2551,6 +2565,9 @@ def main() -> int:
     say("build", "ptxas (registers, spill store bytes, spill load bytes): "
         + json.dumps({k: v for k, v in usage.items()
                       if k.split("<")[0] in BULK_KERNELS}))
+    say("build", f"K3 light_pipeline_kernel: {sass['light_pipeline_kernel']['UBLKCP']} "
+        f"bulk copies (UBLKCP) in its SASS, "
+        f"{usage['light_pipeline_kernel'][0]} registers")
 
     # 3. model
     rng = np.random.default_rng(SEED)
@@ -2700,6 +2717,15 @@ def main() -> int:
     say("pipeline", f"N={dataset.shape[0]} ({dataset.numel() * 4 / 1e6:.1f} MB "
         f"on the card), B={PIPELINE_BATCHES}: kernel equal to plain and "
         "identity equal to normalize_images (tolerance: none, torch.equal)")
+    for h, w, batch in PIPELINE_SHAPES:
+        images = np.random.default_rng(SEED + h).random((256, h, w, 3), np.float32)
+        # the view from row 1: an unaligned shape's rows start off 16 bytes
+        shaped = ip.prepare_gather_dataset(torch.from_numpy(images).cuda())[1:]
+        pipeline(errs, shaped, torch.Generator().manual_seed(SEED + h), batch)
+        say("pipeline", f"{h}x{w}, N={shaped.shape[0]}, B={batch}: "
+            f"{ip.band_plan(h, w)} kernel equal to plain and identity equal "
+            "to normalize_images (torch.equal)")
+        del images, shaped
 
     # 10. train — the training path, counted from here to its end
     with tempfile.TemporaryDirectory() as tmp:
@@ -2745,32 +2771,43 @@ def main() -> int:
     launches["light_pipeline_kernel"] = train_launches["light_pipeline_kernel"]
 
     # 12. timing
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
     for batch in PIPELINE_TIMING_BATCHES:
+        name = "light_pipeline_kernel" if batch == 512 else K3_8192
         params = ip.draw_light_params(pgen, 1, batch, H, W)
         idx = torch.randint(0, dataset.shape[0], (batch,), generator=pgen)
         args = ((idx + dataset.shape[0] * params.flip[0]).to(torch.int32).cuda(),
                 params.pf[0].cuda(), params.pi[0].cuda())
-        k, p = time_pair(
+        errs.equal(name, f"pipeline timing B={batch}",
+                   ip.fused_light_pipeline(dataset, *args, h=H, w=W),
+                   ip.fused_light_pipeline_reference(dataset, *args, h=H, w=W))
+        ms[name] = time_pair(
             lambda a=args: ip.fused_light_pipeline(dataset, *a, h=H, w=W),
             lambda a=args: ip.fused_light_pipeline_reference(dataset, *a, h=H, w=W))
-        if batch == 512:
-            ms["light_pipeline_kernel"] = (k, p)
-            extra["light_pipeline_kernel"] = (chained_best_ms(
-                lambda a=args: ip.fused_light_pipeline(dataset, *a, h=H, w=W),
-                GRAPH_REPS), host_ms(
-                lambda a=args: ip.fused_light_pipeline(dataset, *a, h=H, w=W)))
-            say("timing", f"K3 B={batch}: graph-timed "
-                f"{extra['light_pipeline_kernel'][0]:.4f} ms ({GRAPH_REPS} calls "
-                f"per CUDA graph, best of 3), host "
-                f"{extra['light_pipeline_kernel'][1]:.4f} ms per call on {smi}")
-            # the gathered rows read and the output written; per value a
-            # multiply-add, two clamps, a subtract and a divide
-            values = batch * H * W * 3
-            bounds["light_pipeline_kernel"] = bound(
-                2 * 4 * values + nbytes(*args), f32_ops=6 * values)
-            library["light_pipeline_kernel"] = None  # gather + affine + cutout
+        extra[name] = (chained_best_ms(
+            lambda a=args: ip.fused_light_pipeline(dataset, *a, h=H, w=W),
+            GRAPH_REPS), host_ms(
+            lambda a=args: ip.fused_light_pipeline(dataset, *a, h=H, w=W)))
+        # the gathered rows read and the output written; per value a
+        # multiply-add, two clamps, a subtract and a divide
+        values = batch * H * W * 3
+        bounds[name] = bound(2 * 4 * values + nbytes(*args), f32_ops=6 * values)
+        library[name] = None  # gather + affine + cutout
+        k, p = ms[name]
         say("timing", f"K3 B={batch}: kernel {k:.4f} ms ({batch / k * 1e3:,.0f} "
-            f"img/s), plain {p:.4f} ms ({batch / p * 1e3:,.0f} img/s) on {smi}")
+            f"img/s), plain {p:.4f} ms ({batch / p * 1e3:,.0f} img/s); graph-timed "
+            f"{extra[name][0]:.4f} ms ({GRAPH_REPS} calls per CUDA graph, best of "
+            f"3, {bounds[name][0] / extra[name][0]:.0%} of the {bounds[name][0]:.4f} ms "
+            f"bound), host {extra[name][1]:.4f} ms per call on {smi}")
+        phases = [ip.light_pipeline_phases(dataset, *args, h=H, w=W)
+                  for _ in range(6)][1:]
+        cycles = {k: statistics.median(d[k] for d in phases) for k in ip.PHASES}
+        say("timing", f"K3 B={batch}, a block's first item (median over the blocks "
+            "and 5 launches), SM cycles and us at the "
+            f"{clock_mhz:.0f} MHz maximum SM clock: " + ", ".join(
+                f"{k} {v:,.0f} ({v / clock_mhz:.3f} us)" for k, v in cycles.items()))
     cfg = tr["cfg"]
     opt = create_optimizer(cfg, 39)
     state = make_train_state(trained, opt)
@@ -3252,6 +3289,9 @@ def main() -> int:
                                     torch.from_numpy(ds.labels).cuda()).items():
         launches[name] += count
 
+    # the 8192 entry is the same kernel timed at another batch: its
+    # launches are the main path's
+    launches[K3_8192] = launches["light_pipeline_kernel"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -49,10 +49,9 @@ SIGNATURES = {
     ),
     "nnue_head_launch": ([_P, _I] + _HEAD_ARGS + [_P, _P, _P], _I),
     "nnue_mega_tile": ([_I] * 8 + [_P], _I),
-    "light_pipeline_launch": (
-        [_P, _I, _I, _I, _P, _P, _P, _I] + [_F] * 6 + [_P, _P], _I,
-    ),
     # the ring kernels' launchers take one packed int64 array (ops/_ring.py)
+    "light_pipeline_launch": ([_P], _I),
+    "light_pipeline_blocks_per_sm": ([_I] * 2, _I),
     "warp_launch": ([_P], _I),
     "warp_blocks_per_sm": ([_I], _I),
     "lerp_pass_launch": ([_P], _I),

@@ -1,9 +1,9 @@
 """Host side of the persistent bulk-copy kernels (`csrc/bulk_ring.cuh`): the
-warp (K4), its single pass and the no-gather control (K8), and the
-photometric block (K5).
+light pipeline (K3), the warp (K4), its single pass and the no-gather
+control (K8), and the photometric block (K5).
 
 Each of those kernels runs a persistent grid whose blocks walk items (an
-image, or a tile of packed rows) through one shared-memory slot fed by bulk
+image, a band of one, or a tile of packed rows) through one shared-memory slot fed by bulk
 copies; the blocks resident on an SM overlap one another's copies and
 compute. `grid_size` sizes the grid from the kernel's resident blocks per
 SM, which the library reports per shape (`*_blocks_per_sm`) and `grid`
@@ -92,7 +92,7 @@ def launch(dev: torch.device, kernel: str, fn_name: str, args: tuple) -> None:
     index = dev.index
     buf = getattr(_ARGS, "buf", None)
     if buf is None:
-        buf = _ARGS.buf = (ctypes.c_int64 * 16)()
+        buf = _ARGS.buf = (ctypes.c_int64 * 24)()
     if index == _current_device():
         buf[:len(args) + 1] = args + (_raw_stream(index),)
         err = fn(buf)

@@ -18,10 +18,22 @@ flip bit, an (α, β) pair and a hole rectangle per sample.
 `fused_light_pipeline` dispatches on the device of the dataset: a CPU
 tensor takes the plain version, a CUDA tensor the kernel, which launches or
 raises. There is no fallback.
+
+The kernel is a persistent grid over items, each one bulk copy into a
+block's shared memory (`csrc/bulk_ring.cuh`, `ops/_ring.py`): an item is a
+band of at most `BAND_CELLS` pixels of one image, whole rows, or a
+segment of one row where a row is wider. `band_plan` picks the bands, in
+plain Python so that the CPU tests hold it; `ops/_ring.py` sizes the grid
+and launches. Every shape goes through the kernel: where a band's bytes are
+not whole 16-byte units at 16-byte boundaries (H·W % 4 != 0), the kernel
+moves the few values at either end with plain loads and stores.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+import struct
 from typing import NamedTuple
 
 import torch
@@ -32,15 +44,57 @@ from nnue_vision_tpu_torch.data.augment import (
     uniform,
     normalize_images,
 )
+from nnue_vision_tpu_torch.ops import _ring
 
 # Launches since the last reset_launch_counts(); the wrapper adds one where
 # it launches the kernel, and nowhere else.
 LAUNCHES = {"light_pipeline_kernel": 0}
 
 
+# Pixels per item at most: a block's two shared-memory regions of one band
+# each (csrc/light_pipeline.cu kCells).
+BAND_CELLS = 1024
+_F32, _I32 = torch.float32, torch.int32
+# the mean and std as six float32 packed two to an int64 argument
+_NORM = struct.unpack("<3q", struct.pack("<6f", *IMAGENET_MEAN, *IMAGENET_STD))
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+class BandPlan(NamedTuple):
+    """The kernel's items for an h×w image: bands of `rows` rows of `cols`
+    pixels (`cols` < w only for rows wider than BAND_CELLS, one row a band);
+    `aligned`: every item's bytes are whole 16-byte units at 16-byte
+    offsets from the image's start, so that a bulk copy moves all of them."""
+    rows: int
+    cols: int
+    aligned: bool
+
+
+@functools.lru_cache(maxsize=None)
+def band_plan(h: int, w: int) -> BandPlan:
+    """The bands of an h×w image: as many whole rows as BAND_CELLS holds
+    (the whole image up to 1024 pixels), trimmed where that keeps every
+    band on a 16-byte boundary; a row wider than BAND_CELLS in segments of
+    BAND_CELLS pixels."""
+    if h <= 0 or w <= 0:
+        raise ValueError(f"an image has at least one pixel; got {h}x{w}")
+    if w > BAND_CELLS:
+        return BandPlan(1, BAND_CELLS, w % 4 == 0)
+    rows = min(h, BAND_CELLS // w)
+    step = 4 // math.gcd(w, 4)  # rows·w % 4 == 0 for a multiple of step
+    if rows < h and (h * w) % 4 == 0 and rows >= step:
+        rows -= rows % step
+    return BandPlan(rows, w, (h * w) % 4 == 0 and (rows == h or rows * w % 4 == 0))
+
+
+def _items(batch: int, h: int, w: int) -> tuple:
+    """(rows, cols, items): the band plan and the kernel's item count."""
+    rows, cols, _ = band_plan(h, w)
+    return rows, cols, batch * -(-h // rows) * -(-w // cols)
 
 
 class LightParams(NamedTuple):
@@ -144,36 +198,40 @@ def _require(t: torch.Tensor, name: str, dtype, device) -> None:
             f"{t.is_contiguous()}, address {t.data_ptr():#x})")
 
 
-def _launch(dataset, idx_eff, pf, pi, h, w):
-    """light_pipeline_kernel on CUDA tensors."""
-    from nnue_vision_tpu_torch.ops._build import load_library
-
+def _launch(dataset, idx_eff, pf, pi, h, w, stamps=None):
+    """light_pipeline_kernel on CUDA tensors; `stamps`, an int64 (items, 5)
+    tensor or None, takes the blocks' clocks (`light_pipeline_phases`)."""
+    # the checks, cheapest first, in one pass; each launch's host cost is
+    # what an eager train step pays (PERF.md)
     dev = dataset.device
-    if dev.type != "cuda":
-        raise ValueError(
-            f"light_pipeline_kernel runs on CUDA tensors only (got {dev}); "
-            "CPU tensors take the plain version")
-    b = idx_eff.shape[0]
-    if 2 * dataset.shape[0] >= 2**31:
+    if not (dataset.is_cuda and dataset.dtype is _F32 and idx_eff.dtype is _I32
+            and pf.dtype is _F32 and pi.dtype is _I32 and idx_eff.device == dev
+            and pf.device == dev and pi.device == dev
+            and dataset.is_contiguous() and idx_eff.is_contiguous()
+            and pf.is_contiguous() and pi.is_contiguous()):
+        if not dataset.is_cuda:
+            raise ValueError(
+                f"light_pipeline_kernel runs on CUDA tensors only (got {dev}); "
+                "CPU tensors take the plain version")
+        _require(dataset, "dataset", _F32, dev)
+        _require(idx_eff, "idx_eff", _I32, dev)
+        _require(pf, "pf", _F32, dev)
+        _require(pi, "pi", _I32, dev)
+    n, b = dataset.shape[0], idx_eff.shape[0]
+    if 2 * n >= 2**31:
         raise ValueError("the kernel takes int32 indices: 2N must be < 2^31")
-    _require(dataset, "dataset", torch.float32, dev)
-    _require(idx_eff, "idx_eff", torch.int32, dev)
-    _require(pf, "pf", torch.float32, dev)
-    _require(pi, "pi", torch.int32, dev)
-    out = torch.empty((b, h, w, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, w, 3), dtype=_F32, device=dev)
     if b == 0:
         return out
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.light_pipeline_launch(
-            dataset.data_ptr(), dataset.shape[0], h, w, idx_eff.data_ptr(),
-            pf.data_ptr(), pi.data_ptr(), b, *IMAGENET_MEAN, *IMAGENET_STD,
-            out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            "light_pipeline_kernel launch failed: "
-            f"{lib.nnue_error_string(err).decode()}")
+    rows, cols, items = _items(b, h, w)
+    if items >= 2**30:
+        raise ValueError(f"the kernel walks fewer than 2^30 bands; got {items}")
+    grid = _ring.grid(dev, items, "light_pipeline_blocks_per_sm", rows, cols)
+    _ring.launch(dev, "light_pipeline_kernel", "light_pipeline_launch",
+                 (dataset.data_ptr(), n, h, w, idx_eff.data_ptr(),
+                  pf.data_ptr(), pi.data_ptr(), b, rows, cols, grid,
+                  out.data_ptr()) + _NORM
+                 + (0 if stamps is None else stamps.data_ptr(),))
     LAUNCHES["light_pipeline_kernel"] += 1
     return out
 
@@ -187,10 +245,31 @@ def fused_light_pipeline(dataset: torch.Tensor, idx_eff: torch.Tensor,
     [y0, y1, x0, x1]. Indices are the caller's to check (on the host, while
     they are numpy); the kernel writes NaN for a row whose index is out of
     range rather than read outside the dataset."""
-    if dataset.device.type == "cpu":
+    if dataset.is_cpu:
         return fused_light_pipeline_reference(dataset, idx_eff, pf, pi, h=h, w=w)
     _check_args(dataset, idx_eff, pf, pi, h, w)
     return _launch(dataset, idx_eff, pf, pi, h, w)
+
+
+PHASES = ("scalars", "copy", "compute", "store")
+
+
+def light_pipeline_phases(dataset: torch.Tensor, idx_eff: torch.Tensor,
+                          pf: torch.Tensor, pi: torch.Tensor, *, h: int,
+                          w: int) -> dict:
+    """Where one launch of the kernel spends a block's time, for the
+    profiling probes: the median over the blocks of the SM cycles from a
+    block's start to its first item's copy issued (the item's scalars read:
+    `scalars`), to that copy landed (`copy`), to the item's results in
+    shared memory (`compute`) and to the block's end with its stores done
+    (`store`; for a block of several items, all of them). CUDA tensors
+    only; the launch counts as one."""
+    _check_args(dataset, idx_eff, pf, pi, h, w)
+    items = _items(idx_eff.shape[0], h, w)[2]
+    stamps = torch.zeros((items, 5), dtype=torch.int64, device=dataset.device)
+    _launch(dataset, idx_eff, pf, pi, h, w, stamps)
+    clocks = stamps[stamps[:, 4] != 0].double()  # the grid's blocks
+    return dict(zip(PHASES, clocks.diff(dim=1).median(dim=0).values.tolist()))
 
 
 def fused_light_pipeline_reference(dataset: torch.Tensor,

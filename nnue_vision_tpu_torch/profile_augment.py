@@ -1,12 +1,14 @@
-"""Time the heavy augmentation tier's kernels and the EtinyNet train step.
+"""Time the augmentation tiers' kernels and the EtinyNet train step.
 
     python -m nnue_vision_tpu_torch.profile_augment [--batches 1024 8192]
         [--no_train] [--out PATH]
 
-For the warp (K4, `warp_bilinear`), its single pass (`lerp_pass`), the
-no-gather control (K8, `nogather_pass`) and the photometric block (K5,
-`photometric_block`, both variants), at each batch of 32×32×3 images
-(torch seed 0, the heavy tier's draws):
+For the light pipeline (K3, `fused_light_pipeline`: the batch's images as
+the dataset, gathered in a shuffled order with the light tier's flips,
+brightness/contrast and holes), the warp (K4, `warp_bilinear`), its single
+pass (`lerp_pass`), the no-gather control (K8, `nogather_pass`) and the
+photometric block (K5, `photometric_block`, both variants), at each batch
+of 32×32×3 images (torch seed 0, the heavy tier's draws):
 
   event_ms   one call between two CUDA events, median of 100 (host launch
              cost included, as a step pays it)
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from nnue_vision_tpu_torch.data import augment as aug
+from nnue_vision_tpu_torch.ops import input_pipeline as ip
 from nnue_vision_tpu_torch.ops import photometric_kernel as pk
 from nnue_vision_tpu_torch.ops import warp_kernel as wk
 from nnue_vision_tpu_torch.ops.timing import HBM_BYTES_PER_S, card, chained_best_ms, nbytes
@@ -105,7 +108,14 @@ def kernel_calls(batch: int, device):
     draws = aug.draw_tier(gen, "heavy", batch, H, W, device)
     packed = images.reshape(batch, H, W * 3)
     coef = draws.warp1[:, 1:4].contiguous()
+    light = ip.draw_light_params(gen, 1, batch, H, W)
+    order = torch.randperm(batch, generator=gen)
+    light_args = (ip.prepare_gather_dataset(images),
+                  (order + batch * light.flip[0]).to(torch.int32).to(device),
+                  light.pf[0].to(device), light.pi[0].to(device))
     calls = {
+        "light_pipeline_kernel": (
+            lambda: ip.fused_light_pipeline(*light_args, h=H, w=W), light_args),
         "warp_kernel": (lambda: wk.warp_bilinear(images, draws.warp1),
                         (images, draws.warp1)),
         "lerp_pass_kernel": (lambda: wk.lerp_pass(packed, coef, n=W, c=3),
