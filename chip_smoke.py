@@ -6,8 +6,10 @@ K6), its profiling path, the train loop's engine probe and engine
 backend, bf16 NNUE, distillation and resume, EtinyNet-1.0 at ImageNet's
 224×224, data-parallel training and sharded serving over spawned
 ranks, the deployment entry points (the serialize, evaluate and stream
-CLIs, the model facade, the upstream import), and the train chunk as one
-CUDA graph (K3, or K4 and K5, inside it) once on one CUDA card.
+CLIs, the model facade, the upstream import), the train chunk as one
+CUDA graph (K3, or K4 and K5, inside it), and the user tools (the
+engine-speed comparison, the upstream interchange check, the MCU/TinyML
+analysis) once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -253,6 +255,25 @@ Phases, one line each (any failure raises and exits non-zero):
 43. launches K3, K4 and K5 launched by 41-42's graphed chunks, counted through
              the replays (each replay adds the launches its wrappers made
              during capture)
+44. compare-engine-speed  python -m nnue_vision_tpu_torch.compare_engine_speed
+             --samples 64 --iters 20, in process: the C++ engine's ms per
+             image and benchmark_engine's lines, then K1 and K6 beside the
+             sims on the tool's images (each graph-timed), K1's and K6's
+             outputs torch.equal to the sims'
+45. upstream-e2e  upstream_e2e_check on phase 10's best_model.ckpt, --n 64,
+             in process, against build/torch_engine/nnue_inference (the
+             port's own engine build: the card's host has no upstream
+             checkout): bit_exact 64/64 against K1 and against the sim
+46. mcu      run_mcu_benchmarks --max-samples 256, in process, on phase 10's
+             checkpoint and on phase 13's 0.98M EtinyNet: both JSON files
+             written; the report's accuracy (its first 100 images, as
+             run_mlperf_tiny_benchmark scores) equal to evaluate_model's on
+             those images, and evaluate_model_accuracy on the whole test
+             split (128 images: CIFAR-10's synthetic stand-in caps it at a
+             quarter of its 512) equal to evaluate_model's
+47. example  python -m nnue_vision_tpu_torch.run_example_benchmark exits 0;
+             then K1's and K6's launches in 44-47 (every count set to 0
+             before 44)
 
 Every train_model run (phases 10, 15, 18, 21, 24-26, 28) builds the C++ engine
 (a no-op after phase 2) and probes it before its first step, as a user's
@@ -270,7 +291,8 @@ call computes the same function, that call; K6's are its 12 LB blocks
 alone at batch 8192, graph-timed too, once on the 0.98M model and again,
 as a second entry, on the engine_friendly 0.75 `.etiny` of phase 18, whose
 launches the first entry's count includes; K7's level 3; K1, K2, K3, K4,
-K5, the single pass and K8 also graph-timed, with their host cost per call; K5's
+K5, the single pass and K8 also graph-timed, with their host cost per call,
+and the single pass's grid_sample graph-timed as `library_graph_ms`; K5's
 band path at 224 as a second K5 entry; K3 at batch 8192 as a second K3 entry,
 with the first entry's launches; each kernel of 31-33 also its
 launches per rank, which its `launches` includes), the card's name and
@@ -315,10 +337,18 @@ from nnue_vision_tpu_torch import (
     write_nnue,
 )
 from config import load_config
-from nnue_vision_tpu_torch import deploy_etiny, profile_mega_bisect, profile_warp_split
+from nnue_vision_tpu_torch import (
+    compare_engine_speed,
+    deploy_etiny,
+    profile_mega_bisect,
+    profile_warp_split,
+    run_mcu_benchmarks,
+    upstream_e2e_check,
+)
+from nnue_vision_tpu_torch.benchmarks import evaluate_model_accuracy
 from nnue_vision_tpu_torch import stream_inference_demo as sid
 from nnue_vision_tpu_torch import torch_import
-from nnue_vision_tpu_torch.data.loaders import create_data_loaders
+from nnue_vision_tpu_torch.data.loaders import create_data_loaders, head_subset_loader
 from nnue_vision_tpu_torch.models import api
 from nnue_vision_tpu_torch.profile_augment import grid_sample_pass, host_ms
 from nnue_vision_tpu_torch.quantize import quantize_weight_i8
@@ -363,12 +393,16 @@ from nnue_vision_tpu_torch.training.checkpoint import (
     etinynet_from_checkpoint,
     load_checkpoint,
     nnue_from_checkpoint,
+    save_checkpoint,
 )
+from nnue_vision_tpu_torch.serialize import load_checkpoint_auto
+from nnue_vision_tpu_torch.training.engine_build import BUILD_DIR as ENGINE_BUILD_DIR
 from nnue_vision_tpu_torch.training.engine_build import compile_cpp_engine
 from nnue_vision_tpu_torch.training.evaluate import (
     as_engine_prints,
     engine_logits,
     evaluate_int8_sim,
+    evaluate_model,
     normalize_host,
 )
 from nnue_vision_tpu_torch.training.loop import engine_probe, train_model
@@ -2515,6 +2549,129 @@ def deploy_phases(errs: Errors, smi: str, nnue_payload: dict, ef_payload: dict,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 44-47: the user tools (MCU/TinyML analysis, engine-speed comparison,
+# the upstream interchange check), each on checkpoints of earlier phases
+# ---------------------------------------------------------------------------
+
+TOOL_SAMPLES, TOOL_ITERS = 64, 20  # phase 44's --samples and --iters
+E2E_IMAGES = 64  # phase 45's --n: PARITY.md's 64/64
+MCU_SAMPLES = 256  # phase 46's --max-samples
+MCU_SCORED = 100  # run_mlperf_tiny_benchmark's num_samples: the report's accuracy
+
+
+def in_process(fn, *args) -> tuple:
+    """(return value, stdout, wall seconds) of a tool's entry point called
+    in this process, so that its kernel launches are counted; its printed
+    lines are captured and returned."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        value = fn(*args)
+    return value, buf.getvalue(), time.perf_counter() - t0
+
+
+def tool_phases(errs: Errors, smi: str, nnue_payload: dict, emodel) -> dict:
+    """Phases 44-47: compare_engine_speed, upstream_e2e_check,
+    run_mcu_benchmarks and run_example_benchmark on the card.
+    `nnue_payload` is phase 10's best_model.ckpt (flagship widths), `emodel`
+    phase 13's 0.98M EtinyNet. Returns K1's and K6's launches in 44-47."""
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    nnue_ckpt = tmp / "nnue.ckpt"
+    with open(nnue_ckpt, "wb") as f:
+        pickle.dump(nnue_payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+    etiny_ckpt = tmp / "etinynet.ckpt"
+    save_checkpoint(etiny_ckpt, model_type="etinynet", model_config=emodel.cfg,
+                    model=emodel, epoch=0, metrics={})
+    reset_launches()
+
+    # 44. compare-engine-speed — the C++ engine, K1, K6 and the sims
+    result, out, seconds = in_process(compare_engine_speed.run, TOOL_SAMPLES,
+                                      TOOL_ITERS)
+    outputs = result["outputs"]
+    errs.outputs("nnue_mega_kernel", "compare_engine_speed K1 vs sim",
+                 outputs["K1"], outputs["nnue sim"])
+    errs.equal("etiny_block_kernel", "compare_engine_speed K6 vs sim",
+               outputs["K6"], outputs["etinynet sim"])
+    check(len(result["engine_lines"]) == 7, "benchmark_engine printed "
+          f"{result['engine_lines']}")
+    say("compare-engine-speed", f"--samples {TOOL_SAMPLES} --iters {TOOL_ITERS} "
+        f"in {seconds:.2f} s (in process): K1 and K6 on the tool's images "
+        "equal to the sims (tolerance: none, torch.equal) | "
+        + " | ".join(out.strip().splitlines()))
+
+    # 45. upstream-e2e — phase 10's checkpoint through the engine binary
+    rc, out, seconds = in_process(upstream_e2e_check.main, [
+        "--ckpt", str(nnue_ckpt), "--ref-build", str(ENGINE_BUILD_DIR),
+        "--n", str(E2E_IMAGES)])
+    e2e = json.loads(out.strip().splitlines()[-1])
+    check(rc == 0 and e2e["bit_exact_vs_k1"] == e2e["bit_exact_vs_our_sim"]
+          == E2E_IMAGES, f"upstream_e2e_check exited {rc}: {e2e}")
+    say("upstream-e2e", f"--n {E2E_IMAGES} in {seconds:.2f} s (in process) "
+        f"against {ENGINE_BUILD_DIR}/nnue_inference, the port's own engine "
+        "build (the card's host has no upstream checkout): " + json.dumps(e2e))
+
+    # 46. mcu — both checkpoints, the report's accuracy against the float eval
+    for tag, ckpt in (("nnue", nnue_ckpt), ("etinynet", etiny_ckpt)):
+        out_dir = tmp / f"mcu_{tag}"
+        rc, out, seconds = in_process(run_mcu_benchmarks.main, [
+            "--checkpoint", str(ckpt), "--max-samples", str(MCU_SAMPLES),
+            "--output-dir", str(out_dir)])
+        check(rc == 0 and all((out_dir / name).is_file() for name in (
+            "mcu_benchmark.json", "tinyml_report.json")),
+            f"run_mcu_benchmarks on the {tag} checkpoint exited {rc} or wrote "
+            "no JSON")
+        report = json.loads((out_dir / "tinyml_report.json").read_text())
+        accuracy = {r["accuracy"] for r in report["mlperf_results"].values()}
+        loader = create_data_loaders(dataset_name="cifar10", batch_size=16,
+                                     max_samples_per_split=MCU_SAMPLES,
+                                     use_augmentation=False)[2]
+        module = load_checkpoint_auto(ckpt, device="cuda")[1]
+        scored = evaluate_model(module, head_subset_loader(loader, MCU_SCORED))[1]
+        check(accuracy == {scored["acc"]},
+              f"mcu ({tag}): the report's accuracy {accuracy} differs from the "
+              f"float eval's {scored['acc']} on its {MCU_SCORED} images")
+        facade = run_mcu_benchmarks.load_model(
+            run_mcu_benchmarks.parse_arguments(["--checkpoint", str(ckpt)]))
+        full = evaluate_model(module, loader)[1]
+        acc = evaluate_model_accuracy(facade, loader)
+        check(acc["accuracy"] == full["acc"] and acc["f1_score"] == full["f1"],
+              f"mcu ({tag}): evaluate_model_accuracy {acc} differs from the "
+              f"float eval {full}")
+        best = report["summary"]
+        say("mcu", f"run_mcu_benchmarks --max-samples {MCU_SAMPLES} on the {tag} "
+            f"checkpoint in {seconds:.2f} s (in process): both JSON files "
+            f"written; the report's accuracy {scored['acc']:.4f} equal to "
+            f"evaluate_model on its {MCU_SCORED} images and "
+            f"evaluate_model_accuracy {acc['accuracy']:.4f} on the split's "
+            f"{len(loader.dataset.labels)} (the synthetic stand-in's test "
+            "split) equal to evaluate_model's; best "
+            f"{best['best_platform']} {best['best_latency_ms']:.4f} ms (simulated) | "
+            + " | ".join(out.strip().splitlines()[:4]))
+
+    # 47. example — the walkthrough as a user runs it
+    out, _, seconds = port_cli("run_example_benchmark")
+    check("Best platform:" in out, f"run_example_benchmark: {out}")
+    say("example", f"python -m nnue_vision_tpu_torch.run_example_benchmark exit 0 "
+        f"in {seconds:.2f} s: " + " | ".join(
+            line for line in out.strip().splitlines() if line))
+
+    counts = {k: launch_counts()[k] for k in ("nnue_mega_kernel", "etiny_block_kernel")}
+    check(all(n > 0 for n in counts.values()),
+          f"a kernel of 44-47 never launched: {counts}")
+    say("launches", "tools " + json.dumps(counts))
+    ms = result["device_ms"]
+    engine = result["engine_ms"]
+    say("timing", f"compare_engine_speed, ms per image at batch {TOOL_SAMPLES}: "
+        f"C++ engine nnue {engine['nnue']:.4f}, etinynet {engine['etinynet']:.4f} "
+        "(one process, wall clock); " + ", ".join(
+            f"{k} {v:.6f}" for k, v in ms.items())
+        + f" ({compare_engine_speed.REPS} calls per CUDA graph, best of 3) on {smi}")
+    tmp_dir.cleanup()
+    return counts
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2706,6 +2863,7 @@ def main() -> int:
                                   int_ops=head_ops),
     }
     library = {"nnue_mega_kernel": None, "nnue_head_kernel": None}
+    library_graph = {}  # the library call graph-timed as the kernel is
 
     # 9. pipeline
     ds = GenericVisionDataset("synthetic-hard", split="train",
@@ -3225,7 +3383,7 @@ def main() -> int:
                              wk.lerp_pass(packed, coef1, n=W, c=3), atol=1e-4),
               "grid_sample does not compute the lerp pass")
         library["lerp_pass_kernel"] = time_median(sample)
-        library_graph = chained_best_ms(sample, GRAPH_REPS)
+        library_graph["lerp_pass_kernel"] = chained_best_ms(sample, GRAPH_REPS)
         library["nogather_pass_kernel"] = None  # no call reads in place of taps
     say("warp-split", f"B={AUGMENT_BATCHES}: lerp_pass and nogather_pass on "
         "heavy-tier and out-of-frame maps equal to plain (tolerance: none, "
@@ -3235,7 +3393,7 @@ def main() -> int:
         say("timing", f"B=1024 {kernel}: kernel {k:.4f} ms, plain {p:.4f} ms"
             + (f", grid_sample {library[kernel]:.4f} ms" if library[kernel]
                else "") + f"; graph-timed kernel {extra[kernel][0]:.4f} ms"
-            + (f", grid_sample {library_graph:.4f} ms" if library[kernel]
+            + (f", grid_sample {library_graph[kernel]:.4f} ms" if library[kernel]
                else "") + f"; host {extra[kernel][1]:.4f} ms per call on {smi}")
     os.environ["WARP_SPLIT_REPS"] = WARP_SPLIT_REPS
     wk.reset_launch_counts()
@@ -3288,6 +3446,8 @@ def main() -> int:
     for name, count in graph_phases(smi, dataset,
                                     torch.from_numpy(ds.labels).cuda()).items():
         launches[name] += count
+    for name, count in tool_phases(errs, smi, payload, emodel).items():
+        launches[name] += count
 
     # the 8192 entry is the same kernel timed at another batch: its
     # launches are the main path's
@@ -3300,6 +3460,8 @@ def main() -> int:
          "bound_by": bounds[name][1], "library_ms": library[name],
          **({"graph_ms": extra[name][0], "host_ms": extra[name][1]}
             if name in extra else {}),
+         **({"library_graph_ms": library_graph[name]}
+            if name in library_graph else {}),
          **({"dp_launches_per_rank": dp[name]} if name in dp else {})}
         for name in SOURCES]}))
     print(smi)

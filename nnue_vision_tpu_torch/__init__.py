@@ -46,6 +46,14 @@ or data-parallel over several:
   (`ops/timing.py` times them in CUDA graphs), and `train_model`'s
   `profile_dir` trace.
 
+* The user tools, `python -m nnue_vision_tpu_torch.<tool>`: the MCU/TinyML
+  analysis (`benchmarks/`, `run_mcu_benchmarks.py`,
+  `run_example_benchmark.py`), the engine-speed comparisons
+  (`compare_engine_speed.py`, the C++ engine beside the int8 kernels;
+  `engine_speed_parity.py`), the interchange check
+  (`upstream_e2e_check.py`) and the accuracy tools (`real_data_eval.py`,
+  `reference_anchor.py`).
+
 The `.nnue` / `.etiny` readers and writers and their records are
 `formats.py` and `quantize.py`, numpy-only copies of the JAX package's
 modules: the port imports nothing of `nnue_vision_tpu`.

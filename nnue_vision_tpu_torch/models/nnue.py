@@ -254,6 +254,11 @@ class NNUE(nn.Module):
         b = mask.shape[0]
         flat = mask.reshape(b, -1)
         pad = fs.num_features - flat.shape[1]
+        if pad < 0:  # JAX's pad raises too; torch's would crop
+            raise ValueError(
+                f"conv output of {flat.shape[1]} values exceeds the feature grid "
+                f"of {fs.num_features}: images larger than input_size "
+                f"{cfg.input_size}?")
         if cfg.qat and pad > 0:
             # The engine thresholds the whole zero-filled buffer: the tail
             # is active whenever the threshold is negative.

@@ -3,9 +3,12 @@
 
 `compile_cpp_engine` builds `nnue_inference` and `etinynet_inference` from
 `engine/` with `engine/CMakeLists.txt` (cmake, then ninja, on every call;
-Release: `-O3 -march=native -funroll-loops`) into `build/torch_engine/` under the
-repository root, which `.gitignore` lists, and checks that the model's
-binary runs. `build_sanitizer_engine` builds the same tools with ASan and
+Release: `-O3 -march=native -funroll-loops`) into `build/torch_engine/`
+under the repository root, which `.gitignore` lists, and checks that the
+model's binary runs. `compile_benchmark_engine` builds the same two tools
+and the engine's density and incremental-update benchmark
+`benchmark_engine` (which `compare_engine_speed.py` runs) there, under the
+same lock. `build_sanitizer_engine` builds the same tools with ASan and
 UBSan (`-DNV_SANITIZE=ON`) into `build/torch_engine_san/`, and
 `smoke_test_sanitizer_engine` runs one image through the sanitized binary
 on a small random model. The port never builds into `engine/build`, the
@@ -43,6 +46,7 @@ ENGINE_DIR = REPO_ROOT / "engine"
 BUILD_DIR = REPO_ROOT / "build" / "torch_engine"
 SANITIZER_BUILD_DIR = REPO_ROOT / "build" / "torch_engine_san"
 TOOLS = {"nnue": "nnue_inference", "etinynet": "etinynet_inference"}
+BENCHMARK_TOOL = "benchmark_engine"
 
 
 def tool_name(model_type: str) -> str:
@@ -51,10 +55,12 @@ def tool_name(model_type: str) -> str:
     return TOOLS[model_type]
 
 
-def _cmake_build(build_dir: Path, extra_flags=()) -> None:
-    """Configure and build the two inference tools in `build_dir`, under an
-    exclusive lock on `<build_dir>.lock`. cmake runs on every call, so a
-    cache made for another source tree fails loudly here."""
+def _cmake_build(build_dir: Path, extra_flags=(),
+                 targets=tuple(TOOLS.values())) -> None:
+    """Configure and build `targets` (by default the two inference tools,
+    with the engine's static library, `libnv_engine.a`) in `build_dir`,
+    under an exclusive lock on `<build_dir>.lock`. cmake runs on every call,
+    so a cache made for another source tree fails loudly here."""
     build_dir.parent.mkdir(parents=True, exist_ok=True)
     with open(build_dir.with_name(build_dir.name + ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -66,7 +72,7 @@ def _cmake_build(build_dir: Path, extra_flags=()) -> None:
         if cfg.returncode != 0:
             raise RuntimeError(f"cmake failed:\n{cfg.stdout}\n{cfg.stderr}")
         bld = subprocess.run(
-            ["ninja", "-C", str(build_dir), *TOOLS.values()],
+            ["ninja", "-C", str(build_dir), *targets],
             capture_output=True, text=True, timeout=600,
         )
         if bld.returncode != 0:
@@ -86,6 +92,14 @@ def compile_cpp_engine(model_type: str) -> Path:
         raise RuntimeError(f"engine binary not runnable (rc={probe.returncode})")
     early_log(f"C++ engine ready: {exe}")
     return exe
+
+
+def compile_benchmark_engine() -> Path:
+    """The two inference tools and `BENCHMARK_TOOL`, built in `BUILD_DIR`;
+    returns the directory."""
+    early_log("Compiling C++ engine and its benchmark...")
+    _cmake_build(BUILD_DIR, targets=(*TOOLS.values(), BENCHMARK_TOOL))
+    return BUILD_DIR
 
 
 def build_sanitizer_engine() -> Path:

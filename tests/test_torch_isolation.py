@@ -1,5 +1,7 @@
-"""The port stands alone: it imports no jax, optax or ml_dtypes and no
-module of the JAX package `nnue_vision_tpu`, a request for CUDA on a host
+"""The port stands alone: it imports no jax, optax or ml_dtypes, no
+module of the JAX package `nnue_vision_tpu`, and none of the repository's
+root `benchmarks` package or root CLIs (`serialize.py`, `evaluate.py`,
+`train.py`), a request for CUDA on a host
 without it raises instead of falling back, and `chip_smoke.py` fails
 without a card or without the repository."""
 
@@ -15,14 +17,19 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 MODULES = [
     "nnue_vision_tpu_torch",
+    "nnue_vision_tpu_torch.benchmarks",
+    "nnue_vision_tpu_torch.benchmarks.mcu_simulation",
+    "nnue_vision_tpu_torch.benchmarks.tinyml_benchmarks",
     "nnue_vision_tpu_torch.bridge",
     "nnue_vision_tpu_torch.cloud",
     "nnue_vision_tpu_torch.cloud.launcher",
+    "nnue_vision_tpu_torch.compare_engine_speed",
     "nnue_vision_tpu_torch.data.augment",
     "nnue_vision_tpu_torch.data.dataset_inspector",
     "nnue_vision_tpu_torch.data.datasets",
     "nnue_vision_tpu_torch.data.loaders",
     "nnue_vision_tpu_torch.deploy_etiny",
+    "nnue_vision_tpu_torch.engine_speed_parity",
     "nnue_vision_tpu_torch.evaluate",
     "nnue_vision_tpu_torch.formats",
     "nnue_vision_tpu_torch.models.api",
@@ -44,6 +51,10 @@ MODULES = [
     "nnue_vision_tpu_torch.profile_train_step",
     "nnue_vision_tpu_torch.profile_warp_split",
     "nnue_vision_tpu_torch.quantize",
+    "nnue_vision_tpu_torch.real_data_eval",
+    "nnue_vision_tpu_torch.reference_anchor",
+    "nnue_vision_tpu_torch.run_example_benchmark",
+    "nnue_vision_tpu_torch.run_mcu_benchmarks",
     "nnue_vision_tpu_torch.serialize",
     "nnue_vision_tpu_torch.stream_inference_demo",
     "nnue_vision_tpu_torch.torch_import",
@@ -57,6 +68,7 @@ MODULES = [
     "nnue_vision_tpu_torch.training.step",
     "nnue_vision_tpu_torch.training.utils",
     "nnue_vision_tpu_torch.train",
+    "nnue_vision_tpu_torch.upstream_e2e_check",
     "chip_smoke",
 ]
 
@@ -76,6 +88,9 @@ def test_port_imports_no_jax():
         "ref = [m for m in sys.modules if m == 'nnue_vision_tpu'\n"
         "       or m.startswith('nnue_vision_tpu.')]\n"
         "assert not ref, ref\n"
+        "root = [m for m in ('benchmarks', 'serialize', 'evaluate', 'train')\n"
+        "        if m in sys.modules or any(k.startswith(m + '.') for k in sys.modules)]\n"
+        "assert not root, root\n"
         "import nnue_vision_tpu_torch as p; assert p.read_nnue and p.write_nnue\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -86,13 +101,25 @@ def test_port_imports_no_jax():
 
 def test_cuda_request_raises_without_cuda(tmp_path):
     """The serving params and every deployment entry point (the
-    serialize, evaluate and stream CLIs, the facades, the upstream import)
-    run on the card by default and raise here, where there is none."""
+    serialize, evaluate and stream CLIs, the facades, the upstream import,
+    the MCU/TinyML CLIs, the engine-speed comparisons, the interchange check
+    and the real-data evaluation) run on the card by default and raise here,
+    where there is none."""
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
     import numpy as np
 
-    from nnue_vision_tpu_torch import evaluate, serialize, stream_inference_demo
+    from nnue_vision_tpu_torch import (
+        compare_engine_speed,
+        engine_speed_parity,
+        evaluate,
+        real_data_eval,
+        run_example_benchmark,
+        run_mcu_benchmarks,
+        serialize,
+        stream_inference_demo,
+        upstream_e2e_check,
+    )
     from nnue_vision_tpu_torch import torch_import
     from nnue_vision_tpu_torch.models import api
     from nnue_vision_tpu_torch.models.nnue import GridFeatureSet, NNUEConfig, nnue_init
@@ -113,8 +140,22 @@ def test_cuda_request_raises_without_cuda(tmp_path):
                     epoch=0, metrics={})
     upstream = tmp_path / "upstream.pt"
     torch.save(upstream_nnue_state_dict(), upstream)
+    fake_build = tmp_path / "build"
+    fake_build.mkdir()
+    (fake_build / "nnue_inference").write_text("")
+    (tmp_path / "ref" / "include").mkdir(parents=True)
     calls = {
         "serialize": lambda: serialize.main([str(ckpt), str(tmp_path / "m.nnue")]),
+        "run_mcu_benchmarks": lambda: run_mcu_benchmarks.main(
+            ["--checkpoint", str(ckpt), "--output-dir", str(tmp_path / "mcu")]),
+        "run_example_benchmark": lambda: run_example_benchmark.main([]),
+        "compare_engine_speed": lambda: compare_engine_speed.main(["--skip-gpu"]),
+        "upstream_e2e_check": lambda: upstream_e2e_check.main(
+            ["--ckpt", str(ckpt), "--ref-build", str(fake_build)]),
+        "engine_speed_parity": lambda: engine_speed_parity.main(
+            ["--ref-src", str(tmp_path / "ref")]),
+        "real_data_eval": lambda: real_data_eval.main(
+            ["--log_dir", str(tmp_path / "runs")]),
         "evaluate": lambda: evaluate.main([str(ckpt), "--dataset", "synthetic-hard",
                                            "--synthetic_size", "16"]),
         "stream_inference_demo": lambda: stream_inference_demo.main(
@@ -128,6 +169,7 @@ def test_cuda_request_raises_without_cuda(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert not (tmp_path / "m.nnue").exists()
+    assert not (tmp_path / "mcu").exists() and not (tmp_path / "runs").exists()
     assert torch_import.load_torch_checkpoint_auto(upstream, device="cpu")[0] == "nnue"
 
 
