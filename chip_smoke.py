@@ -9,7 +9,7 @@ ranks, the deployment entry points (the serialize, evaluate and stream
 CLIs, the model facade, the upstream import), the train chunk as one
 CUDA graph (K3, or K4 and K5, inside it), and the user tools (the
 engine-speed comparison, the upstream interchange check, the MCU/TinyML
-analysis) once on one CUDA card.
+analysis) and the ten profiling probes once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -274,6 +274,20 @@ Phases, one line each (any failure raises and exits non-zero):
 47. example  python -m nnue_vision_tpu_torch.run_example_benchmark exits 0;
              then K1's and K6's launches in 44-47 (every count set to 0
              before 44)
+48-57. probes  the ten profilers ported from scripts/, each `run` in
+             process at its widths, cut only in depth (PROBES): 48
+             profile_nnue_split at 8192 (K1, K2; mega_exact and
+             bf16_conv_exact), 49 profile_etiny_pallas (micro, 2048: K6,
+             its bit-equality to the sim), 50 profile_train_roofline (512,
+             64-step chunks), 51 profile_train_sweep --fused (512-4096: K3),
+             52 profile_scaled_train (grid 20, L1 4096, 77×77, 2048: K3;
+             0 < MFU < 1), 53 profile_etiny_roofline (0.98M, 1024), 54
+             profile_etiny_train (no-aug and the three tiers: K4, K5; the
+             production eager step, two runs of 8), 55
+             profile_heavy_aug, 56 profile_photometric_rng and 57
+             profile_batched_draws (1024: K4, K5); every count set to 0
+             before each, the kernels of its path launched, every time
+             positive and finite, each probe's JSON on a line of its own
 
 Every train_model run (phases 10, 15, 18, 21, 24-26, 28) builds the C++ engine
 (a no-op after phase 2) and probes it before its first step, as a user's
@@ -291,7 +305,8 @@ call computes the same function, that call; K6's are its 12 LB blocks
 alone at batch 8192, graph-timed too, once on the 0.98M model and again,
 as a second entry, on the engine_friendly 0.75 `.etiny` of phase 18, whose
 launches the first entry's count includes; K7's level 3; K1, K2, K3, K4,
-K5, the single pass and K8 also graph-timed, with their host cost per call,
+K5, K6, K7, the single pass and K8 also graph-timed, with their host cost
+per call,
 and the single pass's grid_sample graph-timed as `library_graph_ms`; K5's
 band path at 224 as a second K5 entry; K3 at batch 8192 as a second K3 entry,
 with the first entry's launches; each kernel of 31-33 also its
@@ -340,7 +355,17 @@ from config import load_config
 from nnue_vision_tpu_torch import (
     compare_engine_speed,
     deploy_etiny,
+    profile_batched_draws,
+    profile_etiny_pallas,
+    profile_etiny_roofline,
+    profile_etiny_train,
+    profile_heavy_aug,
     profile_mega_bisect,
+    profile_nnue_split,
+    profile_photometric_rng,
+    profile_scaled_train,
+    profile_train_roofline,
+    profile_train_sweep,
     profile_warp_split,
     run_mcu_benchmarks,
     upstream_e2e_check,
@@ -374,7 +399,7 @@ from nnue_vision_tpu_torch.ops import photometric_kernel as pk
 from nnue_vision_tpu_torch.ops import warp_kernel as wk
 from nnue_vision_tpu_torch.ops._build import _nvcc, load_library
 from nnue_vision_tpu_torch.ops.timing import (
-    HBM_BYTES_PER_S,
+    bound_ms,
     chained_best_ms,
     nbytes,
 )
@@ -481,14 +506,9 @@ REPLACES = {
     K5_BAND: "nnue_vision_tpu/ops/photometric_kernel.py:114",
     K3_8192: "nnue_vision_tpu/ops/input_pipeline.py:147",
 }
-# The card's published rates (NVIDIA's data sheet; H100 SXM, 700 W) beside
-# HBM_BYTES_PER_S: dense int8 tensor-core operations (the highest integer
-# rate, so a time from it is a lower bound) and float32 outside the tensor
-# cores.
-INT_OPS_PER_S = 1979e12
-F32_OPS_PER_S = 67e12
 BISECT_REPS = 100
 GRAPH_REPS = 50  # calls per CUDA graph in the graph-timed rows
+K6_HOST_CALLS = 40  # 480 launches: within the launch queue
 # the tensor-core kernels and the bulk-copy kernels, as their names appear
 # (mangled) in the SASS, and the instructions counted there
 TENSOR_CORE_KERNELS = ("etiny_block_kernel", "nnue_mega_kernel", "nnue_head_kernel")
@@ -730,12 +750,10 @@ def time_median(fn) -> float:
 
 
 def bound(moved: int, int_ops: float = 0.0, f32_ops: float = 0.0) -> tuple:
-    """(ms, "bytes" or "operations"): the least time the card could take to
-    move `moved` bytes (each input read once, each output written once) and
-    do the operations, at the published rates."""
-    t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = int_ops / INT_OPS_PER_S + f32_ops / F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    """`ops/timing.bound_ms` at the card's published rates: integer work at
+    the dense int8 tensor-core rate (the highest integer rate, so a time
+    from it is a lower bound), float32 outside the tensor cores."""
+    return bound_ms(moved, int8_ops=int_ops, f32_flops=f32_ops)
 
 
 def head_int_ops(cfg, batch: int, n_act: int) -> int:
@@ -952,6 +970,13 @@ def k6_graph_ms(blocks: list, smi: str, tag: str) -> float:
         f"{block_ms:.4f} ms on {smi}; tile, shared memory and graph-timed ms "
         "per block: " + "; ".join(tiles))
     return block_ms
+
+
+def k6_host_ms(blocks: list) -> float:
+    """The host's cost of one call of the LB blocks (12 K6 launches), over
+    K6_HOST_CALLS calls with no sync inside."""
+    return host_ms(lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in blocks][-1],
+                   K6_HOST_CALLS)
 
 
 def k6_bound(blocks: list) -> tuple:
@@ -2672,6 +2697,81 @@ def tool_phases(errs: Errors, smi: str, nnue_payload: dict, emodel) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 48-57: the ten profiling probes, in process at their widths, each
+# cut only in depth (fewer reps, chunks, dispatches or sweep points)
+# ---------------------------------------------------------------------------
+
+# phase tag: (probe module, its run's arguments, the kernels it must launch);
+# each at its widths and its own defaults but for the depth cut here
+PROBES = {
+    "nnue-split": (profile_nnue_split, dict(batch=TIMING_BATCH, reps=50),
+                   ("nnue_mega_kernel", "nnue_head_kernel")),
+    "etiny-pallas": (profile_etiny_pallas, dict(batch=2048, reps=50),
+                     ("etiny_block_kernel",)),
+    "train-roofline": (profile_train_roofline, dict(batch=512, spd=64, chunks=4), ()),
+    "train-sweep": (profile_train_sweep, dict(batches=(512, 1024, 2048, 4096),
+                                              fused=True, spds=(64,),
+                                              images=1 << 18),
+                    ("light_pipeline_kernel",)),
+    "scaled-train": (profile_scaled_train, dict(batch=2048, spd=8, dispatches=4),
+                     ("light_pipeline_kernel",)),
+    "etiny-roofline": (profile_etiny_roofline, dict(batch=1024, steps=16, chunks=4),
+                       ()),
+    "etiny-train": (profile_etiny_train, dict(spds=(16,), batch=1024, dispatches=4,
+                                              production_steps=8),
+                    ("warp_kernel", "photometric_kernel")),
+    "heavy-aug": (profile_heavy_aug, dict(batch=1024, reps=32),
+                  ("warp_kernel", "photometric_kernel")),
+    "photometric-rng": (profile_photometric_rng, dict(batch=1024, reps=50),
+                        ("warp_kernel", "photometric_kernel")),
+    "batched-draws": (profile_batched_draws, dict(batch=1024, reps=50),
+                      ("warp_kernel", "photometric_kernel")),
+}
+
+
+def timings(out, timed: bool = False) -> list:
+    """Every number under a key that names a time in a probe's result, a
+    list of times under such a key included."""
+    if isinstance(out, dict):
+        return [v for k, x in out.items() for v in timings(
+            x, k.endswith(("ms", "ms_per_step", "ms_per_batch")))]
+    if isinstance(out, list):
+        return [v for x in out for v in timings(x, timed)]
+    return [out] if timed and out is not None else []
+
+
+def probe_phases(smi: str) -> dict:
+    """Phases 48-57: each probe's `run` on the card, its exactness flags
+    checked, every time positive and finite, the kernels on its path
+    launched. Returns each kernel's launches over the ten."""
+    totals = {}
+    for phase, (tag, (module, kwargs, kernels)) in enumerate(PROBES.items(), 48):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = module.run(device="cuda", **kwargs)
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        check(all(counts.get(k, 0) > 0 for k in kernels),
+              f"{tag}: a kernel of its path never launched: {counts}")
+        times = timings(out)
+        check(times and all(math.isfinite(t) and t > 0 for t in times),
+              f"{tag}: a time is not positive and finite: {out}")
+        flags = {k: out[k] for k in ("mega_exact", "bf16_conv_exact", "bit_exact")
+                 if k in out}
+        check(all(flags.values()), f"{tag}: {flags}")
+        if "train_mfu" in out:
+            check(0 < out["train_mfu"] < 1, f"{tag}: MFU {out['train_mfu']}")
+        say(tag, f"phase {phase}: {module.__name__}.run({kwargs}) in "
+            f"{seconds:.1f} s; flags {flags or 'none'} (tolerance: none, "
+            f"torch.equal); launches {json.dumps(counts)} on {smi}")
+        say(tag, json.dumps(out))
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    say("launches", "probes " + json.dumps(totals))
+    return totals
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -3103,7 +3203,8 @@ def main() -> int:
             lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in blocks],
             lambda: [ek.lb_block_reference(a, blk, bs) for a, blk, bs in blocks])
         if batch == TIMING_BATCH:
-            extra["etiny_block_kernel"] = (k6_graph_ms(blocks, smi, "0.98M"), None)
+            extra["etiny_block_kernel"] = (k6_graph_ms(blocks, smi, "0.98M"),
+                                           k6_host_ms(blocks))
         for name, (k, p) in rows.items():
             what = ("the whole int8 forward (12 K6 launches + plain stem/tail) "
                     "vs the sim" if name == "etiny_block_kernel" else name)
@@ -3257,7 +3358,7 @@ def main() -> int:
     ms[EF_K6] = time_pair(
         lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in fblocks],
         lambda: [ek.lb_block_reference(a, blk, bs) for a, blk, bs in fblocks])
-    extra[EF_K6] = (k6_graph_ms(fblocks, smi, "0.75 ef"), None)
+    extra[EF_K6] = (k6_graph_ms(fblocks, smi, "0.75 ef"), k6_host_ms(fblocks))
     bounds[EF_K6] = k6_bound(fblocks)
     library[EF_K6] = None  # expand, depthwise, project
     for name, (k, p) in (("the whole int8 forward (12 K6 launches + plain stem/"
@@ -3327,9 +3428,14 @@ def main() -> int:
                mega["padsum"]) + TIMING_BATCH * nk.STAGE_OUT * 4,
         int_ops=conv_ops + n_act * fcfg.l1, f32_ops=flat.numel())
     library["nnue_mega_stage_kernel"] = None  # no call stops the engine at the FT
+    stage3 = functools.partial(nk.nnue_mega_stage, mega, flat, **skw)
+    extra["nnue_mega_stage_kernel"] = (chained_best_ms(stage3, GRAPH_REPS),
+                                       host_ms(stage3))
     say("timing", f"B={TIMING_BATCH} cut mega kernel, level 3 (ft): kernel "
         f"{ms['nnue_mega_stage_kernel'][0]:.4f} ms, plain "
-        f"{ms['nnue_mega_stage_kernel'][1]:.4f} ms on {smi}")
+        f"{ms['nnue_mega_stage_kernel'][1]:.4f} ms; graph-timed kernel "
+        f"{extra['nnue_mega_stage_kernel'][0]:.4f} ms, host "
+        f"{extra['nnue_mega_stage_kernel'][1]:.4f} ms per call on {smi}")
 
     # 20. warp-split — the single passes, counted in the probe
     for batch in AUGMENT_BATCHES:
@@ -3447,6 +3553,8 @@ def main() -> int:
                                     torch.from_numpy(ds.labels).cuda()).items():
         launches[name] += count
     for name, count in tool_phases(errs, smi, payload, emodel).items():
+        launches[name] += count
+    for name, count in probe_phases(smi).items():
         launches[name] += count
 
     # the 8192 entry is the same kernel timed at another batch: its

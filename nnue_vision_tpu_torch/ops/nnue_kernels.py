@@ -545,6 +545,18 @@ def fused_nnue_head_reference(
                        n_pad=0, conv_scale=1, with_count=True)
 
 
+def fused_head_call(
+    head_params: Dict, acc: torch.Tensor, *, cfg: NNUESimCfg, n_pad: int,
+    conv_scale: int, with_count: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The head kernel alone on a raw (B, FR) int32 conv accumulator (JAX
+    `_fused_head_call`): epilogue at `conv_scale`, zero-fill of `n_pad`
+    features, FT, dense layers. (logits, count or None)."""
+    core = _head_plain if acc.device.type == "cpu" else _head_launch
+    return core(head_params, acc, cfg=cfg, n_pad=n_pad, conv_scale=conv_scale,
+                with_count=with_count)
+
+
 def nnue_mega_stage(
     head_params: Dict, images_flat: torch.Tensor, *, cfg: NNUESimCfg,
     image_h: int, image_w: int, level: int,

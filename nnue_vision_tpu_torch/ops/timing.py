@@ -1,9 +1,12 @@
 """The probes' timing harness: best-of-N ms per call of a function that
-runs many times with no host in between.
+runs many times with no host in between, and the card's published rates
+for the bounds printed beside a time.
 
 Port of `nnue_vision_tpu/ops/timing.py` `scalar_chained_best_ms`, with the
 JAX protocol kept: one warm-up call, then `reps` calls that run with no
 host in between, timed `n_timing` times, the best reported per call.
+`chained_best_ms` times a function of no argument; `scalar_chained_best_ms`
+keeps the JAX signature, `fwd_with_bump(data, bump)`.
 
 On the card the `reps` calls are captured once in one CUDA graph
 (`torch.cuda.graph`) and each timing replays it between two CUDA events,
@@ -30,13 +33,16 @@ from __future__ import annotations
 
 import subprocess
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
-# The H100 SXM's published device-memory rate (NVIDIA's data sheet; at the
-# full 700 W power limit), for the bound the probes print beside a time.
+# The H100 SXM's published rates (NVIDIA's data sheet; dense, at the full
+# 700 W power limit), for the bounds the probes print beside a time.
 HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores (TF32 off)
+BF16_FLOPS_PER_S = 989e12  # bfloat16 on the tensor cores
+INT8_OPS_PER_S = 1979e12  # int8 on the tensor cores
 
 
 def nbytes(*tensors) -> int:
@@ -49,6 +55,49 @@ def bytes_bound_ms(*tensors) -> float:
     return nbytes(*tensors) / HBM_BYTES_PER_S * 1e3
 
 
+def bound_ms(moved: int, *, int8_ops: float = 0.0, bf16_flops: float = 0.0,
+             f32_flops: float = 0.0) -> Tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move `moved` bytes (each input read once, each output written once) and
+    do the operations, each kind at its published rate."""
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = (int8_ops / INT8_OPS_PER_S + bf16_flops / BF16_FLOPS_PER_S
+             + f32_flops / F32_FLOPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _check_reps(reps: int, n_timing: int) -> None:
+    if reps < 1 or n_timing < 1:
+        raise ValueError(f"reps and n_timing must be >= 1; got {reps}, "
+                         f"{n_timing}")
+
+
+def _host_runs(fn: Callable, reps: int, n_timing: int, device) -> float:
+    """Best-of-`n_timing` ms per call over `reps` calls in a row, host
+    clock; a CUDA `device` is synchronized before each run and after it."""
+    best = float("inf")
+    for _ in range(n_timing):
+        if device is not None:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        if device is not None:
+            torch.cuda.synchronize(device)
+        best = min(best, time.perf_counter() - t0)
+    return best / reps * 1e3
+
+
+def host_best_ms(fn: Callable, reps: int, n_timing: int = 3) -> float:
+    """Best-of-`n_timing` ms per call of `fn()` over `reps` calls in a row
+    on the host clock, after a warm-up call: each call's launches included.
+    `fn` returns a tensor; on a card its device is synchronized before each
+    run and after it."""
+    _check_reps(reps, n_timing)
+    out = fn()  # warm-up
+    return _host_runs(fn, reps, n_timing, out.device if out.is_cuda else None)
+
+
 def chained_best_ms(fn: Callable, reps: int, n_timing: int = 3) -> float:
     """Best-of-`n_timing` ms per call of `fn()` over `reps` calls in a row.
 
@@ -56,18 +105,10 @@ def chained_best_ms(fn: Callable, reps: int, n_timing: int = 3) -> float:
     clock: CUDA events around a graph replay on a card, the host clock on
     the CPU.
     """
-    if reps < 1 or n_timing < 1:
-        raise ValueError(f"reps and n_timing must be >= 1; got {reps}, "
-                         f"{n_timing}")
+    _check_reps(reps, n_timing)
     out = fn()  # warm-up
     if not out.is_cuda:
-        best = float("inf")
-        for _ in range(n_timing):
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            best = min(best, time.perf_counter() - t0)
-        return best / reps * 1e3
+        return _host_runs(fn, reps, n_timing, None)
 
     dev = out.device
     torch.cuda.synchronize(dev)
@@ -87,6 +128,23 @@ def chained_best_ms(fn: Callable, reps: int, n_timing: int = 3) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     return best / reps
+
+
+def scalar_chained_best_ms(fwd_with_bump: Callable, data: torch.Tensor,
+                           reps: int, n_timing: int = 3) -> float:
+    """Best-of-`n_timing` ms per rep of `fwd_with_bump(data, bump)`, the
+    reps chained through a scalar (JAX `scalar_chained_best_ms`): each
+    rep's `bump` is the previous rep's leading output element times 0, a
+    0-dim float32 tensor on `data`'s device (0 before the first). The reps
+    are `chained_best_ms`'s: one CUDA graph on a card."""
+    bump = {"t": torch.zeros((), dtype=torch.float32, device=data.device)}
+
+    def rep():
+        out = fwd_with_bump(data, bump["t"])
+        bump["t"] = out.reshape(-1)[0].to(torch.float32) * 0.0
+        return out
+
+    return chained_best_ms(rep, reps, n_timing)
 
 
 def card(device) -> Optional[str]:

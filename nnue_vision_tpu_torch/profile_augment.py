@@ -74,15 +74,17 @@ def event_ms(fn) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn) -> float:
+def host_ms(fn, calls: int = HOST_CALLS) -> float:
+    """The host clock over `calls` calls in a row with no sync inside, per
+    call (keep calls × launches per call within the launch queue, ~1,000)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(HOST_CALLS):
+    for _ in range(calls):
         fn()
     t1 = time.perf_counter()
     torch.cuda.synchronize()
-    return (t1 - t0) / HOST_CALLS * 1e3
+    return (t1 - t0) / calls * 1e3
 
 
 def grid_sample_pass(images: torch.Tensor, coef: torch.Tensor):
@@ -157,7 +159,7 @@ def kernel_rows(batch: int, device) -> dict:
     return rows
 
 
-def train_step_ms(device) -> list:
+def train_step_ms(device, steps: int = TRAIN_STEPS) -> list:
     from config import load_config
     from nnue_vision_tpu_torch.data.datasets import GenericVisionDataset
     from nnue_vision_tpu_torch.training.loop import build_model
@@ -177,7 +179,7 @@ def train_step_ms(device) -> list:
     rng = np.random.default_rng(0)
     out = []
     for _ in range(2):
-        idx = rng.integers(0, len(ds.labels), (TRAIN_STEPS, cfg.batch_size))
+        idx = rng.integers(0, len(ds.labels), (steps, cfg.batch_size))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses = torch.stack([
@@ -185,7 +187,7 @@ def train_step_ms(device) -> list:
                                 strength="heavy", noise_gen=noise_gen)["loss"]
             for i in idx])
         torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) / TRAIN_STEPS * 1e3)
+        out.append((time.perf_counter() - t0) / steps * 1e3)
         if not bool(torch.isfinite(losses).all()):
             raise RuntimeError("non-finite losses in the timed steps")
     return out

@@ -47,8 +47,18 @@ MODULES = [
     "nnue_vision_tpu_torch.parallel.distributed",
     "nnue_vision_tpu_torch.parallel.mesh",
     "nnue_vision_tpu_torch.profile_augment",
+    "nnue_vision_tpu_torch.profile_batched_draws",
+    "nnue_vision_tpu_torch.profile_etiny_pallas",
+    "nnue_vision_tpu_torch.profile_etiny_roofline",
+    "nnue_vision_tpu_torch.profile_etiny_train",
+    "nnue_vision_tpu_torch.profile_heavy_aug",
     "nnue_vision_tpu_torch.profile_mega_bisect",
+    "nnue_vision_tpu_torch.profile_nnue_split",
+    "nnue_vision_tpu_torch.profile_photometric_rng",
+    "nnue_vision_tpu_torch.profile_scaled_train",
+    "nnue_vision_tpu_torch.profile_train_roofline",
     "nnue_vision_tpu_torch.profile_train_step",
+    "nnue_vision_tpu_torch.profile_train_sweep",
     "nnue_vision_tpu_torch.profile_warp_split",
     "nnue_vision_tpu_torch.quantize",
     "nnue_vision_tpu_torch.real_data_eval",

@@ -1,7 +1,11 @@
 """The profiling probes' kernels held bit-equal to their plain versions on a
 card: the cut mega kernel (K7) at every level, with both threshold signs,
 and the single warp pass with and without its gather (`lerp_pass`, K8's
-`nogather_pass`); and the CUDA-graph timing harness.
+`nogather_pass`); the CUDA-graph timing harness, scalar-chained too; and
+the ten probes ported from `scripts/`: each kernel stage (K1, K2, K6, K4 and
+K5 in the tiers, the bf16 tensor-core conv) against its plain stage on the
+same inputs, and every training probe's graphs captured and replayed at a
+small size.
 
 Marked `gpu`; each test skips where there is no CUDA device. The file
 imports no jax, so it also runs on a machine without it:
@@ -25,7 +29,22 @@ from nnue_vision_tpu_torch.ops import _ring
 from nnue_vision_tpu_torch.ops import nnue_kernels as nk
 from nnue_vision_tpu_torch.ops import warp_kernel as wk
 from nnue_vision_tpu_torch.ops.engine_sim import nnue_sim_params
-from nnue_vision_tpu_torch.ops.timing import chained_best_ms
+from nnue_vision_tpu_torch import (
+    profile_batched_draws,
+    profile_etiny_pallas,
+    profile_etiny_roofline,
+    profile_etiny_train,
+    profile_heavy_aug,
+    profile_nnue_split,
+    profile_photometric_rng,
+    profile_scaled_train,
+    profile_train_roofline,
+    profile_train_sweep,
+)
+from nnue_vision_tpu_torch.data import augment as aug
+from nnue_vision_tpu_torch.models.etinynet import EtinyNetConfig
+from nnue_vision_tpu_torch.models.nnue import GridFeatureSet, NNUEConfig
+from nnue_vision_tpu_torch.ops.timing import chained_best_ms, scalar_chained_best_ms
 
 pytestmark = pytest.mark.gpu
 
@@ -129,3 +148,117 @@ def test_passes_at_ragged_tiles(cuda, monkeypatch, n, rows, batch, grid):
         got = fn(x, coef, n=n, c=3)
         torch.cuda.synchronize()
         assert torch.equal(got, ref(x, coef, n=n, c=3))
+
+
+def test_scalar_chained_best_ms_replays_a_graph(cuda):
+    x = torch.rand((64, 32, 96), device=cuda)
+    coef = torch.zeros((64, 3), device=cuda)
+    coef[:, 1] = 1.0
+    wk.reset_launch_counts()
+    ms = scalar_chained_best_ms(
+        lambda d, bump: wk.lerp_pass(d + bump, coef, n=32, c=3), x, reps=5)
+    assert ms > 0
+    assert wk.LAUNCHES["lerp_pass_kernel"] == 1 + 5
+
+
+# -- the probes ported from scripts/ ----------------------------------------
+
+
+@pytest.mark.parametrize("batch", [8192, 37])
+def test_nnue_split_kernel_stages_equal_plain(cuda, batch):
+    """K1's and K2's stages equal the plain sim's logits; the bf16 conv on
+    the tensor cores equals the exact conv on normalized images and the
+    CPU's float32 sums on any."""
+    sim, cfg, head = profile_nnue_split.serve_model(profile_nnue_split.FLAGSHIP,
+                                                    cuda)
+    mega = nk.mega_head_params(sim, cfg, 32, 32)
+    data = profile_nnue_split.input_buffers(batch, 32, 32, cuda, n_buf=1)
+    stages = profile_nnue_split.stages(sim, cfg, head, mega, data)
+    ref = stages["xla_full"]()
+    nk.reset_launch_counts()
+    for name in ("pallas_full", "mega_full", "mega_serve", "pallas_full_bf16conv",
+                 "pallas_serve_bf16conv", "xla_full_bf16conv"):
+        assert torch.equal(stages[name](), ref), name
+    assert torch.equal(stages["head_pallas"](), ref)
+    assert nk.LAUNCHES["nnue_mega_kernel"] == 2
+    assert nk.LAUNCHES["nnue_head_kernel"] == 4
+    x = data[0]
+    assert torch.equal(profile_nnue_split.conv_bf16(sim, x, cfg),
+                       profile_nnue_split.conv_f32(sim, x, cfg))
+    wide = x * 4  # |qx| past 256: bf16 rounds, on the card as on the CPU
+    got = profile_nnue_split.conv_bf16(sim, wide, cfg)
+    cpu_sim = {k: v.cpu() for k, v in sim.items()}
+    assert torch.equal(got.cpu(), profile_nnue_split.conv_bf16(cpu_sim, wide.cpu(),
+                                                               cfg))
+    assert not torch.equal(got, profile_nnue_split.conv_f32(sim, wide, cfg))
+
+
+def test_etiny_pallas_paths_equal(cuda):
+    kp, cfg = profile_etiny_pallas.serve_model("micro", cuda)
+    data = profile_etiny_pallas.input_buffers(256, cuda)[:1]
+    paths = profile_etiny_pallas.paths(kp, cfg, data)
+    assert torch.equal(paths["pallas"](), paths["xla"]())
+    tiles = profile_etiny_pallas.k6_tiles(
+        profile_etiny_pallas.block_shapes(kp, cfg, data[0]), cuda)
+    assert len(tiles) == len(cfg.blocks) and min(tiles) >= 1
+
+
+def test_heavy_aug_k5_stage_equals_the_plain_chain(cuda):
+    x = profile_heavy_aug.images(1024, 32, 32, cuda)
+    stages = profile_heavy_aug.stages(
+        x, profile_heavy_aug.draws(x, torch.Generator().manual_seed(0)))
+    assert torch.equal(stages["medium_photometric_k5"](),
+                       stages["medium_photometric_chain"]())
+
+
+@pytest.mark.parametrize("strength", ["medium", "heavy"])
+def test_photometric_rng_tiers_equal_plain(cuda, strength):
+    """The tier with K5 and with the plain chain, on the same draws and the
+    same device normals (the default generator seeded alike)."""
+    x = torch.rand((512, 32, 32, 3), device=cuda)
+    draws = {s: aug.draw_tier(torch.Generator().manual_seed(1), s, 512, 32, 32,
+                              cuda) for s in ("medium", "heavy")}
+    fns = profile_photometric_rng.tier_fns(draws)
+    bump = torch.zeros((), device=cuda)
+    torch.cuda.manual_seed(5)
+    got = fns[f"tier_{strength}_pallas"](x, bump)
+    torch.cuda.manual_seed(5)
+    assert torch.equal(got, fns[f"tier_{strength}_xla"](x, bump))
+
+
+NNUE_SMALL = NNUEConfig(feature_set=GridFeatureSet(4, 6), l1_size=16, l2_size=8,
+                        l3_size=4, num_classes=10, input_size=12)
+SCALED_SMALL = NNUEConfig(feature_set=GridFeatureSet(5, 8), l1_size=64,
+                          l2_size=16, l3_size=8, num_classes=10, input_size=17)
+ETINY_SMALL = EtinyNetConfig(variant="micro", num_classes=10, input_size=16)
+
+
+@pytest.mark.parametrize("probe,kwargs", [
+    (profile_train_roofline, dict(batch=16, spd=3, chunks=2, n_data=64,
+                                  model_cfg=NNUE_SMALL)),
+    (profile_train_sweep, dict(batches=(16,), fused=True, spds=(3,), images=64,
+                               n_data=64, model_cfg=NNUE_SMALL)),
+    (profile_train_sweep, dict(batches=(16,), spds=(3,), strength="heavy",
+                               images=64, n_data=64, model_cfg=NNUE_SMALL)),
+    (profile_scaled_train, dict(batch=16, spd=2, dispatches=2, n_data=64,
+                                model_cfg=SCALED_SMALL)),
+    (profile_etiny_roofline, dict(batch=16, steps=2, n_data=64, chunks=2,
+                                  model_cfg=ETINY_SMALL)),
+    (profile_etiny_train, dict(spds=(2,), batch=16, dispatches=2,
+                               production_steps=2, n_data=64,
+                               model_cfg=ETINY_SMALL)),
+    (profile_heavy_aug, dict(batch=64, reps=2)),
+    (profile_photometric_rng, dict(batch=64, reps=2)),
+    (profile_batched_draws, dict(batch=64, reps=2)),
+], ids=["roofline", "sweep-fused", "sweep-heavy", "scaled", "etiny-roofline",
+        "etiny-train", "heavy-aug", "photometric-rng", "batched-draws"])
+def test_probe_runs_on_the_card(cuda, probe, kwargs):
+    """Each probe's graphs capture and replay at a small size."""
+    out = probe.run(device="cuda", **kwargs)
+    assert out["card"]
+    if "train_mfu" in out:
+        assert 0 < out["train_mfu"] < 1
+    if probe is profile_etiny_roofline:  # `full` graph-timed, the loop beside it
+        assert out["full_ms_per_step"] > 0 and out["full_prod_ms_per_step"] > 0
+    if probe is profile_etiny_train:
+        assert all(t > 0 for t in out["production_eager_ms_per_step"])
