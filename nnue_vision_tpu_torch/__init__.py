@@ -46,6 +46,12 @@ or data-parallel over several:
   (`ops/timing.py` times them in CUDA graphs), and `train_model`'s
   `profile_dir` trace.
 
+* `tracing.py`: the program's spans (the train chunk's draws, pack, load,
+  capture and replay; the int8 serving entries' stem, kernels and tail),
+  recorded while a torch profiler runs, and its one registry of counters
+  (each kernel module's `LAUNCHES`, the host draw calls) and gauges (the
+  chunk graph's nodes by phase).
+
 * The user tools, `python -m nnue_vision_tpu_torch.<tool>`: the MCU/TinyML
   analysis (`benchmarks/`, `run_mcu_benchmarks.py`,
   `run_example_benchmark.py`), the engine-speed comparisons

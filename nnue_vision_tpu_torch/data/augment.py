@@ -52,6 +52,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from nnue_vision_tpu_torch import tracing
 from nnue_vision_tpu_torch.ops.photometric_kernel import (
     VARIANTS,
     apply_brightness_contrast,
@@ -69,6 +70,11 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 STRENGTHS = ("light", "medium", "heavy")
+
+# Host generator calls of the draws (`uniform`, the rot90 draw's randint;
+# not `device_generator`'s one seed): `training/step.py` reads a chunk's
+# draws as the delta.
+DRAWS = tracing.counters("draws", "host_draw_calls")
 
 MV = Tuple[torch.Tensor, torch.Tensor]  # (M (B, 2, 2), v (B, 2)) float32
 Shard = Tuple[int, int]  # (index, count) of equal shards of a global batch
@@ -98,6 +104,7 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
 
 def uniform(gen: torch.Generator, shape, lo: float = 0.0, hi: float = 1.0):
     """U[lo, hi) float32 on the host from `gen`, like `jax.random.uniform`."""
+    DRAWS["host_draw_calls"] += 1
     return torch.rand(shape, generator=gen) * (hi - lo) + lo
 
 
@@ -267,6 +274,7 @@ def _geom_hflip_draw(gen, b, p):
 
 def _geom_rot90_draw(gen, b, p):
     apply = uniform(gen, (b,)) < p
+    DRAWS["host_draw_calls"] += 1
     return geom_rot90(apply, torch.randint(0, 4, (b,), generator=gen))
 
 

@@ -27,6 +27,7 @@ from typing import Dict
 
 import torch
 
+from nnue_vision_tpu_torch import tracing
 from nnue_vision_tpu_torch.ops.engine_sim import (
     EtinyBlockCfg,
     EtinySimCfg,
@@ -36,10 +37,11 @@ from nnue_vision_tpu_torch.ops.engine_sim import (
     lb_block_plain,
 )
 from nnue_vision_tpu_torch.ops.nnue_kernels import mma_tiles
+from nnue_vision_tpu_torch.tracing import span
 
 # Launches since the last reset_launch_counts(); the wrapper adds one where
 # it launches the kernel, and nowhere else.
-LAUNCHES = {"etiny_block_kernel": 0}
+LAUNCHES = tracing.counters("etiny_kernels", "etiny_block_kernel")
 
 
 def reset_launch_counts() -> None:
@@ -149,15 +151,18 @@ def etiny_forward_kernel(kparams: Dict, images: torch.Tensor, *,
     `kparams` from `etiny_kernel_params`. Its plain version is the engine
     sim, `etiny_engine_forward`."""
     del image_h, image_w  # read from the images
-    x = etiny_stem(kparams, images, cfg).to(torch.int8)
-    for blk, bs in zip(kparams["blocks"], cfg.blocks):
-        h, w = x.shape[1], x.shape[2]
-        if not (_is_pow2(h) and _is_pow2(w)):
-            raise ValueError(
-                f"block spatial dims {h}x{w} are not powers of two — "
-                "use the XLA engine sim for this model"
-            )
-        # a stride-1 dense block keeps its dims: the engine's quirk is the
-        # identity (stride-2 dense blocks were refused at parameter build)
-        x = lb_block(x, blk, bs)
-    return etiny_tail(kparams, x, cfg)
+    with span("serve.stem"):
+        x = etiny_stem(kparams, images, cfg).to(torch.int8)
+    with span("serve.kernels"):
+        for blk, bs in zip(kparams["blocks"], cfg.blocks):
+            h, w = x.shape[1], x.shape[2]
+            if not (_is_pow2(h) and _is_pow2(w)):
+                raise ValueError(
+                    f"block spatial dims {h}x{w} are not powers of two — "
+                    "use the XLA engine sim for this model"
+                )
+            # a stride-1 dense block keeps its dims: the engine's quirk is the
+            # identity (stride-2 dense blocks were refused at parameter build)
+            x = lb_block(x, blk, bs)
+    with span("serve.tail"):
+        return etiny_tail(kparams, x, cfg)

@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from nnue_vision_tpu_torch import tracing
 from nnue_vision_tpu_torch.data.augment import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -48,7 +49,7 @@ from nnue_vision_tpu_torch.ops import _ring
 
 # Launches since the last reset_launch_counts(); the wrapper adds one where
 # it launches the kernel, and nowhere else.
-LAUNCHES = {"light_pipeline_kernel": 0}
+LAUNCHES = tracing.counters("input_pipeline", "light_pipeline_kernel")
 
 
 # Pixels per item at most: a block's two shared-memory regions of one band

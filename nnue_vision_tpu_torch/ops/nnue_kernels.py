@@ -36,6 +36,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from nnue_vision_tpu_torch import tracing
 from nnue_vision_tpu_torch.ops.engine_sim import (
     NNUESimCfg,
     _int_conv3x3,
@@ -48,11 +49,12 @@ from nnue_vision_tpu_torch.ops.engine_sim import (
     grid_buffer,
     nnue_tail,
 )
+from nnue_vision_tpu_torch.tracing import span
 
 # Launches of each kernel since the last reset_launch_counts(); each wrapper
 # adds one where it launches its kernel, and nowhere else.
-LAUNCHES = {"nnue_mega_kernel": 0, "nnue_head_kernel": 0,
-            "nnue_mega_stage_kernel": 0}
+LAUNCHES = tracing.counters("nnue_kernels", "nnue_mega_kernel",
+                            "nnue_head_kernel", "nnue_mega_stage_kernel")
 
 _MAX_SMEM = 232448  # the shared memory a block may use on sm_90
 _SLOT_BYTES = 128 * 144  # csrc/int8_mma.cuh kSlotBytes
@@ -465,10 +467,11 @@ def nnue_engine_forward_mega(
     """
     _check_mode(input_mode)
     core = _mega_plain if images_flat.device.type == "cpu" else _mega_launch
-    return _with_density(*core(
-        head_params, images_flat, cfg=cfg, image_h=image_h, image_w=image_w,
-        with_count=with_count, input_mode=input_mode,
-    ), cfg)
+    with span("serve.kernels"):
+        out = core(head_params, images_flat, cfg=cfg, image_h=image_h,
+                   image_w=image_w, with_count=with_count,
+                   input_mode=input_mode)
+    return _with_density(*out, cfg)
 
 
 def nnue_engine_forward_mega_reference(

@@ -41,11 +41,13 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
+from nnue_vision_tpu_torch import tracing
 from nnue_vision_tpu_torch.ops import _ring
 
 # Launches since the last reset_launch_counts(); the wrapper adds one where
 # it launches the kernel, and nowhere else.
-LAUNCHES = {"photometric_kernel": 0, "photometric_band_kernel": 0}
+LAUNCHES = tracing.counters("photometric_kernel", "photometric_kernel",
+                            "photometric_band_kernel")
 
 # fparams column layout (per sample); gates are 0.0/1.0 floats
 MEDIUM_F = 24  # bc(3) hsv1(4) blur(1) noise(2) cut(1) hsv2(4) shadow(5)

@@ -40,12 +40,13 @@ from typing import Tuple
 
 import torch
 
+from nnue_vision_tpu_torch import tracing
 from nnue_vision_tpu_torch.ops import _ring
 
 # Launches since the last reset_launch_counts(); the wrapper adds one where
 # it launches the kernel, and nowhere else.
-LAUNCHES = {"warp_kernel": 0, "lerp_pass_kernel": 0,
-            "nogather_pass_kernel": 0}
+LAUNCHES = tracing.counters("warp_kernel", "warp_kernel", "lerp_pass_kernel",
+                            "nogather_pass_kernel")
 PARAMS = 8
 _F32 = torch.float32
 

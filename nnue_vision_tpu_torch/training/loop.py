@@ -30,7 +30,8 @@ reference does. With `profile_dir` set, the training steps of the first
 epoch run under `torch.profiler` (CPU and, on the card, CUDA activities;
 the JAX loop traces the same span with `jax.profiler`), and the trace is
 written to `profile_dir/train_epoch0.trace.json` for chrome://tracing or
-Perfetto.
+Perfetto, with the program's spans of the epoch (`tracing.py`: the chunk's
+draws, pack, load, capture, replay) on a track of their own.
 
 Both families train in float32 or bfloat16 (`dtype`: the conv and matmul
 stack computes in it, the params stay float32); an EtinyNet also in
@@ -84,14 +85,16 @@ unless `keep_alive` is set: on a cloud instance that names itself
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from nnue_vision_tpu_torch import tracing
 from nnue_vision_tpu_torch.data.augment import device_generator, preprocess_batch
 from nnue_vision_tpu_torch.data.loaders import (
     create_data_loaders,
@@ -272,19 +275,42 @@ def _start_trace(dev: torch.device) -> torch.profiler.profile:
     if dev.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     trace = torch.profiler.profile(activities=activities)
+    tracing.clear()
     trace.start()
     return trace
 
 
+def _span_events(spans, base_ns: int) -> List[Dict[str, Any]]:
+    """The program's spans (`tracing.spans()`) as Chrome trace events on a
+    track of their own ("program spans"), in µs from `base_ns` (the trace's
+    `baseTimeNanoseconds`, on the spans' Unix-epoch clock)."""
+    pid = "program spans"
+    events: List[Dict[str, Any]] = [
+        {"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+         "args": {"name": pid}}]
+    for s in spans:
+        events.append({
+            "ph": "X", "cat": "program_span", "name": s.name, "pid": pid,
+            "tid": 0, "ts": (s.start_ns - base_ns) / 1e3,
+            "dur": (s.end_ns - s.start_ns) / 1e3,
+            "args": {"parent": s.parent, **s.counts}})
+    return events
+
+
 def _stop_trace(trace: torch.profiler.profile, profile_dir: Path,
                 dev: torch.device) -> None:
-    """Wait for the traced work, stop, and write the Chrome trace."""
+    """Wait for the traced work, stop, and write the Chrome trace with the
+    epoch's program spans added as a track of their own."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     trace.stop()
     profile_dir.mkdir(parents=True, exist_ok=True)
     path = profile_dir / "train_epoch0.trace.json"
     trace.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    doc["traceEvents"] += _span_events(tracing.spans(),
+                                       doc.get("baseTimeNanoseconds", 0))
+    path.write_text(json.dumps(doc))
     early_log(f"profiler trace written to {path}")
 
 

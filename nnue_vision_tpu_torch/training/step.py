@@ -31,6 +31,12 @@ replay raises; nothing falls back. On the CPU, and under a mesh (a gloo
 all-reduce can not be captured), the same body runs eagerly. Either way
 the result equals K `gathered_train_step` calls bit for bit.
 
+Tracing (`tracing.py`): while a profiler runs, a chunk records the span
+`chunk` and within it `chunk.draws` (with the host generator calls it
+made), `chunk.pack`, `chunk.load`, and `chunk.capture`, `chunk.replay` or
+`chunk.eager`; a capture counts the graph's nodes by phase (`PHASES`),
+each phase's end marked in the body and in `train_step`.
+
 Data parallelism (a `Mesh` in the TrainState, `parallel/mesh.py`): each
 rank holds the whole model and trains on its shard of the global batch.
 Between `torch.autograd.grad` and the optimizer the gradients are averaged
@@ -46,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -54,7 +61,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from nnue_vision_tpu_torch import tracing
 from nnue_vision_tpu_torch.data.augment import (
+    DRAWS,
     apply_draws,
     batch_draws,
     draw_batch,
@@ -67,9 +76,6 @@ from nnue_vision_tpu_torch.data.augment import (
     shard_rows,
 )
 from nnue_vision_tpu_torch.models.nnue import NNUE, nnue_clip_weights
-from nnue_vision_tpu_torch.ops import input_pipeline as ip
-from nnue_vision_tpu_torch.ops import photometric_kernel as pk
-from nnue_vision_tpu_torch.ops import warp_kernel as wk
 from nnue_vision_tpu_torch.ops.input_pipeline import (
     LightParams,
     draw_light_params,
@@ -83,11 +89,14 @@ from nnue_vision_tpu_torch.parallel.mesh import (
     average_gradients,
     shard_map,
 )
+from nnue_vision_tpu_torch.tracing import span
 from nnue_vision_tpu_torch.training.optim import SCALARS, Optimizer, OptState
 
 _I32, _F32 = torch.int32, torch.float32
-# the launch counts of the kernels a chunk can run (K3, K4, K5)
-_COUNTERS = (ip.LAUNCHES, wk.LAUNCHES, pk.LAUNCHES)
+# a captured chunk's parts, in order: per step the input (gather, K3 or the
+# tier's K4/K5, normalize), the model (forward, loss, autograd.grad) and
+# the update (optimizer, clip, accuracy); then the chunk's tail (the stack)
+PHASES = ("input", "model", "update", "tail")
 
 
 @dataclasses.dataclass
@@ -176,6 +185,7 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     loss = distillation_loss(logits, labels, images, teacher)
     grads = dict(zip(params, torch.autograd.grad(
         loss, list(params.values()), allow_unused=True)))
+    _phase_end("model")
     loss = loss.detach()
     acc = (logits.detach().argmax(dim=-1) == labels).to(torch.float32).mean()
     if state.mesh is not None:
@@ -187,6 +197,7 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     if isinstance(model, NNUE):
         nnue_clip_weights(model)
     state.step += 1
+    _phase_end("update")
     return {"loss": loss, "accuracy": acc}
 
 
@@ -218,27 +229,68 @@ def gathered_train_step(state: TrainState, device_images: torch.Tensor,
                       teacher=teacher)
 
 
-def _launch_counts() -> Dict[Tuple[int, str], int]:
-    return {(i, name): n for i, counter in enumerate(_COUNTERS)
-            for name, n in counter.items()}
-
-
-def _set_launch_counts(counts: Dict[Tuple[int, str], int]) -> None:
-    for (i, name), n in counts.items():
-        _COUNTERS[i][name] = n
-
-
-def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
-    """The nodes of a captured graph (kept with `keep_graph=True`), asked of
-    the CUDA driver."""
+@functools.lru_cache(maxsize=None)
+def _driver() -> ctypes.CDLL:
+    """The CUDA driver, with the two queries the chunk graph asks."""
     driver = ctypes.CDLL("libcuda.so.1")
     driver.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                        ctypes.POINTER(ctypes.c_size_t)]
+    driver.cuGraphGetNodes.restype = ctypes.c_int
+    driver.cuStreamGetCaptureInfo_v2.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_void_p, ctypes.c_void_p]
+    driver.cuStreamGetCaptureInfo_v2.restype = ctypes.c_int
+    return driver
+
+
+def _nodes_of(raw_graph: int) -> int:
+    """The nodes of a CUDA graph (a `CUgraph` handle), asked of the driver."""
     n = ctypes.c_size_t(0)
-    err = driver.cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    err = _driver().cuGraphGetNodes(raw_graph, None, ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"cuGraphGetNodes failed with CUresult {err}")
     return n.value
+
+
+def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The nodes of a captured graph (kept with `keep_graph=True`)."""
+    return _nodes_of(graph.raw_cuda_graph())
+
+
+class _PhaseNodes:
+    """The nodes a capture on `stream` adds in each of `PHASES`: each mark
+    counts the nodes of the graph under capture (`cuStreamGetCaptureInfo`
+    gives it; the driver answers queries on it while capture runs) and
+    credits those since the last mark to the phase that ends there."""
+
+    def __init__(self, stream: torch.cuda.Stream):
+        self.stream = stream.cuda_stream
+        self.nodes = dict.fromkeys(PHASES, 0)
+        self.last = 0
+
+    def mark(self, phase: str) -> None:
+        status, graph = ctypes.c_int(0), ctypes.c_void_p(None)
+        err = _driver().cuStreamGetCaptureInfo_v2(
+            self.stream, ctypes.byref(status), None, ctypes.byref(graph),
+            None, None)
+        if err != 0 or status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+            raise RuntimeError(f"cuStreamGetCaptureInfo: CUresult {err}, "
+                               f"capture status {status.value}")
+        n = _nodes_of(graph.value)
+        self.nodes[phase] += n - self.last
+        self.last = n
+
+
+# the phase count of the capture running, set by ChunkGraph._capture alone
+_capturing: Optional[_PhaseNodes] = None
+
+
+def _phase_end(phase: str) -> None:
+    """Where a phase of a step ends: counted while a chunk is captured, a
+    no-op otherwise (eagerly, on the CPU, in a replay)."""
+    if _capturing is not None:
+        _capturing.mark(phase)
 
 
 def _buffers(model: nn.Module, opt_state: OptState) -> Tuple[int, ...]:
@@ -267,6 +319,9 @@ class ChunkGraph:
     calls launch nothing and are taken back out). `generators` (the medium
     and heavy tiers' device noise) are registered with the graph, so that
     each replay advances their Philox offset as K eager steps would.
+    `phase_nodes` is the graph's nodes by `PHASES`, counted at capture and
+    summed over its steps: they add up to `nodes`. The newest capture's are
+    also the `tracing` gauge "chunk_graph_nodes".
     """
 
     def __init__(self, key: tuple, rows: torch.Tensor, device: torch.device,
@@ -278,46 +333,55 @@ class ChunkGraph:
         self.generators = generators
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Dict[str, torch.Tensor] = {}
-        self.launches: Dict[Tuple[int, str], int] = {}
+        self.launches: Dict[Tuple[str, str], int] = {}
         self.capture_s = self.instantiate_s = 0.0
         self.nodes = 0
+        self.phase_nodes: Dict[str, int] = {}
         self.replays = 0
 
     def _load(self, rows: torch.Tensor) -> None:
         # pinned, so the copy is queued on the stream; the host's caching
         # allocator keeps the pinned block until the copy has run
-        self.buf.copy_(rows.pin_memory(), non_blocking=True)
+        with span("chunk.load"):
+            self.buf.copy_(rows.pin_memory(), non_blocking=True)
 
     def warm_up(self, rows: torch.Tensor, body: Callable) -> Dict[str, torch.Tensor]:
         self._load(rows)
         current = torch.cuda.current_stream(self.buf.device)
         self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
+        with span("chunk.eager"), torch.cuda.stream(self.stream):
             out = body(self.buf)
         current.wait_stream(self.stream)
         return out
 
     def _capture(self, state: TrainState, body: Callable) -> None:
+        global _capturing
         count, step = state.opt_state["count"], state.step
-        before = _launch_counts()
+        before = tracing.snapshot()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in self.generators:
             graph.register_generator_state(gen)
+        phases = _PhaseNodes(self.stream)
         try:
             t0 = time.perf_counter()
             with torch.cuda.graph(graph, stream=self.stream):
+                _capturing = phases
                 out = body(self.buf)
+                _capturing = None
             t1 = time.perf_counter()
             graph.instantiate()
             self.instantiate_s = time.perf_counter() - t1
             self.capture_s = t1 - t0
-            after = _launch_counts()
+            after = tracing.snapshot()
             self.launches = {k: after[k] - before[k] for k in before
                              if after[k] != before[k]}
         finally:
-            _set_launch_counts(before)
+            _capturing = None
+            tracing.restore(before)
             state.opt_state["count"], state.step = count, step
         self.nodes = _graph_nodes(graph)
+        self.phase_nodes = phases.nodes
+        tracing.GAUGES["chunk_graph_nodes"] = dict(phases.nodes)
         self.graph, self.out = graph, out
 
     def run(self, state: TrainState, rows: torch.Tensor,
@@ -325,13 +389,14 @@ class ChunkGraph:
         """One chunk: load `rows`, capture on the first call, replay."""
         self._load(rows)
         if self.graph is None:
-            self._capture(state, body)
-        self.graph.replay()
+            with span("chunk.capture"):
+                self._capture(state, body)
+        with span("chunk.replay"):
+            self.graph.replay()
         self.replays += 1
         state.opt_state["count"] += self.steps
         state.step += self.steps
-        for (i, name), n in self.launches.items():
-            _COUNTERS[i][name] += n
+        tracing.add(self.launches)
         state.model.train()
         return {k: v.clone() for k, v in self.out.items()}
 
@@ -349,7 +414,10 @@ def _run_chunk(state: TrainState, device: torch.device, key: tuple,
     `device`) on the chunk's packed host `rows`: eagerly on the CPU and
     under a mesh, else through the state's `ChunkGraph` for `key`."""
     if device.type != "cuda" or state.mesh is not None:
-        return body(rows.to(device))
+        with span("chunk.load"):
+            buf = rows.to(device)
+        with span("chunk.eager"):
+            return body(buf)
     graph = state.chunk_graph
     if graph is None or graph.key != key:
         state.chunk_graph = None  # the old graph's memory goes first
@@ -361,9 +429,21 @@ def _run_chunk(state: TrainState, device: torch.device, key: tuple,
 
 
 def _stack(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
-    return {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
+    out = {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
+    _phase_end("tail")
+    return out
 
 
+def _chunk_span(fn: Callable) -> Callable:
+    """`fn`, a chunk call, inside the span `chunk` with its `steps`."""
+    @functools.wraps(fn)
+    def chunk(state, data, labels, idx_chunk, *args, **kwargs):
+        with span("chunk", steps=len(idx_chunk)):
+            return fn(state, data, labels, idx_chunk, *args, **kwargs)
+    return chunk
+
+
+@_chunk_span
 def scanned_train_steps(state: TrainState, device_images: torch.Tensor,
                         device_labels: torch.Tensor, idx_chunk: np.ndarray,
                         gen: torch.Generator, *, optimizer: Optimizer,
@@ -388,12 +468,16 @@ def scanned_train_steps(state: TrainState, device_images: torch.Tensor,
     idx_chunk = idx_chunk[:, shard_rows(batch, shard)]
     b = idx_chunk.shape[1]
     h, w = device_images.shape[1], device_images.shape[2]
-    scalars = optimizer.step_scalars(state.opt_state["count"], steps)
-    rows = torch.stack([pack_fields([
-        torch.from_numpy(idx_chunk[k]).to(_I32),
-        draw_batch(gen, strength, batch, h, w, shard) if augment
-        else torch.zeros(0, dtype=_I32),
-        torch.from_numpy(scalars[k])]) for k in range(steps)])
+    with span("chunk.draws") as sp:
+        calls = DRAWS["host_draw_calls"]
+        draws = [draw_batch(gen, strength, batch, h, w, shard) if augment
+                 else torch.zeros(0, dtype=_I32) for _ in range(steps)]
+        sp.count(draw_calls=DRAWS["host_draw_calls"] - calls)
+    with span("chunk.pack"):
+        scalars = optimizer.step_scalars(state.opt_state["count"], steps)
+        rows = torch.stack([pack_fields([
+            torch.from_numpy(idx_chunk[k]).to(_I32), draws[k],
+            torch.from_numpy(scalars[k])]) for k in range(steps)])
     n_draws = packed_size(draw_specs(strength, b)) if augment else 0
     specs = [((b,), _I32), ((n_draws,), _I32), ((SCALARS,), _F32)]
 
@@ -405,9 +489,10 @@ def scanned_train_steps(state: TrainState, device_images: torch.Tensor,
             if augment:
                 x = apply_draws(x, batch_draws(draws, strength, b), noise_gen,
                                 shard)
-            metrics.append(train_step(
-                state, normalize_images(x), device_labels.index_select(0, i),
-                optimizer=optimizer, teacher=teacher, scalars=sc))
+            x, y = normalize_images(x), device_labels.index_select(0, i)
+            _phase_end("input")
+            metrics.append(train_step(state, x, y, optimizer=optimizer,
+                                      teacher=teacher, scalars=sc))
         return _stack(metrics)
 
     model = state.model
@@ -419,6 +504,7 @@ def scanned_train_steps(state: TrainState, device_images: torch.Tensor,
     return _run_chunk(state, device_images.device, key, rows, body, gens)
 
 
+@_chunk_span
 def scanned_train_steps_fused(state: TrainState, gather_dataset: torch.Tensor,
                               device_labels: torch.Tensor,
                               idx_chunk: np.ndarray, gen: torch.Generator, *,
@@ -438,19 +524,23 @@ def scanned_train_steps_fused(state: TrainState, gather_dataset: torch.Tensor,
     steps, batch = idx_chunk.shape
     n = device_labels.shape[0]
     _check_indices(idx_chunk, n)
-    params = (identity_light_params(steps, batch) if identity_augment
-              else draw_light_params(gen, steps, batch, height, width))
-    idx_eff = idx_chunk + n * params.flip.numpy().astype(np.int64)
-    _check_indices(idx_eff, 2 * n)
-    cols = shard_rows(batch, data_shard(state.mesh))
-    idx_chunk, idx_eff = idx_chunk[:, cols], idx_eff[:, cols]
-    params = LightParams(*(t[:, cols].contiguous() for t in params))
-    b = idx_chunk.shape[1]
-    scalars = optimizer.step_scalars(state.opt_state["count"], steps)
-    rows = torch.stack([pack_fields([
-        torch.from_numpy(idx_eff[k]).to(_I32),
-        torch.from_numpy(idx_chunk[k]).to(_I32), params.pf[k], params.pi[k],
-        torch.from_numpy(scalars[k])]) for k in range(steps)])
+    with span("chunk.draws") as sp:
+        calls = DRAWS["host_draw_calls"]
+        params = (identity_light_params(steps, batch) if identity_augment
+                  else draw_light_params(gen, steps, batch, height, width))
+        sp.count(draw_calls=DRAWS["host_draw_calls"] - calls)
+    with span("chunk.pack"):
+        idx_eff = idx_chunk + n * params.flip.numpy().astype(np.int64)
+        _check_indices(idx_eff, 2 * n)
+        cols = shard_rows(batch, data_shard(state.mesh))
+        idx_chunk, idx_eff = idx_chunk[:, cols], idx_eff[:, cols]
+        params = LightParams(*(t[:, cols].contiguous() for t in params))
+        b = idx_chunk.shape[1]
+        scalars = optimizer.step_scalars(state.opt_state["count"], steps)
+        rows = torch.stack([pack_fields([
+            torch.from_numpy(idx_eff[k]).to(_I32),
+            torch.from_numpy(idx_chunk[k]).to(_I32), params.pf[k],
+            params.pi[k], torch.from_numpy(scalars[k])]) for k in range(steps)])
     specs = [((b,), _I32), ((b,), _I32), ((b, 2), _F32), ((b, 4), _I32),
              ((SCALARS,), _F32)]
 
@@ -460,8 +550,10 @@ def scanned_train_steps_fused(state: TrainState, gather_dataset: torch.Tensor,
             i_eff, i, pf, pi, sc = field_views(buf[k], specs)
             x = fused_light_pipeline(gather_dataset, i_eff, pf, pi, h=height,
                                      w=width)
-            metrics.append(train_step(state, x, device_labels.index_select(0, i),
-                                      optimizer=optimizer, scalars=sc))
+            y = device_labels.index_select(0, i)
+            _phase_end("input")
+            metrics.append(train_step(state, x, y, optimizer=optimizer,
+                                      scalars=sc))
         return _stack(metrics)
 
     model = state.model

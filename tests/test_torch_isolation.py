@@ -69,6 +69,7 @@ MODULES = [
     "nnue_vision_tpu_torch.serialize",
     "nnue_vision_tpu_torch.stream_inference_demo",
     "nnue_vision_tpu_torch.torch_import",
+    "nnue_vision_tpu_torch.tracing",
     "nnue_vision_tpu_torch.training.checkpoint",
     "nnue_vision_tpu_torch.training.engine_build",
     "nnue_vision_tpu_torch.training.evaluate",

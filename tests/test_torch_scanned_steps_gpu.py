@@ -2,8 +2,9 @@
 eager chunk on a card: a fused NNUE chunk (K3 in the graph) and a heavy
 EtinyNet chunk (K4 and K5 in the graph) from copied states, each replay
 `torch.equal` to the eager steps; a new capture after the model's config
-or the optimizer's state changes; and a replay advancing each kernel's
-launch count by the launches captured.
+or the optimizer's state changes; a replay advancing each kernel's
+launch count by the launches captured; and the capture's nodes by phase
+adding up to the graph's.
 
 A state whose `chunk_graph` is None runs its next full chunk eagerly (the
 warm-up of a new signature): the eager references below drop it before
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from nnue_vision_tpu_torch import tracing
 from nnue_vision_tpu_torch.data.augment import device_generator
 from nnue_vision_tpu_torch.models.etinynet import EtinyNetConfig, etinynet_init
 from nnue_vision_tpu_torch.models.nnue import GridFeatureSet, NNUEConfig, nnue_init
@@ -94,6 +96,18 @@ def _gen_copy(gen):
     return g
 
 
+def _assert_phases_add_up(graph):
+    """The capture's nodes by phase (input, model, update, and the chunk's
+    tail) add up to the graph's nodes, each phase but the tail in every
+    step; the `tracing` gauge holds the newest capture's."""
+    phases = graph.phase_nodes
+    assert tracing.GAUGES["chunk_graph_nodes"] == phases
+    assert list(phases) == ["input", "model", "update", "tail"]
+    assert sum(phases.values()) == graph.nodes
+    assert all(phases[p] >= K for p in ("input", "model", "update"))
+    assert phases["tail"] > 0
+
+
 def _assert_states_equal(a, b):
     assert a.step == b.step and a.opt_state["count"] == b.opt_state["count"]
     for (name, t), (_, u) in zip(a.model.state_dict().items(),
@@ -123,7 +137,8 @@ def test_fused_chunk_graph_equals_eager(cuda):
            for c in chunks[1:]]
     graph = state.chunk_graph
     assert graph.graph is not None and graph.replays == 2 and graph.nodes > 0
-    assert graph.launches == {(0, "light_pipeline_kernel"): K}
+    assert graph.launches == {("input_pipeline", "light_pipeline_kernel"): K}
+    _assert_phases_add_up(graph)
     assert ip.LAUNCHES["light_pipeline_kernel"] - before == 2 * K
     want = []
     for c in chunks[1:]:
@@ -156,7 +171,9 @@ def test_heavy_chunk_graph_equals_gathered_steps(cuda):
            for c in chunks[1:]]
     graph = state.chunk_graph
     assert graph.replays == 2 and graph.launches == {
-        (1, "warp_kernel"): 2 * K, (2, "photometric_kernel"): 2 * K}
+        ("warp_kernel", "warp_kernel"): 2 * K,
+        ("photometric_kernel", "photometric_kernel"): 2 * K}
+    _assert_phases_add_up(graph)
     assert (wk.LAUNCHES["warp_kernel"] - before[0],
             pk.LAUNCHES["photometric_kernel"] - before[1]) == (4 * K, 4 * K)
     for g, c in zip(got, chunks[1:]):
@@ -196,3 +213,27 @@ def test_new_config_or_optimizer_state_captures_anew(cuda):
                                         noise_gen=ref_noise, **kw) for i in c]
             assert torch.equal(g["loss"], torch.stack([m["loss"] for m in want]))
         _assert_states_equal(state, ref)
+
+
+def test_replay_spans_leave_the_device_events_alone(cuda):
+    """A replayed chunk under the profiler with CUDA activity records its
+    spans (`chunk`, its draws, pack, load and replay; the heavy tier's 70
+    host calls a step) and no device event carries a span's name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    images, labels, rng, opt, state, gen, noise = _heavy_setup(cuda)
+    kw = dict(optimizer=opt, strength="heavy", noise_gen=noise)
+    for c in _chunks(rng, 2):  # the warm-up, then the capture
+        scanned_train_steps(state, images, labels, c, gen, **kw)
+    (idx,) = _chunks(rng, 1)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        scanned_train_steps(state, images, labels, idx, gen, **kw)
+        torch.cuda.synchronize()
+    spans = {s.name: s for s in tracing.spans()}
+    assert set(spans) == {"chunk", "chunk.draws", "chunk.pack", "chunk.load",
+                          "chunk.replay"}
+    assert spans["chunk.draws"].counts == {"draw_calls": 70 * K}
+    device = [e.name() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert device and not set(device) & set(spans)
