@@ -11,8 +11,9 @@ Light: hflip (p .5), brightness/contrast ±0.1 (p .2), one 5% cutout (p .2).
 
 Medium and heavy: the geometric ops (flip, rot90, rotate, affine) each
 draw their gate and parameters and compose, per sample, into one inverse
-map (M, v) per block (`_mv_compose`, `_mv_where`), realized by one warp
-chosen by shape with the JAX package's rule (`_warp`, augment.py:403-425;
+map (M, v) per block (`_mv_compose`, its 2×2 products elementwise in
+`bmm`'s order and sign of zero: `_mm`), realized by one warp chosen by
+shape with the JAX package's rule (`_warp`, augment.py:403-425;
 `two_pass_warp`): for a square image with h·w·w ≤ 2^17 (32×32, up to
 50×50) the two-pass resample (K4, `ops/warp_kernel.py`, which on the card
 takes an even n and raises otherwise), else the single-pass bilinear
@@ -24,15 +25,30 @@ heavy tier's second block (its own geometry, one more warp, then
 `heavy_extra`) runs after the medium photometric block, the reference op
 order. Every photometric op is a draw helper (`_*_draw`) and an apply step
 (`ops/photometric_kernel.py`), drawn in the JAX package's order. Each tier
-is a draw and an apply: `draw_batch` makes all of a step's draws on the
-host and packs them into one int32 buffer (float fields bit-cast, bools as
-0/1), `batch_draws` reads them as views of that buffer once it lies on the
-images' device, and `apply_draws` runs the tier with no copy to the
-device inside it, so a CUDA graph can replay it on new draws
+is a draw and an apply: `draw_chunk` makes all of K steps' draws on the
+host and packs them into (K, S) int32 rows (float fields bit-cast, bools
+as 0/1; `draw_batch` is its K = 1 case), `batch_draws` reads a step's row
+as views once it lies on the images' device, and `apply_draws` runs the
+tier with no copy to the device inside it, so a CUDA graph can replay it
+on new draws
 (`training/step.py`); `draw_tier` is the three for one step with one
 upload. The two full-batch unit-normal noise tensors of the medium and
 heavy tiers are drawn on the images' device from a generator of that
 device, seeded once from the host generator (`device_generator`).
+
+A chunk's draws are one host generator call: CPU `torch.rand` (and
+`randint` of a range under 2^32) takes one 32-bit mt19937 value per
+element, in order, so one (K, F, B) `torch.rand` is, element for element,
+the F fields of each of K steps drawn one call a field. The draw helpers
+take a *source*: a `torch.Generator` draws each field with its own call
+(the per-step stream, which tests and profilers call directly); a `Fields`
+block hands out its next field as K·B rows, already scaled to the range
+`uniform` asks of it (`_ranges`, listed by one pass of the helpers over a
+recording source), and every field is derived from those rows in one
+pass, in the same order, on one intra-op thread (`_one_thread`). The
+rot90 choice, `randint(0, 4)` = value % 4, is the low two of the 24 bits
+that `rand` keeps: int(u · 2^24) % 4. The packed rows and the generator's
+state are those of K per-step draws made field by field, bit for bit.
 
 The tensor's device picks the realization: the kernels on a CUDA tensor,
 their plain versions on a CPU one.
@@ -46,6 +62,7 @@ batch.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -71,9 +88,9 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 STRENGTHS = ("light", "medium", "heavy")
 
-# Host generator calls of the draws (`uniform`, the rot90 draw's randint;
-# not `device_generator`'s one seed): `training/step.py` reads a chunk's
-# draws as the delta.
+# Host generator calls of the draws (`uniform` and the rot90 choice on a
+# generator, `draw_chunk`'s one call; not `device_generator`'s one seed):
+# `training/step.py` reads a chunk's draws as the delta.
 DRAWS = tracing.counters("draws", "host_draw_calls")
 
 MV = Tuple[torch.Tensor, torch.Tensor]  # (M (B, 2, 2), v (B, 2)) float32
@@ -102,10 +119,51 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
     return (images - mean) / std
 
 
-def uniform(gen: torch.Generator, shape, lo: float = 0.0, hi: float = 1.0):
+class Fields:
+    """A chunk's uniforms as a draw source: `u` (F, R) float32, field f's R
+    rows (K·B, step-major) already scaled to the range `uniform` asks of it
+    (`_ranges`), handed out in order."""
+
+    def __init__(self, u: torch.Tensor):
+        self.u, self.taken = u, 0
+
+    def take(self, shape, lo: float, hi: float) -> torch.Tensor:
+        field = self.u[self.taken].view(shape)
+        self.taken += 1
+        return field
+
+
+class _Ranges:
+    """A draw source that notes the range `uniform` asks of each field and
+    hands out zeros: one pass of the helpers lists a tier's fields."""
+
+    def __init__(self):
+        self.lo, self.width = [], []
+
+    def take(self, shape, lo: float, hi: float) -> torch.Tensor:
+        self.lo.append(lo)
+        self.width.append(hi - lo)
+        return torch.zeros(shape)
+
+
+Source = Union[torch.Generator, Fields, _Ranges]
+
+
+def uniform(gen: Source, shape, lo: float = 0.0, hi: float = 1.0):
     """U[lo, hi) float32 on the host from `gen`, like `jax.random.uniform`."""
+    if not isinstance(gen, torch.Generator):
+        return gen.take(shape, lo, hi)
     DRAWS["host_draw_calls"] += 1
     return torch.rand(shape, generator=gen) * (hi - lo) + lo
+
+
+def _rot90_choice(src: Source, b: int) -> torch.Tensor:
+    """randint(0, 4) of b rows: the generator's own call, or the low two of
+    the block's next field's 24 bits (the same value)."""
+    if not isinstance(src, torch.Generator):
+        return (src.take((b,), 0.0, 1.0) * 2 ** 24).to(torch.int64) & 3
+    DRAWS["host_draw_calls"] += 1
+    return torch.randint(0, 4, (b,), generator=src)
 
 
 def device_generator(gen: torch.Generator, device) -> torch.Generator:
@@ -171,9 +229,9 @@ def _fog_draw(gen, b, p):
 
 
 def _cols(*values) -> torch.Tensor:
-    """(B, k) float32 from per-sample draws of any (B, ...) shape."""
-    return torch.stack([v.reshape(v.shape[0]).to(torch.float32)
-                        for v in values], dim=1)
+    """(B, k) float32 from per-sample draws of any (B, ...) shape, float32
+    or bool (promoted: 1.0 or 0.0)."""
+    return torch.cat([v.view(-1, 1) for v in values], dim=1)
 
 
 def draw_medium_photometric(gen, b, h, w):
@@ -214,8 +272,37 @@ def draw_heavy_photometric(gen, b, h, w):
 # ---------------------------------------------------------------------------
 
 
+# A map's M (B, 2, 2) is stored entry-major (its memory (2, 2, B)) and v
+# (B, 2) as (2, B), so every elementwise op and 2×2 product runs along B.
+_EYE = torch.eye(2)
+# the four rotations' entries, (4 entries, 4 choices); choice 0 the identity
+_ROT90 = torch.tensor([
+    [[1.0, 0.0], [0.0, 1.0]],
+    [[0.0, 1.0], [-1.0, 0.0]],
+    [[-1.0, 0.0], [0.0, -1.0]],
+    [[0.0, -1.0], [1.0, 0.0]],
+]).reshape(4, 4).T.contiguous()
+
+
+def _m(entries: torch.Tensor) -> torch.Tensor:
+    """(B, 2, 2) over (4, B) entries m00, m01, m10, m11."""
+    return entries.view(2, 2, -1).permute(2, 0, 1)
+
+
+def _v(v0: torch.Tensor, v1: torch.Tensor) -> torch.Tensor:
+    """(B, 2) over a (2, B) stack."""
+    return torch.stack([v0, v1]).T
+
+
 def _mv_identity(b: int) -> MV:
-    return torch.eye(2).repeat(b, 1, 1), torch.zeros((b, 2))
+    return _EYE.repeat(b, 1, 1), torch.zeros((b, 2))
+
+
+def _mm(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """m (B, 2, 2) @ x (B, 2, n) elementwise, summed as `bmm`'s CPU kernel
+    sums a small product: from +0, so two −0 terms give +0. Bit-equal to
+    `m @ x` (tests), without its loop over the B matrices."""
+    return (m[:, :, 0:1] * x[:, 0:1, :] + 0.0) + m[:, :, 1:2] * x[:, 1:2, :]
 
 
 def _mv_compose(mv_prev: MV, mv_new: MV) -> MV:
@@ -223,36 +310,21 @@ def _mv_compose(mv_prev: MV, mv_new: MV) -> MV:
     map becomes prev ∘ new (sample through the newest op first)."""
     m1, v1 = mv_prev
     m2, v2 = mv_new
-    return m1 @ m2, (m1 @ v2[:, :, None])[:, :, 0] + v1
-
-
-def _mv_where(apply: torch.Tensor, mv: MV) -> MV:
-    """Gate a transform by a per-sample boolean (identity when off)."""
-    m, v = mv
-    mi, vi = _mv_identity(m.shape[0])
-    a = apply.reshape(-1, 1, 1)
-    return torch.where(a, m, mi), torch.where(a[:, :, 0], v, vi)
+    return _mm(m1, m2), _mm(m1, v2[:, :, None])[:, :, 0] + v1
 
 
 def geom_hflip(apply: torch.Tensor) -> MV:
-    b = apply.shape[0]
-    m = torch.tensor([[1.0, 0.0], [0.0, -1.0]]).repeat(b, 1, 1)
-    return _mv_where(apply, (m, torch.zeros((b, 2))))
-
-
-_ROT90 = torch.tensor([
-    [[1.0, 0.0], [0.0, 1.0]],
-    [[0.0, 1.0], [-1.0, 0.0]],
-    [[-1.0, 0.0], [0.0, -1.0]],
-    [[0.0, -1.0], [1.0, 0.0]],
-])
+    one, zero = torch.ones(apply.shape), torch.zeros(apply.shape)
+    m = _m(torch.stack([one, zero, zero, torch.where(apply, -1.0, one)]))
+    return m, _v(zero, zero)
 
 
 def geom_rot90(apply: torch.Tensor, choice: torch.Tensor) -> MV:
     """Exact 0/90/180/270° rotations (integer entries, so the warp lands
-    on grid points for square images)."""
-    b = apply.shape[0]
-    return _mv_where(apply, (_ROT90[choice], torch.zeros((b, 2))))
+    on grid points for square images); off, the identity (choice 0)."""
+    zero = torch.zeros(apply.shape)
+    k = torch.where(apply, choice, 0)
+    return _m(_ROT90.index_select(1, k)), _v(zero, zero)
 
 
 def geom_affine(apply, deg, tx, ty, sc) -> MV:
@@ -261,11 +333,10 @@ def geom_affine(apply, deg, tx, ty, sc) -> MV:
     theta = deg * (math.pi / 180.0)
     cos = torch.cos(theta) / sc
     sin = torch.sin(theta) / sc
-    m = torch.stack([torch.stack([cos, sin], -1),
-                     torch.stack([-sin, cos], -1)], dim=1)
-    t = torch.stack([ty, tx], dim=-1)
-    v = -(m @ t[:, :, None])[:, :, 0]
-    return _mv_where(apply, (m, v))
+    m = _m(torch.stack([cos, sin, -sin, cos]))
+    v = -_mm(m, _v(ty, tx)[:, :, None])[:, :, 0]
+    a = apply.reshape(-1, 1, 1)
+    return torch.where(a, m, _EYE), torch.where(a[:, :, 0], v, 0.0)
 
 
 def _geom_hflip_draw(gen, b, p):
@@ -274,8 +345,7 @@ def _geom_hflip_draw(gen, b, p):
 
 def _geom_rot90_draw(gen, b, p):
     apply = uniform(gen, (b,)) < p
-    DRAWS["host_draw_calls"] += 1
-    return geom_rot90(apply, torch.randint(0, 4, (b,), generator=gen))
+    return geom_rot90(apply, _rot90_choice(gen, b))
 
 
 def _geom_affine_draw(gen, b, p, max_deg, max_translate, scale_range, h, w):
@@ -404,19 +474,22 @@ def _padded(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def pack_fields(fields: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Host tensors (float32, int32 or bool) → one flat int32 tensor, each
-    field in turn, float fields bit-cast, bools as 0 or 1, each padded to a
-    16-byte unit (`field_views` reads them back)."""
+def pack_rows(fields: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Host tensors (float32, int32 or bool) of one leading dimension K →
+    (K, S) int32 rows: row k holds each field's k-th entry in turn, float
+    fields bit-cast, bools as 0 or 1, each padded to a 16-byte unit
+    (`field_views` reads a row back)."""
     parts = []
     for f in fields:
         if f.dtype == torch.bool:
             f = f.to(torch.int32)
-        flat = f.reshape(-1)
+        k, n = f.shape[0], math.prod(f.shape[1:])
+        flat = f.reshape(k, n)
         flat = flat.view(torch.int32) if flat.is_floating_point() else flat
-        pad = _padded(flat.numel()) - flat.numel()
-        parts += [flat, torch.zeros(pad, dtype=torch.int32)] if pad else [flat]
-    return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int32)
+        pad = _padded(n) - n
+        parts += ([flat, torch.zeros((k, pad), dtype=torch.int32)] if pad
+                  else [flat])
+    return torch.cat(parts, dim=1)
 
 
 def packed_size(specs: Sequence[Spec]) -> int:
@@ -424,7 +497,7 @@ def packed_size(specs: Sequence[Spec]) -> int:
 
 
 def field_views(buf: torch.Tensor, specs: Sequence[Spec]) -> List[torch.Tensor]:
-    """The fields `pack_fields` packed into the flat int32 `buf` (on any
+    """The fields of a `pack_rows` row, the flat int32 `buf` (on any
     device), by (shape, dtype): views, and for a bool field its compare
     with 0."""
     out, pos = [], 0
@@ -454,27 +527,76 @@ def draw_specs(strength: str, b: int) -> List[Spec]:
     return specs
 
 
-def draw_batch(gen: torch.Generator, strength: str, b: int, h: int, w: int,
-               shard: Shard = WHOLE) -> torch.Tensor:
-    """All of one step's per-sample draws for a batch of b of (h, w) images,
-    made on the host in the JAX package's order and packed (`pack_fields`,
-    `draw_specs`) into one flat int32 tensor; of a sharded batch (b the
-    global batch), only the shard's rows. Light: flip, brightness/
-    contrast, cutout. Medium and heavy: medium geometry, medium
-    photometric, then for heavy the heavy geometry and photometric."""
+def draw_fields(gen: Source, strength: str, b: int, h: int, w: int
+                ) -> List[torch.Tensor]:
+    """One step's per-sample draws for a batch of b of (h, w) images (or,
+    from a `Fields` block, K steps' as b = K·B rows), in the JAX package's
+    order, as `draw_specs`' fields. Light: flip, brightness/contrast,
+    cutout. Medium and heavy: medium geometry, medium photometric, then
+    for heavy the heavy geometry and photometric."""
+    if strength == "light":
+        return [_bernoulli(gen, 0.5, b), *_bc_draw(gen, b, 0.2, 0.1),
+                *_cutout_draw(gen, b, h, w, 0.2, (0.05, 0.051))]
+    fields = [_warp_params(draw_medium_geometry(gen, b, h, w), h, w),
+              *draw_medium_photometric(gen, b, h, w)]
+    if strength == "heavy":
+        fields += [_warp_params(draw_heavy_geometry(gen, b, h, w), h, w),
+                   *draw_heavy_photometric(gen, b, h, w)]
+    return fields
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """The enclosed torch CPU ops on the calling thread alone. A chunk's
+    draws are hundreds of small ops; the few large enough for a parallel
+    region gain less than it costs on a host that launches the device's
+    work beside it, its idle workers spinning on after each region."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+@functools.lru_cache(maxsize=None)
+def _ranges(strength: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(F, 1) float32 widths and lows of a tier's F uniform fields in draw
+    order (the rot90 choice's [0, 1) among them): `uniform`'s scalar
+    operands, rounded to float32 as they are there, so u·width + low over
+    a block is each field's `uniform`, bit for bit."""
+    rec = _Ranges()
+    draw_fields(rec, strength, 1, 2, 2)
+    return torch.tensor(rec.width)[:, None], torch.tensor(rec.lo)[:, None]
+
+
+def draw_chunk(gen: torch.Generator, strength: str, steps: int, b: int,
+               h: int, w: int, shard: Shard = WHOLE) -> torch.Tensor:
+    """All per-sample draws of `steps` steps of a batch of b of (h, w)
+    images, from one `torch.rand` on the host generator, packed
+    (`pack_rows`, `draw_specs`) into (steps, S) int32 rows; of a sharded
+    batch (b the global batch), only the shard's rows. Row k equals step
+    k's draws made one call a field (`draw_fields` on `gen`), and `gen`
+    ends where those calls leave it."""
     if strength not in STRENGTHS:
         raise ValueError(f"strength must be one of {STRENGTHS}")
-    if strength == "light":
-        fields = [_bernoulli(gen, 0.5, b), *_bc_draw(gen, b, 0.2, 0.1),
-                  *_cutout_draw(gen, b, h, w, 0.2, (0.05, 0.051))]
-    else:
-        fields = [_warp_params(draw_medium_geometry(gen, b, h, w), h, w),
-                  *draw_medium_photometric(gen, b, h, w)]
-        if strength == "heavy":
-            fields += [_warp_params(draw_heavy_geometry(gen, b, h, w), h, w),
-                       *draw_heavy_photometric(gen, b, h, w)]
-    rows = shard_rows(b, shard)
-    return pack_fields([f[rows] for f in fields])
+    width, low = _ranges(strength)
+    n = len(width)
+    DRAWS["host_draw_calls"] += 1
+    with _one_thread():
+        u = torch.rand((steps, n, b), generator=gen)
+        u = u.transpose(0, 1).reshape(n, steps * b).mul_(width).add_(low)
+        fields = draw_fields(Fields(u), strength, steps * b, h, w)
+        rows = shard_rows(b, shard)
+        return pack_rows([f.reshape(steps, b, *f.shape[1:])[:, rows]
+                          for f in fields])
+
+
+def draw_batch(gen: torch.Generator, strength: str, b: int, h: int, w: int,
+               shard: Shard = WHOLE) -> torch.Tensor:
+    """One step's draws packed into one flat int32 tensor: `draw_chunk`
+    of one step."""
+    return draw_chunk(gen, strength, 1, b, h, w, shard)[0]
 
 
 def batch_draws(buf: torch.Tensor, strength: str, b: int) -> Draws:

@@ -10,15 +10,16 @@ step an NNUE's FT and classifier weights are clipped to [-1, 1] (an
 EtinyNet's are not, as in JAX).
 
 `scanned_train_steps` is JAX's K optimizer steps in one device dispatch
-(its jitted `lax.scan`): all K steps' host draws are made first, in the
-order K `gathered_train_step` calls make them, and packed with the batch
-indices and each step's optimizer scalars (`Optimizer.step_scalars`) into
-one (K, S) int32 buffer, uploaded once; then per step: gather the rows,
-apply the tier (`data/augment.py` `apply_draws`: K4 and K5 on the medium
-and heavy tiers), normalize, train. `scanned_train_steps_fused` is the
-fused light-tier chunk: per step one K3 launch (`fused_light_pipeline`)
-and one train step. Both return the steps' metrics as (K,) tensors, so
-a chunk syncs with the host once.
+(its jitted `lax.scan`): all K steps' host draws are made first, from one
+host generator call (`draw_chunk`), equal to what K `gathered_train_step`
+calls draw, and packed with the batch indices and each step's optimizer
+scalars (`Optimizer.step_scalars`) into one (K, S) int32 buffer by
+whole-chunk concatenation (`pack_rows`), uploaded once; then per step:
+gather the rows, apply the tier (`data/augment.py` `apply_draws`: K4 and
+K5 on the medium and heavy tiers), normalize, train.
+`scanned_train_steps_fused` is the fused light-tier chunk: per step one K3
+launch (`fused_light_pipeline`) and one train step. Both return the steps'
+metrics as (K,) tensors, so a chunk syncs with the host once.
 
 On a card a chunk is a CUDA graph (`ChunkGraph`, held by the TrainState):
 the first full chunk of a signature (the model, its config and buffers,
@@ -66,11 +67,11 @@ from nnue_vision_tpu_torch.data.augment import (
     DRAWS,
     apply_draws,
     batch_draws,
-    draw_batch,
+    draw_chunk,
     draw_specs,
     field_views,
     normalize_images,
-    pack_fields,
+    pack_rows,
     packed_size,
     preprocess_batch,
     shard_rows,
@@ -454,10 +455,11 @@ def scanned_train_steps(state: TrainState, device_images: torch.Tensor,
     """K = len(idx_chunk) `gathered_train_step`s in one dispatch (JAX's
     `scanned_train_steps`): `idx_chunk` (K, B) the batches' indices (under
     a mesh the global batches, of which this rank trains its rows). Every
-    host draw of the K steps is made first, in the order K
-    `gathered_train_step` calls make them, so the generators end where
-    theirs do and the result is theirs bit for bit. The medium and heavy
-    tiers need `noise_gen`. Returns {"loss", "accuracy"} as (K,) tensors."""
+    host draw of the K steps is made first, in one generator call
+    (`draw_chunk`) equal to what K `gathered_train_step` calls draw, so the
+    generators end where theirs do and the result is theirs bit for bit.
+    The medium and heavy tiers need `noise_gen`. Returns {"loss",
+    "accuracy"} as (K,) tensors."""
     idx_chunk = np.asarray(idx_chunk)
     steps, batch = idx_chunk.shape
     _check_indices(idx_chunk, device_labels.shape[0])
@@ -470,14 +472,13 @@ def scanned_train_steps(state: TrainState, device_images: torch.Tensor,
     h, w = device_images.shape[1], device_images.shape[2]
     with span("chunk.draws") as sp:
         calls = DRAWS["host_draw_calls"]
-        draws = [draw_batch(gen, strength, batch, h, w, shard) if augment
-                 else torch.zeros(0, dtype=_I32) for _ in range(steps)]
+        draws = (draw_chunk(gen, strength, steps, batch, h, w, shard)
+                 if augment else torch.zeros((steps, 0), dtype=_I32))
         sp.count(draw_calls=DRAWS["host_draw_calls"] - calls)
     with span("chunk.pack"):
         scalars = optimizer.step_scalars(state.opt_state["count"], steps)
-        rows = torch.stack([pack_fields([
-            torch.from_numpy(idx_chunk[k]).to(_I32), draws[k],
-            torch.from_numpy(scalars[k])]) for k in range(steps)])
+        rows = pack_rows([torch.from_numpy(idx_chunk).to(_I32), draws,
+                          torch.from_numpy(scalars)])
     n_draws = packed_size(draw_specs(strength, b)) if augment else 0
     specs = [((b,), _I32), ((n_draws,), _I32), ((SCALARS,), _F32)]
 
@@ -537,10 +538,9 @@ def scanned_train_steps_fused(state: TrainState, gather_dataset: torch.Tensor,
         params = LightParams(*(t[:, cols].contiguous() for t in params))
         b = idx_chunk.shape[1]
         scalars = optimizer.step_scalars(state.opt_state["count"], steps)
-        rows = torch.stack([pack_fields([
-            torch.from_numpy(idx_eff[k]).to(_I32),
-            torch.from_numpy(idx_chunk[k]).to(_I32), params.pf[k],
-            params.pi[k], torch.from_numpy(scalars[k])]) for k in range(steps)])
+        rows = pack_rows([torch.from_numpy(idx_eff).to(_I32),
+                          torch.from_numpy(idx_chunk).to(_I32), params.pf,
+                          params.pi, torch.from_numpy(scalars)])
     specs = [((b,), _I32), ((b,), _I32), ((b, 2), _F32), ((b, 4), _I32),
              ((SCALARS,), _F32)]
 

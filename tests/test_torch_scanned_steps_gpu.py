@@ -217,8 +217,8 @@ def test_new_config_or_optimizer_state_captures_anew(cuda):
 
 def test_replay_spans_leave_the_device_events_alone(cuda):
     """A replayed chunk under the profiler with CUDA activity records its
-    spans (`chunk`, its draws, pack, load and replay; the heavy tier's 70
-    host calls a step) and no device event carries a span's name."""
+    spans (`chunk`, its draws, pack, load and replay; the heavy tier's one
+    host generator call a chunk) and no device event carries a span's name."""
     from torch.profiler import ProfilerActivity, profile
 
     images, labels, rng, opt, state, gen, noise = _heavy_setup(cuda)
@@ -233,7 +233,7 @@ def test_replay_spans_leave_the_device_events_alone(cuda):
     spans = {s.name: s for s in tracing.spans()}
     assert set(spans) == {"chunk", "chunk.draws", "chunk.pack", "chunk.load",
                           "chunk.replay"}
-    assert spans["chunk.draws"].counts == {"draw_calls": 70 * K}
+    assert spans["chunk.draws"].counts == {"draw_calls": 1}
     device = [e.name() for e in prof.profiler.kineto_results.events()
               if e.device_type() == torch.autograd.DeviceType.CUDA]
     assert device and not set(device) & set(spans)

@@ -1,8 +1,9 @@
 """The port's spans and counters (`nnue_vision_tpu_torch/tracing.py`) on the
 CPU: nothing recorded with no profiler active; a train chunk's spans with
 their parents and counts under `torch.profiler`; the spans and the
-profiler's own events on one clock; the host draw calls of each tier; the
-chunk, its draws and its pack split, still equal to K
+profiler's own events on one clock; the host draw calls of each tier (one
+a step or a chunk, the fused chunk's eight); the chunk, its draws and its
+pack split, still equal to K
 `gathered_train_step` calls bit for bit; the serving entries' spans; the
 registry behind the kernel modules' `LAUNCHES`; and the training loop's
 `profile_dir` trace carrying the spans on its time base.
@@ -60,8 +61,9 @@ K, B, N, H = 4, 8, 64, 16
 OPT = dict(learning_rate=0.05, weight_decay=1e-4, momentum=0.9,
            optimizer_type="sgd", max_grad_norm=1.0, use_cosine_scheduler=False,
            max_epochs=1, decay_lr=False, use_cyclical_lr=False)
-# host generator calls a step of each tier (the fused light chunk: a chunk)
-CALLS = {"none": 0, "light": 8, "medium": 39, "heavy": 70}
+# host generator calls of one step's or one chunk's draws, by tier
+CALLS = {"none": 0, "light": 1, "medium": 1, "heavy": 1}
+FUSED_CALLS = 8  # the fused light chunk's `draw_light_params`, a chunk
 CHUNK = ("chunk.draws", "chunk.pack", "chunk.load", "chunk.eager")
 
 
@@ -137,7 +139,7 @@ def test_the_buffer_is_bounded_and_counts_what_it_drops(monkeypatch):
 def test_chunk_spans_nest_with_their_counts(tier):
     """`chunk` holds its draws, pack, load and eager body (the CPU runs the
     body eagerly), each a child of it and inside it; `draw_calls` is the
-    tier's host calls for the K steps."""
+    tier's host calls for the K steps: one."""
     state, opt = _etiny_state()
     images, labels, idx = _data()
     gen = torch.Generator().manual_seed(1)
@@ -155,7 +157,7 @@ def test_chunk_spans_nest_with_their_counts(tier):
         assert chunk.start_ns <= s.start_ns <= s.end_ns <= chunk.end_ns
     order = [spans[n][0] for n in CHUNK]
     assert all(a.end_ns <= b.start_ns for a, b in zip(order, order[1:]))
-    assert spans["chunk.draws"][0].counts == {"draw_calls": K * CALLS[tier]}
+    assert spans["chunk.draws"][0].counts == {"draw_calls": CALLS[tier]}
 
 
 def test_fused_chunk_draws_once_a_chunk():
@@ -172,13 +174,14 @@ def test_fused_chunk_draws_once_a_chunk():
     spans = _by_name(tracing.spans())
     assert set(spans) == {"chunk", *CHUNK}
     assert spans["chunk"][0].counts == {"steps": K}
-    assert spans["chunk.draws"][0].counts == {"draw_calls": CALLS["light"]}
+    assert spans["chunk.draws"][0].counts == {"draw_calls": FUSED_CALLS}
 
 
 def test_spans_and_profiler_events_share_a_clock():
-    """Every `aten::rand` the profiler saw (the light tier's draws, one a
-    host generator call) lies inside the `chunk.draws` span on the span's
-    clock, and no other operation of the chunk does."""
+    """The `aten::rand` the profiler saw (the light tier's draws, one host
+    generator call a chunk) lies inside the `chunk.draws` span on the
+    span's clock, outside the pack, and the pack's concatenation of the
+    rows inside the `chunk.pack` span."""
     state, opt = _etiny_state()
     images, labels, idx = _data()
     with _cpu_profile() as prof:
@@ -189,13 +192,12 @@ def test_spans_and_profiler_events_share_a_clock():
     events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
               for e in prof.profiler.kineto_results.events()]
     rand = [e for e in events if e[0] == "aten::rand"]
-    assert len(rand) == K * CALLS["light"]
+    assert len(rand) == CALLS["light"]
     for _, a, b in rand:
         assert draws.start_ns <= a <= b <= draws.end_ns
-    stacks = [e for e in events if e[0] == "aten::stack"]
-    assert stacks and any(pack.start_ns <= a <= b <= pack.end_ns
-                          for _, a, b in stacks)
-    assert not any(draws.start_ns <= a <= draws.end_ns for _, a, _ in stacks)
+        assert not pack.start_ns <= a <= pack.end_ns
+    cats = [e for e in events if e[0] == "aten::cat"]
+    assert any(pack.start_ns <= a <= b <= pack.end_ns for _, a, b in cats)
 
 
 @pytest.mark.parametrize("tier", ["light", "medium", "heavy"])
@@ -210,9 +212,9 @@ def test_host_draw_calls_of_a_fused_chunk_and_not_the_noise_seed():
     gen = torch.Generator().manual_seed(0)
     before = DRAWS["host_draw_calls"]
     draw_light_params(gen, 39, 512, 32, 32)
-    assert DRAWS["host_draw_calls"] - before == CALLS["light"]
+    assert DRAWS["host_draw_calls"] - before == FUSED_CALLS
     device_generator(gen, "cpu")
-    assert DRAWS["host_draw_calls"] - before == CALLS["light"]
+    assert DRAWS["host_draw_calls"] - before == FUSED_CALLS
 
 
 @pytest.mark.parametrize("tier", list(CALLS))
