@@ -168,8 +168,10 @@ Phases, one line each (any failure raises and exits non-zero):
              F1 beats 0 (a model at chance after 10 steps need not); the
              epoch's model → etinynet_quantize → write_etiny → read_etiny: on
              64 val images the sim's logits equal the C++ engine's as it
-             prints them; ms per step, images/s and peak device memory
-29. launches K5's band path on the 224 run
+             prints them, and so do K6's through etiny_forward_kernel (14
+             launches, 9 of them on row bands; torch.equal to the sim); ms
+             per step, images/s and peak device memory
+29. launches K5's band path on the 224 run, and K6's on the served .etiny
 30. dp-init  NCCL at world size 1 in this process; two gloo ranks spawned
              on the one card (NCCL refuses two ranks on one card; gloo takes
              CUDA tensors for all_reduce and broadcast), which run 30-33;
@@ -903,7 +905,7 @@ def augment(errs: Errors, images: torch.Tensor, gen: torch.Generator) -> None:
     check(torch.equal(got, torch.zeros_like(got)), "out-of-frame warp not zero")
     rot_only = maps(*rot)
     k = torch.randint(0, 4, (1,), generator=gen).item()
-    rot1 = maps(aug._ROT90[k].expand(b, 2, 2), zero)
+    rot1 = maps(aug._ROT90[:, k].reshape(2, 2).expand(b, 2, 2), zero)
     check(torch.equal(wk.warp_bilinear(images, rot1),
                       torch.rot90(images, k, (1, 2))),
           "rot90 warp differs from torch.rot90")
@@ -952,6 +954,18 @@ def k6_blocks(kp, ecfg, x: torch.Tensor) -> list:
     for blk, bs in zip(kp["blocks"], ecfg.blocks):
         inputs.append(ek.lb_block(inputs[-1], blk, bs))
     return list(zip(inputs, kp["blocks"], ecfg.blocks))
+
+
+def etiny_launch_shapes(kp: dict, ecfg, side: int) -> list:
+    """(h, w, cin, mid, cout, stride) of each K6 launch of a square input
+    of `side`."""
+    h = (side - 1) // 2 + 1
+    out = []
+    for blk, bs in zip(kp["blocks"], ecfg.blocks):
+        mid, cout = blk["dw"].shape[0], blk["pw_project_w"].shape[0]
+        out.append((h, h, blk["pw_expand_w"].shape[1], mid, cout, bs.stride))
+        h = (h - 1) // bs.stride + 1
+    return out
 
 
 def k6_graph_ms(blocks: list, smi: str, tag: str) -> float:
@@ -1435,6 +1449,23 @@ def imagenet_phases(errs: Errors, smi: str) -> dict:
     np.testing.assert_array_equal(
         eng, as_engine_prints(sim_logits),
         err_msg="224: the engine's logits differ from the sim's as printed")
+    # the same .etiny served through K6: 14 launches, the blocks past shared
+    # memory (112, 56 and 28 on a side) on row bands
+    ikp = ek.etiny_kernel_params(isim, icfg)
+    bands = sum(bool(ek.band_plan(*shape)) for shape in etiny_launch_shapes(ikp, icfg, 224))
+    before = dict(ek.LAUNCHES)
+    k6_logits = ek.etiny_forward_kernel(ikp, xs, cfg=icfg, image_h=224, image_w=224)
+    torch.cuda.synchronize()
+    k6_launches = ek.LAUNCHES["etiny_block_kernel"] - before["etiny_block_kernel"]
+    k6_bands = ek.LAUNCHES["band_launches"] - before["band_launches"]
+    errs.equal("etiny_block_kernel", "224 K6 vs sim", k6_logits,
+               torch.from_numpy(sim_logits).cuda())
+    np.testing.assert_array_equal(
+        eng, as_engine_prints(k6_logits.cpu().numpy()),
+        err_msg="224: the engine's logits differ from K6's as printed")
+    check(k6_launches == len(icfg.blocks) == 14 and k6_bands == bands == 9,
+          f"224 K6: {k6_launches} launches, {k6_bands} on bands (the plan: {bands}) "
+          f"for {len(icfg.blocks)} blocks")
     say("imagenet", f"{IMAGENET_CONFIG} (EtinyNet-1.0, {count_parameters(model):,} "
         f"params, 1000 classes, 224x224, float32, medium tier) on "
         f"{IMAGENET_TRAIN_SIZE} synthetic images, 1 epoch of {steps} steps at batch "
@@ -1447,7 +1478,9 @@ def imagenet_phases(errs: Errors, smi: str) -> dict:
         + f"; the epoch's model via a {isize}-byte .etiny: on "
         f"{IMAGENET_ENGINE_IMAGES} val images the engine's logits equal the "
         f"sim's as printed (%.10f; raw max "
-        f"{float(np.abs(eng.astype(np.float64) - sim_logits).max()):.3g}), "
+        f"{float(np.abs(eng.astype(np.float64) - sim_logits).max()):.3g}), and "
+        f"K6's ({k6_launches} launches, {k6_bands} on row bands) equal the sim's "
+        "(torch.equal) and the engine's as printed, "
         f"{eng_s / len(labels) * 1e3:.2f} ms per image (engine, host CPU); "
         f"peak device memory of the run {run_peak / 1e9:.2f} GB (over the "
         f"{base / 1e9:.2f} GB the earlier phases hold) on {smi}")
@@ -1483,10 +1516,11 @@ def imagenet_phases(errs: Errors, smi: str) -> dict:
             f"{base / 1e9:.2f} GB held; on {smi}")
 
     # 29. launches
-    band = {K5_BAND: launches[K5_BAND], "warp_kernel": launches["warp_kernel"]}
+    band = {K5_BAND: launches[K5_BAND], "warp_kernel": launches["warp_kernel"],
+            "etiny_block_kernel": k6_launches, "band_launches": k6_bands}
     say("launches", "ImageNet-224 " + json.dumps(band))
-    return dict(launches=launches[K5_BAND], ms=(k, p), bound=k5_bound,
-                extra=graph_host)
+    return dict(launches=launches[K5_BAND], k6_launches=k6_launches, ms=(k, p),
+                bound=k5_bound, extra=graph_host)
 
 
 # ---------------------------------------------------------------------------
@@ -2843,7 +2877,7 @@ def main() -> int:
         + " | ".join(ptxas))
     sass = sass_counts(built.path)
     say("build", "SASS (IMMA, LDGSTS, UBLKCP) per kernel: " + json.dumps(sass))
-    for name in ("etiny_block_kernel", "nnue_mega_kernel<4,2,2>",
+    for name in ("etiny_block_kernel<0>", "etiny_block_kernel<1>", "nnue_mega_kernel<4,2,2>",
                  "nnue_mega_kernel<4,1,1>", "nnue_head_kernel<2,2>"):
         check(name in sass and sass[name]["IMMA"] > 0 and sass[name]["LDGSTS"] > 0,
               f"{name}: no int8 tensor-core or cp.async instruction in its SASS")
@@ -3577,6 +3611,7 @@ def main() -> int:
         launches[name] += count
     band = imagenet_phases(errs, smi)
     launches[K5_BAND] = band["launches"]
+    launches["etiny_block_kernel"] += band["k6_launches"]
     ms[K5_BAND], bounds[K5_BAND], extra[K5_BAND] = band["ms"], band["bound"], band["extra"]
     library[K5_BAND] = None  # no single call runs the gated photometric chain
     dp = dp_phases(errs, smi, model, qe)

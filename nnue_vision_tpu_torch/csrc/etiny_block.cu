@@ -41,6 +41,21 @@
 // depthwise output share one region (the input is dead after step 2), as
 // do the expanded activations and the output tile.
 //
+// Row bands with a halo (etiny_block_kernel<true>). Where one image's
+// tile does not fit in shared memory (EtinyNet-1.0 at 224x224: the first
+// block's 112x112x32 input and expansion, the 56x56 and 28x28 blocks), a
+// block of threads takes one band of R output rows of one image. It reads
+// the input rows the band's depthwise needs, (R-1)*stride + 3 of them
+// clipped at the image's edges (zero padding outside, as on the tile
+// path), recomputes pw-expand on those halo rows, and writes only its own
+// R output rows; the image's last band may be shorter. Steps 1-4 are the
+// tile path's on a tile of one image cut to those rows, so the band path
+// is exact in the same way. The caller (ops/etiny_kernels.py band_plan)
+// picks R, the most rows that fit with 2 weight-ring slots, and passes it
+// as `band`; 0 keeps the tile path, whose grid, tile, ring slots and
+// shared memory do not depend on the band path. Any block side and stride
+// works on both paths: the output side is (side - 1) / stride + 1.
+//
 // What bounds it now (PERF.md, PR 5): the blocks at 16x16 and 8x8 with 28
 // channels, half of the 12 blocks' time at batch 8192, where the
 // CUDA-core work per row (epilogues, depthwise) and each tile's latencies
@@ -76,6 +91,8 @@ struct BlockArgs {
   const int8_t* dw;       // (mid, 3, 3)
   const uint8_t* wp;      // pw-project (cout, mid) as mma tiles
   int8_t* out;            // (batch, oh, ow, cout)
+  int band, band_in;      // band path: output rows a band, its most input rows
+  int bands;              // band path: bands per image
 };
 
 __host__ __device__ inline int align128(int n) { return round_up(n, 128); }
@@ -101,10 +118,24 @@ struct Smem {
 
 __device__ inline int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
 
+// The input rows a band of output rows [oy0, oy0 + rows) reads, clipped to
+// the image: the first, and one past the last.
+__host__ __device__ inline int band_first_in(int oy0, int stride) {
+  return oy0 * stride > 0 ? oy0 * stride - 1 : 0;
+}
+__host__ __device__ inline int band_end_in(int oy0, int rows, int stride, int h) {
+  const int end = (oy0 + rows - 1) * stride + 2;
+  return end < h ? end : h;
+}
+
+// kBand: one band of a.band output rows of one image a block of threads;
+// else a tile of a.tile whole images.
+template <bool kBand>
 __global__ void __launch_bounds__(kThreads)
 etiny_block_kernel(BlockArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem sm(a.tile, a.h, a.w, a.cin, a.mid, a.cout, a.oh, a.ow, a.slots);
+  const Smem sm(kBand ? 1 : a.tile, kBand ? a.band_in : a.h, a.w, a.cin, a.mid, a.cout,
+                kBand ? a.band : a.oh, a.ow, a.slots);
   int8_t* xs = reinterpret_cast<int8_t*>(smem);    // (rows, a_stride(cin))
   int8_t* h2 = xs;                                 // (orows, a_stride(mid))
   int8_t* h1 = xs + sm.x_and_h2;                   // (rows, mid)
@@ -113,9 +144,15 @@ etiny_block_kernel(BlockArgs a) {
   int8_t* s_dw = reinterpret_cast<int8_t*>(s_be) + align128(4 * a.mid);  // (mid, 9)
   unsigned char* ring = smem + sm.x_and_h2 + sm.h1 + sm.consts;
 
-  const int hw = a.h * a.w, ohw = a.oh * a.ow;
-  const int img0 = blockIdx.x * a.tile;
-  const int n_img = min(a.tile, a.batch - img0);
+  // This block's images, and per image its input rows [iy0, iy0 + in_rows)
+  // and output rows [oy0, oy0 + o_rows): the whole image on the tile path.
+  const int img0 = kBand ? blockIdx.x / a.bands : blockIdx.x * a.tile;
+  const int n_img = kBand ? 1 : min(a.tile, a.batch - img0);
+  const int oy0 = kBand ? (blockIdx.x - img0 * a.bands) * a.band : 0;
+  const int o_rows = kBand ? min(a.band, a.oh - oy0) : a.oh;
+  const int iy0 = kBand ? band_first_in(oy0, a.stride) : 0;
+  const int in_rows = kBand ? band_end_in(oy0, o_rows, a.stride, a.h) - iy0 : a.h;
+  const int hw = in_rows * a.w, ohw = o_rows * a.ow;
   const int rows = n_img * hw, orows = n_img * ohw;
   const int ldx = a_stride(a.cin), ldh = a_stride(a.mid);
   const int cin_steps = k_stages(a.cin);  // K stages of pw-expand
@@ -128,7 +165,8 @@ etiny_block_kernel(BlockArgs a) {
   auto load_x = [&] {
     for (int m = threadIdx.x; m < a.mid; m += blockDim.x) s_be[m] = __ldg(a.be + m);
     for (int e = threadIdx.x; e < a.mid * 9; e += blockDim.x) s_dw[e] = a.dw[e];
-    const int8_t* xg = a.x + static_cast<size_t>(img0) * hw * a.cin;
+    const int8_t* xg = a.x + (kBand ? (static_cast<size_t>(img0) * a.h + iy0) * a.w
+                                    : static_cast<size_t>(img0) * hw) * a.cin;
     if ((a.cin & 3) == 0) {
       const int words = a.cin >> 2;
       const int* __restrict__ xw = reinterpret_cast<const int*>(xg);
@@ -158,8 +196,9 @@ etiny_block_kernel(BlockArgs a) {
       });
 
   // 3. depthwise 3x3, zero padding, at the block's stride; /s_dw, ReLU6.
-  // (The regions do not overlap: said so, the compiler may batch one
-  // value's reads ahead of the last value's store.)
+  // Rows are the image's; h1 holds rows iy0.. of each image. (The regions
+  // do not overlap: said so, the compiler may batch one value's reads
+  // ahead of the last value's store.)
   {
   const int8_t* __restrict__ hsrc = h1;
   const int8_t* __restrict__ wsrc = s_dw;
@@ -173,12 +212,12 @@ etiny_block_kernel(BlockArgs a) {
     const int8_t* wd = wsrc + m * 9;
     int acc = 0;
     for (int ky = 0; ky < 3; ++ky) {
-      const int iy = oy * a.stride + ky - 1;
+      const int iy = (oy0 + oy) * a.stride + ky - 1;
       if (iy < 0 || iy >= a.h) continue;
       for (int kx = 0; kx < 3; ++kx) {
         const int ix = ox * a.stride + kx - 1;
         if (ix < 0 || ix >= a.w) continue;
-        acc += static_cast<int>(hin[(iy * a.w + ix) * a.mid]) *
+        acc += static_cast<int>(hin[((iy - iy0) * a.w + ix) * a.mid]) *
                static_cast<int>(wd[ky * 3 + kx]);
       }
     }
@@ -189,7 +228,8 @@ etiny_block_kernel(BlockArgs a) {
 
   // 4. pw-project, /s_project, clamp +-127 into the output tile, which then
   // goes to device memory in 16-byte stores where the addresses allow.
-  int8_t* og = a.out + static_cast<size_t>(img0) * ohw * a.cout;
+  int8_t* og = a.out + (kBand ? (static_cast<size_t>(img0) * a.oh + oy0) * a.ow
+                               : static_cast<size_t>(img0) * ohw) * a.cout;
   stream_gemm<2, 2>(
       h2, ldh, (orows + kSuperRows - 1) / kSuperRows, a.wp, Chunks{0, 1, (a.cout + kCols - 1) / kCols},
       a.mid, a.cout, mid_steps, 0, ring, a.slots, blockIdx.x, [] {},
@@ -221,6 +261,17 @@ int ring_slots_fit(int tile, int h, int w, int cin, int mid, int cout, int oh, i
   int slots = kMaxSlots;
   while (slots > 2 && Smem(tile, h, w, cin, mid, cout, oh, ow, slots).total > kMaxSmem) --slots;
   return slots;
+}
+
+// Lets etiny_block_kernel<kBand> take kMaxSmem bytes, once per process.
+template <bool kBand>
+cudaError_t allow_max_smem() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      etiny_block_kernel<kBand>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  done = err == cudaSuccess;
+  return err;
 }
 
 int sm_count() {
@@ -256,29 +307,48 @@ int etiny_block_tile(int batch, int h, int w, int cin, int mid, int cout, int oh
   return tile;
 }
 
+// `band` output rows a block of threads (the band path), or 0 for tiles
+// of whole images; the band must fit with 2 ring slots.
 int etiny_block_launch(
     const void* x, int batch, int h, int w, int cin, int mid, int cout,
-    int stride, int oh, int ow, int s_expand, int s_dw, int s_project,
+    int stride, int oh, int ow, int s_expand, int s_dw, int s_project, int band,
     const void* we, const void* be, const void* dw, const void* wp, void* out,
     void* stream) {
   const int k_expand = log2_exact(s_expand), k_dw = log2_exact(s_dw),
             k_project = log2_exact(s_project);
   if (batch <= 0 || h <= 0 || w <= 0 || cin <= 0 || mid <= 0 || cout <= 0 ||
-      stride <= 0 || k_expand < 0 || k_dw < 0 || k_project < 0)
+      stride <= 0 || k_expand < 0 || k_dw < 0 || k_project < 0 || band < 0 || band > oh ||
+      oh != (h - 1) / stride + 1 || ow != (w - 1) / stride + 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tile = etiny_block_tile(batch, h, w, cin, mid, cout, oh, ow);
-  if (tile <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr = false;
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        etiny_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr = true;
-  }
   BlockArgs a;
+  int blocks, smem;
+  if (band == 0) {
+    const int tile = etiny_block_tile(batch, h, w, cin, mid, cout, oh, ow);
+    if (tile <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    a.tile = tile;
+    a.slots = ring_slots_fit(tile, h, w, cin, mid, cout, oh, ow);
+    a.band = a.band_in = a.bands = 0;
+    smem = Smem(tile, h, w, cin, mid, cout, oh, ow, a.slots).total;
+    blocks = (batch + tile - 1) / tile;
+  } else {
+    // the most input rows a band reads: an interior band's
+    const int in_max = (band - 1) * stride + 3 < h ? (band - 1) * stride + 3 : h;
+    if (etiny_block_smem(1, in_max, w, cin, mid, cout, band, ow) > kMaxSmem)
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.tile = 1;
+    a.slots = ring_slots_fit(1, in_max, w, cin, mid, cout, band, ow);
+    a.band = band;
+    a.band_in = in_max;
+    a.bands = (oh + band - 1) / band;
+    if (static_cast<long long>(batch) * a.bands > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    smem = Smem(1, in_max, w, cin, mid, cout, band, ow, a.slots).total;
+    blocks = batch * a.bands;
+  }
+  const cudaError_t err = band ? allow_max_smem<true>() : allow_max_smem<false>();
+  if (err != cudaSuccess) return static_cast<int>(err);
   a.x = static_cast<const int8_t*>(x);
-  a.batch = batch; a.tile = tile;
-  a.slots = ring_slots_fit(tile, h, w, cin, mid, cout, oh, ow);
+  a.batch = batch;
   a.h = h; a.w = w; a.cin = cin; a.mid = mid; a.cout = cout;
   a.stride = stride; a.oh = oh; a.ow = ow;
   a.k_expand = k_expand; a.k_dw = k_dw; a.k_project = k_project;
@@ -287,9 +357,11 @@ int etiny_block_launch(
   a.dw = static_cast<const int8_t*>(dw);
   a.wp = static_cast<const uint8_t*>(wp);
   a.out = static_cast<int8_t*>(out);
-  const int smem = Smem(tile, h, w, cin, mid, cout, oh, ow, a.slots).total;
-  const int blocks = (batch + tile - 1) / tile;
-  etiny_block_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (band)
+    etiny_block_kernel<true><<<blocks, kThreads, smem, s>>>(a);
+  else
+    etiny_block_kernel<false><<<blocks, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

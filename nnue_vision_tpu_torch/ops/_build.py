@@ -61,7 +61,7 @@ SIGNATURES = {
     "photometric_band_launch": ([_P], _I),
     "etiny_block_smem": ([_I] * 8, _I),
     "etiny_block_tile": ([_I] * 8, _I),
-    "etiny_block_launch": ([_P] + [_I] * 12 + [_P] * 6, _I),
+    "etiny_block_launch": ([_P] + [_I] * 13 + [_P] * 6, _I),
 }
 
 

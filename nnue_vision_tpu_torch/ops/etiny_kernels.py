@@ -11,9 +11,15 @@ for bit.
 
 As in the JAX package, a model with a stride-2 dense block (the engine's
 dim-preservation quirk, which the serializer never emits) is refused by
-`etiny_kernel_params`, and a block whose spatial dims are not powers of
-two by `etiny_forward_kernel`, both with ValueError: such models take the
-engine sim.
+`etiny_kernel_params` with ValueError: such a model takes the engine sim.
+
+A block takes any side and stride. Where one image's block fits in the
+kernel's shared memory, a block of threads takes a tile of whole images;
+where it does not (EtinyNet-1.0 at 224×224: the blocks at 112, 56 and
+28), it takes a band of output rows of one image with the input rows its
+depthwise needs, a halo of one row each side (`band_plan`, which the
+wrapper hands the launcher; `block_smem` is the kernel's shared-memory
+layout, so the plan is computed and tested without the card).
 
 `lb_block` dispatches on the device of its input: a CPU tensor takes the
 plain version (`lb_block_reference`, the sim's block), a CUDA tensor the
@@ -23,7 +29,8 @@ of the whole forward is the sim, `etiny_engine_forward`.
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -40,8 +47,15 @@ from nnue_vision_tpu_torch.ops.nnue_kernels import mma_tiles
 from nnue_vision_tpu_torch.tracing import span
 
 # Launches since the last reset_launch_counts(); the wrapper adds one where
-# it launches the kernel, and nowhere else.
-LAUNCHES = tracing.counters("etiny_kernels", "etiny_block_kernel")
+# it launches the kernel, and nowhere else; `band_launches` counts those of
+# them that took the band path.
+LAUNCHES = tracing.counters("etiny_kernels", "etiny_block_kernel", "band_launches")
+
+# csrc/etiny_block.cu's shared memory (kMaxSmem, its Smem regions) and
+# int8_mma.cuh's ring slots, in bytes
+MAX_SMEM = 232448
+_SUPER_ROWS = 64
+_SLOT_BYTES = 128 * (128 + 16)
 
 
 def reset_launch_counts() -> None:
@@ -49,8 +63,84 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _is_pow2(n: int) -> bool:
-    return n > 0 and (n & (n - 1)) == 0
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _a_region(rows: int, k: int) -> int:
+    return rows * (_round_up(k, 32) + 16) + 128
+
+
+def block_smem(tile: int, h: int, w: int, cin: int, mid: int, cout: int,
+               oh: int, ow: int, slots: int = 2) -> int:
+    """Shared memory of one block of threads of the kernel, in bytes: a
+    tile of `tile` images of h×w input and oh×ow output positions (a band:
+    one image of its input and output rows), with `slots` weight-ring slots
+    at most (`etiny_block_smem` of the library, which gives 2)."""
+    rows = _round_up(tile * h * w, _SUPER_ROWS)
+    orows = _round_up(tile * oh * ow, _SUPER_ROWS)
+    x_and_h2 = _round_up(max(_a_region(rows, cin), _a_region(orows, mid)), 128)
+    h1 = _round_up(max(rows * mid, orows * cout), 128)
+    consts = _round_up(4 * mid, 128) + _round_up(9 * mid, 128)
+    expand = min(-(-mid // 128) * (_round_up(cin, 128) // 128), slots)
+    project = min(-(-cout // 128) * (_round_up(mid, 128) // 128), slots)
+    return x_and_h2 + h1 + consts + max(expand, project) * _SLOT_BYTES
+
+
+def band_in_rows(rows: int, h: int, stride: int) -> int:
+    """The most input rows a band of `rows` output rows reads: an interior
+    band's (rows − 1)·stride + 3, at most the image's h."""
+    return min(h, (rows - 1) * stride + 3)
+
+
+@functools.lru_cache(maxsize=None)
+def band_plan(h: int, w: int, cin: int, mid: int, cout: int, stride: int
+              ) -> int:
+    """Output rows a band of one image for a block of this shape: 0 where
+    one image's tile fits in shared memory (the tile path), else the most
+    rows that fit with 2 weight-ring slots. Raises ValueError where one row
+    does not fit."""
+    oh, ow = conv_out_hw(h, w, stride)
+    if block_smem(1, h, w, cin, mid, cout, oh, ow) <= MAX_SMEM:
+        return 0
+    rows = 0
+    while rows < oh and block_smem(1, band_in_rows(rows + 1, h, stride), w, cin,
+                                   mid, cout, rows + 1, ow) <= MAX_SMEM:
+        rows += 1
+    if rows == 0:
+        raise ValueError(
+            f"one output row of a {h}x{w}x{cin}->{mid}->{cout} block needs "
+            f"{block_smem(1, band_in_rows(1, h, stride), w, cin, mid, cout, 1, ow)} "
+            f"bytes of shared memory; the card gives a block {MAX_SMEM}")
+    return rows
+
+
+def band_windows(h: int, stride: int, rows: int
+                 ) -> List[Tuple[int, int, int, int]]:
+    """(oy0, oy1, iy0, iy1) of each band of `rows` output rows of an image
+    of height h: the output rows it writes, [oy0, oy1), and the input rows
+    it reads, [iy0, iy1), one halo row each side clipped to the image
+    (csrc/etiny_block.cu band_first_in, band_end_in). The last band may be
+    shorter."""
+    oh = (h - 1) // stride + 1
+    out = []
+    for oy0 in range(0, oh, rows):
+        oy1 = min(oh, oy0 + rows)
+        out.append((oy0, oy1, max(0, oy0 * stride - 1),
+                    min(h, (oy1 - 1) * stride + 2)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def rows_read(h: int, w: int, cin: int, mid: int, cout: int, stride: int
+              ) -> int:
+    """Input rows the kernel's blocks of threads read for one image of a
+    block of this shape: h on the tile path, each band's rows with its halo
+    on the band path."""
+    rows = band_plan(h, w, cin, mid, cout, stride)
+    if rows == 0:
+        return h
+    return sum(iy1 - iy0 for _, _, iy0, iy1 in band_windows(h, stride, rows))
 
 
 def _tiles_shape(n: int, k: int) -> tuple:
@@ -115,23 +205,21 @@ def _launch(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg) -> torch.Tensor:
     out = torch.empty((b, oh, ow, cout), dtype=torch.int8, device=dev)
     if b == 0:
         return out
+    band = band_plan(h, w, cin, mid, cout, bs.stride)
     lib = load_library().lib
-    if lib.etiny_block_tile(b, h, w, cin, mid, cout, oh, ow) < 1:
-        smem = lib.etiny_block_smem(1, h, w, cin, mid, cout, oh, ow)
-        raise ValueError(f"block of {h}x{w}x{mid} needs {smem} bytes of "
-                         "shared memory for one image; the card gives a "
-                         "block 232448")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.etiny_block_launch(
             x.data_ptr(), b, h, w, cin, mid, cout, bs.stride, oh, ow,
-            bs.s_expand, bs.s_dw, bs.s_project, blk["we"].data_ptr(),
+            bs.s_expand, bs.s_dw, bs.s_project, band, blk["we"].data_ptr(),
             blk["be"].data_ptr(), blk["dw"].data_ptr(), blk["wp"].data_ptr(),
             out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("etiny_block_kernel launch failed: "
                            f"{lib.nnue_error_string(err).decode()}")
     LAUNCHES["etiny_block_kernel"] += 1
+    if band:
+        LAUNCHES["band_launches"] += 1
     return out
 
 
@@ -143,24 +231,37 @@ def lb_block(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg) -> torch.Tensor:
     return _launch(x.contiguous(), blk, bs)
 
 
+def _row_counts(kparams: Dict, cfg: EtinySimCfg, shape: tuple) -> Dict[str, int]:
+    """`rows`, the image rows of the blocks' inputs (Σ B·H), and `rows_read`,
+    the rows the kernel's blocks of threads read, for a stem output of
+    `shape` (B, H, W, C), from the band plan alone."""
+    b, h, w, cin = shape
+    rows = read = 0
+    for blk, bs in zip(kparams["blocks"], cfg.blocks):
+        mid, cout = blk["dw"].shape[0], blk["pw_project_w"].shape[0]
+        rows += b * h
+        read += b * rows_read(h, w, cin, mid, cout, bs.stride)
+        (h, w), cin = conv_out_hw(h, w, bs.stride), cout
+    return {"rows": rows, "rows_read": read}
+
+
 def etiny_forward_kernel(kparams: Dict, images: torch.Tensor, *,
                          cfg: EtinySimCfg, image_h: int, image_w: int
                          ) -> torch.Tensor:
     """Bit-exact EtinyNet int8 inference, one kernel launch per LB block:
     (B, H, W, 3) float32 normalized images → logits (B, classes) float32,
     `kparams` from `etiny_kernel_params`. Its plain version is the engine
-    sim, `etiny_engine_forward`."""
+    sim, `etiny_engine_forward`. The `serve.kernels` span counts `rows`,
+    the image rows of the blocks' inputs (Σ B·H), and `rows_read`, the rows
+    the kernel's blocks of threads read (a band's halo rows each time),
+    from the plan alone."""
     del image_h, image_w  # read from the images
     with span("serve.stem"):
         x = etiny_stem(kparams, images, cfg).to(torch.int8)
-    with span("serve.kernels"):
+    with span("serve.kernels") as sp:
+        if sp.recording:
+            sp.count(**_row_counts(kparams, cfg, tuple(x.shape)))
         for blk, bs in zip(kparams["blocks"], cfg.blocks):
-            h, w = x.shape[1], x.shape[2]
-            if not (_is_pow2(h) and _is_pow2(w)):
-                raise ValueError(
-                    f"block spatial dims {h}x{w} are not powers of two — "
-                    "use the XLA engine sim for this model"
-                )
             # a stride-1 dense block keeps its dims: the engine's quirk is the
             # identity (stride-2 dense blocks were refused at parameter build)
             x = lb_block(x, blk, bs)

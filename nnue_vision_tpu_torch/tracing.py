@@ -22,16 +22,21 @@ drops.
 
 The counters are one registry (`COUNTERS`): each module that counts asks
 `counters` for its group's dict and adds to it (the kernel modules'
-`LAUNCHES`, the draws' `host_draw_calls`). `GAUGES` holds values that are
-set, not added to: the newest chunk graph's nodes by phase (a copy of its
-`ChunkGraph.phase_nodes`, for a reader that holds no graph).
+`LAUNCHES`, among them `etiny_kernels`' `band_launches`, the K6 launches
+that took its row bands; the draws' `host_draw_calls`). `GAUGES` holds
+values that are set, not added to: the newest chunk graph's nodes by phase
+(a copy of its `ChunkGraph.phase_nodes`, for a reader that holds no
+graph).
 
 Spans (see `PERF.md` for the metric each feeds): `chunk` (a train chunk
 call; `steps`) with `chunk.draws` (`draw_calls`), `chunk.pack`,
 `chunk.load`, `chunk.capture`, `chunk.replay` and `chunk.eager`
 (`training/step.py`); `serve.kernels` (the int8 serving kernels' wrappers:
 `nnue_engine_forward_mega` in `ops/nnue_kernels.py`, `etiny_forward_kernel`
-in `ops/etiny_kernels.py`) and the EtinyNet's `serve.stem` and `serve.tail`.
+in `ops/etiny_kernels.py`, whose span counts `rows`, the image rows of its
+K6 launches' inputs, Σ B·H, and `rows_read`, the rows their blocks of
+threads read with a band's halo rows each time, both from the band plan on
+the host) and the EtinyNet's `serve.stem` and `serve.tail`.
 """
 
 from __future__ import annotations
@@ -92,6 +97,7 @@ _local = threading.local()
 class _Off:
     """The span of a call that found no profiler: records nothing."""
     __slots__ = ()
+    recording = False
 
     def __enter__(self):
         return self
@@ -109,6 +115,7 @@ _OFF = _Off()
 class _On:
     """A span being recorded."""
     __slots__ = ("name", "counts", "parent", "start_ns", "_stack")
+    recording = True
 
     def __init__(self, name: str, counts: Dict[str, float]):
         self.name, self.counts = name, counts
@@ -148,7 +155,9 @@ def _record(s: Span) -> None:
 def span(name: str, **counts):
     """A context manager that records the stretch it encloses as `name`,
     with `counts`, while a torch profiler is active (see the module's
-    docstring). `with span(...) as s: ... s.count(k=v)` sets a count inside."""
+    docstring). `with span(...) as s: ... s.count(k=v)` sets a count inside;
+    `s.recording` says whether the span records, so that a count that costs
+    host time is computed only then."""
     global _stale
     if not _profiler._is_profiler_enabled:
         _stale = True

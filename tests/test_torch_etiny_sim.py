@@ -147,8 +147,9 @@ def test_lb_block_plain_matches_lb_block_pallas():
 
 
 def test_kernel_path_refusals():
-    """As in JAX: a stride-2 dense block is refused at parameter build, a
-    block with non-power-of-two dims at the forward; the sim takes both."""
+    """As in JAX, a stride-2 dense block is refused at parameter build (the
+    sim takes it); blocks whose dims are not powers of two take the kernel
+    path and equal the sim."""
     rng = np.random.default_rng(13)
     q = _random_etiny(rng, dense_stride2=True)
     params, cfg = tsim.etiny_sim_params(q, device="cpu")
@@ -156,9 +157,10 @@ def test_kernel_path_refusals():
         ek.etiny_kernel_params(params, cfg)
     q = _random_etiny(rng)
     imgs = _images(rng, 2, h=24)  # blocks at 12x12, 6x6
-    with pytest.raises(ValueError, match="powers of two"):
-        _port_logits(q, imgs, ek.etiny_forward_kernel, kernel=True)
-    assert _port_logits(q, imgs).shape == (2, 10)
+    want = _port_logits(q, imgs)
+    assert want.shape == (2, 10)
+    np.testing.assert_array_equal(
+        _port_logits(q, imgs, ek.etiny_forward_kernel, kernel=True), want)
 
 
 def test_non_pow2_scale_refused():
