@@ -63,8 +63,8 @@ Phases, one line each (any failure raises and exits non-zero):
 13. etiny-serve  a 0.98M-width EtinyNet from a numpy seed (random weights and
              norm statistics) → etinynet_quantize → write_etiny → read_etiny,
              and a stress model at full int8 ranges; batches 1, 37, 1024 and
-             8192 through etiny_forward_kernel (K6, one launch per LB block),
-             each torch.equal to the engine sim
+             8192 through etiny_forward_kernel (the stem kernel, K6 one launch
+             per LB block, the tail kernel), each torch.equal to the engine sim
 14. augment  on synthetic-hard 32×32 images at batch 1024, 512 (a rank's
              shard in 32) and 37: K4 on drawn
              heavy-tier maps, rot90/flip-only maps and out-of-frame maps; K5,
@@ -75,12 +75,15 @@ Phases, one line each (any failure raises and exits non-zero):
              of 48 steps: K4 and K5 each launched 96 times, finite losses,
              best_model.ckpt written; on the checkpointed model K6's int8
              logits equal the sim's on the val split
-16. launches the three kernels launched on their paths (serving: 13,
-             training: 15)
+16. launches the kernels launched on their paths (serving: 13, the stem
+             and tail once a call; training: 15)
 17. timing   K4, K5 (each variant) and K6 (the whole int8 forward, and its 12
              LB blocks alone) vs plain at batch 1024 and 8192; K4 and K5 also
              graph-timed with their host cost per call (the host clock over
              many enqueues, no sync inside), the 12 blocks at 8192 graph-timed;
+             the stem and tail kernels at 8192×32×32 (0.98M) and at
+             1024×224×224 (EtinyNet-1.0, 1,000 classes), each torch.equal to
+             its plain version, event-, graph- and host-timed beside it;
              ms per EtinyNet train step at batch 1024 over 48 steps (host
              clock, one sync at the end)
 18. ef-etiny  train_model on config/train_etinynet_anchor_qat.py (0.75
@@ -418,6 +421,7 @@ from nnue_vision_tpu_torch.ops.engine_sim import (
     etiny_engine_forward,
     etiny_sim_params,
     etiny_stem,
+    etiny_tail,
     nnue_conv_buffer,
     nnue_engine_forward,
     nnue_sim_params,
@@ -484,6 +488,10 @@ EF_EPOCHS = 3  # the config's 60, cut
 EF_WARMUP = 1  # the config's 25, cut: epoch 0 warms up, epochs 1-2 quantized
 EF_K6 = "etiny_block_kernel (0.75 engine_friendly .etiny)"
 K5_BAND = "photometric_band_kernel"  # K5's band path, at 224×224
+# the stem and tail kernels timed on EtinyNet-1.0 at 224×224 (phase 17)
+STEM_224 = "etiny_stem_kernel (B=1024, 224x224)"
+TAIL_224 = "etiny_tail_kernel (B=1024, 224x224)"
+STEM_TAIL_224_BATCH = 1024
 K3_8192 = "light_pipeline_kernel (B=8192)"  # K3 timed at batch 8192
 GATES = {"medium": [0, 3, 7, 8, 10, 11, 15, 20, 22, 23],
          "heavy_extra": [0, 3, 7, 8, 10, 11]}
@@ -500,6 +508,10 @@ SOURCES = {
     EF_K6: "nnue_vision_tpu_torch/csrc/etiny_block.cu",
     K5_BAND: "nnue_vision_tpu_torch/csrc/photometric.cu",
     K3_8192: "nnue_vision_tpu_torch/csrc/light_pipeline.cu",
+    "etiny_stem_kernel": "nnue_vision_tpu_torch/csrc/etiny_stem.cu",
+    "etiny_tail_kernel": "nnue_vision_tpu_torch/csrc/etiny_stem.cu",
+    STEM_224: "nnue_vision_tpu_torch/csrc/etiny_stem.cu",
+    TAIL_224: "nnue_vision_tpu_torch/csrc/etiny_stem.cu",
 }
 REPLACES = {
     "nnue_mega_kernel": "nnue_vision_tpu/ops/pallas_kernels.py:161",
@@ -514,6 +526,12 @@ REPLACES = {
     EF_K6: "nnue_vision_tpu/ops/etiny_pallas.py:105",
     K5_BAND: "nnue_vision_tpu/ops/photometric_kernel.py:114",
     K3_8192: "nnue_vision_tpu/ops/input_pipeline.py:147",
+    # no TPU kernel: the JAX package runs the stem conv, the pool and the
+    # classifier in XLA (etiny_forward_pallas)
+    "etiny_stem_kernel": "none (XLA: nnue_vision_tpu/ops/etiny_pallas.py:301)",
+    "etiny_tail_kernel": "none (XLA: nnue_vision_tpu/ops/etiny_pallas.py:333)",
+    STEM_224: "none (XLA: nnue_vision_tpu/ops/etiny_pallas.py:301)",
+    TAIL_224: "none (XLA: nnue_vision_tpu/ops/etiny_pallas.py:333)",
 }
 BISECT_REPS = 100
 GRAPH_REPS = 50  # calls per CUDA graph in the graph-timed rows
@@ -821,11 +839,13 @@ def train_config():
     return cfg
 
 
-def etiny_model(rng: np.random.Generator) -> EtinyNet:
-    """A 0.98M-width EtinyNet with random weights in the JAX package's init
-    ranges and random norm affines and running statistics."""
-    model = EtinyNet(EtinyNetConfig(variant="0.98M", num_classes=10,
-                                    input_size=H), device="cpu")
+def etiny_model(rng: np.random.Generator, variant: str = "0.98M",
+                classes: int = 10, side: int = H) -> EtinyNet:
+    """An EtinyNet (0.98M-width, 10 classes, 32×32 unless told otherwise)
+    with random weights in the JAX package's init ranges and random norm
+    affines and running statistics."""
+    model = EtinyNet(EtinyNetConfig(variant=variant, num_classes=classes,
+                                    input_size=side), device="cpu")
     state = {}
     for name, t in model.state_dict().items():
         leaf = name.rsplit(".", 1)[-1]
@@ -1015,6 +1035,45 @@ def k6_bound(blocks: list) -> tuple:
         moved += b * oh * ow * cout
         ops += 2 * b * (h * w * mid * cin + oh * ow * mid * (9 + cout))
     return bound(moved, int_ops=ops)
+
+
+def stem_tail_timing(errs: Errors, smi: str, kp, ecfg, x: torch.Tensor,
+                     names: tuple, tables: tuple) -> None:
+    """Phase 17's rows of the stem and tail kernels on images x: the stem
+    held to the sim's stem, the tail to the sim's tail on K6's output of x
+    (torch.equal); each event-timed beside its plain version, graph-timed
+    with its host cost per call, and its bound (the images, the int8
+    activations and the weights moved once; two operations a
+    multiply-add)."""
+    stem_name, tail_name = names
+    ms, bounds, extra, library = tables
+    s = ek.etiny_stem_int8(kp, x, ecfg)
+    tag = f"B={x.shape[0]} {x.shape[1]}x{x.shape[2]}"
+    errs.equal(stem_name, f"{tag} etiny_stem_int8 vs plain", s,
+               etiny_stem(kp, x, ecfg).to(torch.int8))
+    a = s
+    for blk, bs in zip(kp["blocks"], ecfg.blocks):
+        a = ek.lb_block(a, blk, bs)
+    t = ek.etiny_tail_logits(kp, a, ecfg)
+    errs.equal(tail_name, f"{tag} etiny_tail_logits vs plain", t, etiny_tail(kp, a, ecfg))
+    rows = {stem_name: (lambda: ek.etiny_stem_int8(kp, x, ecfg),
+                        lambda: etiny_stem(kp, x, ecfg).to(torch.int8)),
+            tail_name: (lambda: ek.etiny_tail_logits(kp, a, ecfg),
+                        lambda: etiny_tail(kp, a, ecfg))}
+    b, oh, ow, c = s.shape
+    # the model's int8 weights (27 a channel) and int32 bias
+    bounds[stem_name] = bound(nbytes(x, s) + 31 * c, int_ops=2 * b * oh * ow * c * 27)
+    hw, k = a.shape[1] * a.shape[2], t.shape[1]
+    bounds[tail_name] = bound(nbytes(a, kp["cls_w"], kp["cls_b"], t),
+                              int_ops=2 * b * (hw * a.shape[3] + a.shape[3] * k))
+    for name, (kernel, plain) in rows.items():
+        ms[name] = time_pair(kernel, plain)
+        extra[name] = (chained_best_ms(kernel, GRAPH_REPS), host_ms(kernel))
+        library[name] = None  # no single call computes the exact integers
+        say("timing", f"{tag} {name}: event {ms[name][0]:.4f} ms, graph "
+            f"{extra[name][0]:.4f} ms ({GRAPH_REPS} calls per CUDA graph, best of "
+            f"3), host {extra[name][1]:.4f} ms per call, plain {ms[name][1]:.4f} "
+            f"ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) on {smi}")
 
 
 def reset_launches() -> None:
@@ -3185,6 +3244,9 @@ def main() -> int:
     check(serve_launches["etiny_block_kernel"]
           == 2 * len(ETINY_SERVE_BATCHES) * len(qe.blocks),
           f"K6 launches {serve_launches} are not one per LB block and call")
+    check(serve_launches["etiny_stem_kernel"] == serve_launches["etiny_tail_kernel"]
+          == 2 * len(ETINY_SERVE_BATCHES),
+          f"stem and tail launches {serve_launches} are not one per call")
 
     # 14. augment
     agen = torch.Generator().manual_seed(SEED)
@@ -3237,7 +3299,8 @@ def main() -> int:
     # 16. launches
     say("launches", "EtinyNet serving " + json.dumps(serve_launches)
         + "; EtinyNet training " + json.dumps(et["launches"]))
-    launches["etiny_block_kernel"] = serve_launches["etiny_block_kernel"]
+    for name in ("etiny_block_kernel", "etiny_stem_kernel", "etiny_tail_kernel"):
+        launches[name] = serve_launches[name]
     launches["warp_kernel"] = et["launches"]["warp_kernel"]
     launches["photometric_kernel"] = et["launches"]["photometric_kernel"]
 
@@ -3275,9 +3338,12 @@ def main() -> int:
         if batch == TIMING_BATCH:
             extra["etiny_block_kernel"] = (k6_graph_ms(blocks, smi, "0.98M"),
                                            k6_host_ms(blocks))
+            stem_tail_timing(errs, smi, kp, ecfg, x,
+                             ("etiny_stem_kernel", "etiny_tail_kernel"),
+                             (ms, bounds, extra, library))
         for name, (k, p) in rows.items():
-            what = ("the whole int8 forward (12 K6 launches + plain stem/tail) "
-                    "vs the sim" if name == "etiny_block_kernel" else name)
+            what = ("the whole int8 forward (the stem kernel, 12 K6 launches, the "
+                    "tail kernel) vs the sim" if name == "etiny_block_kernel" else name)
             say("timing", f"B={batch} {what}: kernel {k:.4f} ms "
                 f"({batch / k * 1e3:,.0f} img/s), plain {p:.4f} ms "
                 f"({batch / p * 1e3:,.0f} img/s) on {smi}")
@@ -3316,6 +3382,15 @@ def main() -> int:
             ms["etiny_block_kernel"] = rows["etiny_block_kernel, the LB blocks alone"]
             bounds["etiny_block_kernel"] = k6_bound(blocks)
             library["etiny_block_kernel"] = None  # expand, depthwise, project
+    # the stem and tail kernels on EtinyNet-1.0 at 224×224, 1,000 classes
+    qi = etinynet_quantize(etiny_model(np.random.default_rng(SEED), "1.0", 1000, 224))
+    isim, icfg = etiny_sim_params(qi, device="cuda")
+    xi = normalize_images(torch.rand(
+        (STEM_TAIL_224_BATCH, 224, 224, 3), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED))).contiguous()
+    stem_tail_timing(errs, smi, ek.etiny_kernel_params(isim, icfg), icfg, xi,
+                     (STEM_224, TAIL_224), (ms, bounds, extra, library))
+    del xi
     ecfg_t = et["cfg"]
     eopt = create_optimizer(ecfg_t, steps)
     estate = make_train_state(trained_e, eopt)
@@ -3633,6 +3708,8 @@ def main() -> int:
     # the 8192 entry is the same kernel timed at another batch: its
     # launches are the main path's
     launches[K3_8192] = launches["light_pipeline_kernel"]
+    launches[STEM_224] = launches["etiny_stem_kernel"]
+    launches[TAIL_224] = launches["etiny_tail_kernel"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -62,6 +62,8 @@ SIGNATURES = {
     "etiny_block_smem": ([_I] * 8, _I),
     "etiny_block_tile": ([_I] * 8, _I),
     "etiny_block_launch": ([_P] + [_I] * 13 + [_P] * 6, _I),
+    "etiny_stem_launch": ([_P] + [_I] * 6 + [_P] * 4, _I),
+    "etiny_tail_launch": ([_P] + [_I] * 5 + [_P, _P, _F, _P, _P], _I),
 }
 
 

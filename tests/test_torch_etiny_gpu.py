@@ -1,5 +1,6 @@
 """The EtinyNet LB-block Hopper kernel (K6) held bit-equal to the engine sim
-on a card, per block and for the whole int8 forward, on a quantized
+on a card, per block and for the whole int8 forward (with the stem and
+tail kernels, one launch each a call), on a quantized
 0.98M-width model, on a quantized 0.75-width engine_friendly model (LSQ
 folds) and on random int models at full int8 ranges; EtinyNet-1.0 at
 224×224 and at odd sides, whose large blocks take K6's row bands; the
@@ -85,6 +86,13 @@ def _quantized_model(cuda):
     return etinynet_quantize(model)
 
 
+def _one_stem_and_tail(before):
+    """The forward since the `before` counts launched the stem and the tail
+    kernel once each."""
+    for name in ("etiny_stem_kernel", "etiny_tail_kernel"):
+        assert ek.LAUNCHES[name] == before[name] + 1, name
+
+
 @pytest.mark.parametrize("batch", [1, 37, 1024])
 @pytest.mark.parametrize("which", ["quantized", "random"])
 def test_forward_equals_sim(cuda, which, batch):
@@ -93,9 +101,10 @@ def test_forward_equals_sim(cuda, which, batch):
     sim, cfg = etiny_sim_params(q, device=cuda)
     kp = ek.etiny_kernel_params(sim, cfg)
     x = normalize_images(torch.rand((batch, 32, 32, 3), device=cuda)).contiguous()
-    before = ek.LAUNCHES["etiny_block_kernel"]
+    before = dict(ek.LAUNCHES)
     got = ek.etiny_forward_kernel(kp, x, cfg=cfg, image_h=32, image_w=32)
-    assert ek.LAUNCHES["etiny_block_kernel"] == before + len(cfg.blocks)
+    assert ek.LAUNCHES["etiny_block_kernel"] == before["etiny_block_kernel"] + len(cfg.blocks)
+    _one_stem_and_tail(before)
     want = etiny_engine_forward(sim, x, cfg=cfg, image_h=32, image_w=32)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -129,9 +138,10 @@ def test_ef_forward_equals_sim(cuda, batch):
     sim, cfg = etiny_sim_params(q, device=cuda)
     kp = ek.etiny_kernel_params(sim, cfg)
     x = normalize_images(torch.rand((batch, 32, 32, 3), device=cuda)).contiguous()
-    before = ek.LAUNCHES["etiny_block_kernel"]
+    before = dict(ek.LAUNCHES)
     got = ek.etiny_forward_kernel(kp, x, cfg=cfg, image_h=32, image_w=32)
-    assert ek.LAUNCHES["etiny_block_kernel"] == before + 12
+    assert ek.LAUNCHES["etiny_block_kernel"] == before["etiny_block_kernel"] + 12
+    _one_stem_and_tail(before)
     want = etiny_engine_forward(sim, x, cfg=cfg, image_h=32, image_w=32)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -217,6 +227,7 @@ def test_etinynet_1_0_at_imagenet_size(cuda, batch, side):
     got = ek.etiny_forward_kernel(kp, x, cfg=cfg, image_h=side, image_w=side)
     assert ek.LAUNCHES["etiny_block_kernel"] == before["etiny_block_kernel"] + 14
     assert ek.LAUNCHES["band_launches"] == before["band_launches"] + 9
+    _one_stem_and_tail(before)
     want = etiny_engine_forward(sim, x, cfg=cfg, image_h=side, image_w=side)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
