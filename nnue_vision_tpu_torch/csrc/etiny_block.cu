@@ -64,13 +64,15 @@
 // name their regions __restrict__ (they never overlap), so that a value's
 // reads are not held behind the last value's store.
 //
-// C interface (ctypes): the launcher returns cudaGetLastError() after the
-// launch. The kernel launches on the caller's stream and allocates nothing.
+// C interface (ctypes): the launcher takes one packed argument
+// (launch_args.cuh) and returns cudaGetLastError() after the launch. The
+// kernel launches on the caller's stream and allocates nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "int8_mma.cuh"
+#include "launch_args.cuh"
 
 namespace {
 
@@ -307,13 +309,22 @@ int etiny_block_tile(int batch, int h, int w, int cin, int mid, int cout, int oh
   return tile;
 }
 
-// `band` output rows a block of threads (the band path), or 0 for tiles
-// of whole images; the band must fit with 2 ring slots.
-int etiny_block_launch(
-    const void* x, int batch, int h, int w, int cin, int mid, int cout,
-    int stride, int oh, int ow, int s_expand, int s_dw, int s_project, int band,
-    const void* we, const void* be, const void* dw, const void* wp, void* out,
-    void* stream) {
+// a = [x, batch, h, w, cin, mid, cout, stride, oh, ow, s_expand, s_dw,
+// s_project, band, we, be, dw, wp, out, stream]: `band` output rows a
+// block of threads (the band path), or 0 for tiles of whole images; the
+// band must fit with 2 ring slots.
+int etiny_block_launch(const int64_t* p) {
+  ArgReader r{p};
+  const int8_t* x = r.ptr<const int8_t>();
+  const int batch = r.i(), h = r.i(), w = r.i(), cin = r.i(), mid = r.i(), cout = r.i();
+  const int stride = r.i(), oh = r.i(), ow = r.i();
+  const int s_expand = r.i(), s_dw = r.i(), s_project = r.i(), band = r.i();
+  const uint8_t* we = r.ptr<const uint8_t>();
+  const int* be = r.ptr<const int>();
+  const int8_t* dw = r.ptr<const int8_t>();
+  const uint8_t* wp = r.ptr<const uint8_t>();
+  int8_t* out = r.ptr<int8_t>();
+  const cudaStream_t s = r.ptr<CUstream_st>();
   const int k_expand = log2_exact(s_expand), k_dw = log2_exact(s_dw),
             k_project = log2_exact(s_project);
   if (batch <= 0 || h <= 0 || w <= 0 || cin <= 0 || mid <= 0 || cout <= 0 ||
@@ -347,17 +358,13 @@ int etiny_block_launch(
   }
   const cudaError_t err = band ? allow_max_smem<true>() : allow_max_smem<false>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  a.x = static_cast<const int8_t*>(x);
+  a.x = x;
   a.batch = batch;
   a.h = h; a.w = w; a.cin = cin; a.mid = mid; a.cout = cout;
   a.stride = stride; a.oh = oh; a.ow = ow;
   a.k_expand = k_expand; a.k_dw = k_dw; a.k_project = k_project;
-  a.we = static_cast<const uint8_t*>(we);
-  a.be = static_cast<const int*>(be);
-  a.dw = static_cast<const int8_t*>(dw);
-  a.wp = static_cast<const uint8_t*>(wp);
-  a.out = static_cast<int8_t*>(out);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  a.we = we; a.be = be; a.dw = dw; a.wp = wp;
+  a.out = out;
   if (band)
     etiny_block_kernel<true><<<blocks, kThreads, smem, s>>>(a);
   else

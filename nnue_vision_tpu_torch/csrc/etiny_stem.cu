@@ -54,11 +54,14 @@
 //   takes a class and sums its 8 images' logits with __dp4a, the weights
 //   laid out class-minor so that a warp's loads are one contiguous line.
 //
-// C interface (ctypes): each launcher returns cudaGetLastError() after the
-// launch. The kernels launch on the caller's stream and allocate nothing.
+// C interface (ctypes): each launcher takes one packed argument
+// (launch_args.cuh) and returns cudaGetLastError() after the launch. The
+// kernels launch on the caller's stream and allocate nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "launch_args.cuh"
 
 namespace {
 
@@ -411,54 +414,59 @@ extern "C" {
 
 // (B, h, w, 3) float32 -> (B, oh, ow, c) int8, oh = (h - 1) / 2 + 1;
 // `q_max` from the wrapper (the largest |q| the int32 path takes).
-int etiny_stem_launch(const void* x, int batch, int h, int w, int c, int stem_scale,
-                      int q_max, const void* wp, const void* bias, void* out, void* stream) {
-  const int k_scale = log2_exact(stem_scale);
-  const int oh = (h - 1) / 2 + 1, ow = (w - 1) / 2 + 1;
-  if (batch <= 0 || h <= 0 || w <= 0 || c <= 0 || k_scale < 0 || q_max < -1 || q_max > 32767)
+// a = [x, batch, h, w, c, stem_scale, q_max, wp, bias, out, stream]
+int etiny_stem_launch(const int64_t* p) {
+  ArgReader r{p};
+  StemArgs a;
+  a.x = r.ptr<const float>();
+  a.batch = r.i(); a.h = r.i(); a.w = r.i(); a.c = r.i();
+  const int stem_scale = r.i();
+  a.q_max = r.i();
+  a.wp = r.ptr<const int4>();
+  a.bias = r.ptr<const int>();
+  a.out = r.ptr<int8_t>();
+  const cudaStream_t stream = r.ptr<CUstream_st>();
+  a.k_scale = log2_exact(stem_scale);
+  a.oh = (a.h - 1) / 2 + 1;
+  a.ow = (a.w - 1) / 2 + 1;
+  if (a.batch <= 0 || a.h <= 0 || a.w <= 0 || a.c <= 0 || a.k_scale < 0 || a.q_max < -1 ||
+      a.q_max > 32767)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int band = stem_band_rows(oh, ow, w, c);
-  if (band <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int bands = (oh + band - 1) / band;
-  if (static_cast<long long>(batch) * bands > 0x7fffffffLL)
+  a.band = stem_band_rows(a.oh, a.ow, a.w, a.c);
+  if (a.band <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  a.bands = (a.oh + a.band - 1) / a.band;
+  if (static_cast<long long>(a.batch) * a.bands > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = stem_allow_max_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  StemArgs a;
-  a.x = static_cast<const float*>(x);
-  a.batch = batch; a.h = h; a.w = w; a.oh = oh; a.ow = ow; a.c = c;
-  a.band = band; a.bands = bands; a.rs = stem_rs(w);
+  a.rs = stem_rs(a.w);
   a.scale = static_cast<float>(stem_scale);
-  a.k_scale = k_scale;
-  a.q_max = q_max;
-  a.wp = static_cast<const int4*>(wp);
-  a.bias = static_cast<const int*>(bias);
-  a.out = static_cast<int8_t*>(out);
-  const int pixels = band * ow;
+  const int pixels = a.band * a.ow;
   int threads = round_up((pixels + kPix - 1) / kPix, 32);
   if (threads > kStemThreads) threads = kStemThreads;
-  etiny_stem_kernel<<<batch * bands, threads, stem_smem(band, w, ow, c),
-                      static_cast<cudaStream_t>(stream)>>>(a);
+  etiny_stem_kernel<<<a.batch * a.bands, threads, stem_smem(a.band, a.w, a.ow, a.c), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // (B, hw, c) int8 -> (B, classes) float32; `wide` picks the int64 sums.
-int etiny_tail_launch(const void* x, int batch, int hw, int c, int classes, int wide,
-                      const void* w, const void* b, float scale, void* out, void* stream) {
-  if (batch <= 0 || hw <= 0 || c <= 0 || classes <= 0 || hw > 0x7fffffff / 128)
-    return static_cast<int>(cudaErrorInvalidValue);
+// a = [x, batch, hw, c, classes, wide, w, b, scale (f32), out, stream]
+int etiny_tail_launch(const int64_t* p) {
+  ArgReader r{p};
   TailArgs a;
-  a.x = static_cast<const int8_t*>(x);
-  a.batch = batch; a.hw = hw; a.c = c; a.classes = classes;
-  a.cw = (c + 15) / 16;
-  a.w = static_cast<const int4*>(w);
-  a.b = static_cast<const int*>(b);
-  a.scale = scale;
-  a.out = static_cast<float*>(out);
-  const int blocks = (batch + kTailImages - 1) / kTailImages;
+  a.x = r.ptr<const int8_t>();
+  a.batch = r.i(); a.hw = r.i(); a.c = r.i(); a.classes = r.i();
+  const int wide = r.i();
+  a.w = r.ptr<const int4>();
+  a.b = r.ptr<const int>();
+  a.scale = r.f();
+  a.out = r.ptr<float>();
+  const cudaStream_t s = r.ptr<CUstream_st>();
+  if (a.batch <= 0 || a.hw <= 0 || a.c <= 0 || a.classes <= 0 || a.hw > 0x7fffffff / 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.cw = (a.c + 15) / 16;
+  const int blocks = (a.batch + kTailImages - 1) / kTailImages;
   const int smem = kTailImages * a.cw * 16;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (smem > 48 * 1024) {
     const cudaError_t err = wide
         ? cudaFuncSetAttribute(etiny_tail_kernel<long long>,

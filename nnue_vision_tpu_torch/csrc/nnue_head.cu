@@ -56,8 +56,9 @@
 // device memory (100 MB of f32; input_mode="qbf16" halves it), which a
 // block does before its products, so the two do not overlap.
 //
-// C interface (ctypes): each launcher returns cudaGetLastError() after the
-// launch; the Python wrapper raises if it is not 0. Kernels launch on the
+// C interface (ctypes): each launcher takes one packed argument
+// (launch_args.cuh) and returns cudaGetLastError() after the launch; the
+// Python wrapper raises if it is not 0. Kernels launch on the
 // caller's stream and allocate nothing.
 
 #include <cooperative_groups.h>
@@ -65,6 +66,7 @@
 #include <cuda_runtime.h>
 
 #include "int8_mma.cuh"
+#include "launch_args.cuh"
 
 namespace {
 
@@ -674,25 +676,25 @@ cudaError_t run_head(const int* acc, const HeadArgs& a, const TileArgs& t, int s
   return launched != cudaSuccess ? launched : cudaGetLastError();
 }
 
-HeadArgs make_head(float thresh, int n_pad, int fr, int l1, int l2, int l3, int nc,
-                   int qone, int s1, int s2, int conv_scale, float out_scale, int ft_steps,
-                   const void* padsum, const void* ft_tiles, const void* ft_b,
-                   const void* fc1_tiles, const void* fc1_b, const void* fc2_w,
-                   const void* fc2_b, const void* out_w, const void* out_b) {
+// The 22 head words of a launcher's argument, in order: [thresh (f32),
+// n_pad, fr, l1, l2, l3, nc, qone, s1, s2, conv_scale, out_scale (f32),
+// ft_steps, padsum, ft_tiles, ft_b, fc1_tiles, fc1_b, fc2_w, fc2_b, out_w,
+// out_b].
+HeadArgs read_head(ArgReader& r) {
   HeadArgs a;
-  a.thresh = thresh; a.n_pad = n_pad;
-  a.fr = fr; a.l1 = l1; a.l2 = l2; a.l3 = l3; a.nc = nc;
-  a.qone = qone; a.s1 = s1; a.s2 = s2; a.conv_scale = conv_scale;
-  a.out_scale = out_scale; a.ft_steps = ft_steps;
-  a.padsum = static_cast<const int*>(padsum);
-  a.ft_tiles = static_cast<const uint8_t*>(ft_tiles);
-  a.ft_b = static_cast<const int*>(ft_b);
-  a.fc1_tiles = static_cast<const uint8_t*>(fc1_tiles);
-  a.fc1_b = static_cast<const int*>(fc1_b);
-  a.fc2_w = static_cast<const int8_t*>(fc2_w);
-  a.fc2_b = static_cast<const int*>(fc2_b);
-  a.out_w = static_cast<const int8_t*>(out_w);
-  a.out_b = static_cast<const int*>(out_b);
+  a.thresh = r.f(); a.n_pad = r.i();
+  a.fr = r.i(); a.l1 = r.i(); a.l2 = r.i(); a.l3 = r.i(); a.nc = r.i();
+  a.qone = r.i(); a.s1 = r.i(); a.s2 = r.i(); a.conv_scale = r.i();
+  a.out_scale = r.f(); a.ft_steps = r.i();
+  a.padsum = r.ptr<const int>();
+  a.ft_tiles = r.ptr<const uint8_t>();
+  a.ft_b = r.ptr<const int>();
+  a.fc1_tiles = r.ptr<const uint8_t>();
+  a.fc1_b = r.ptr<const int>();
+  a.fc2_w = r.ptr<const int8_t>();
+  a.fc2_b = r.ptr<const int>();
+  a.out_w = r.ptr<const int8_t>();
+  a.out_b = r.ptr<const int>();
   return a;
 }
 
@@ -700,37 +702,34 @@ bool head_ok(int batch, int fr, int l1) {
   return batch > 0 && fr > 0 && l1 > 0 && (l1 & 3) == 0;
 }
 
-// nnue_mega_kernel<stop> on `stream`: its tile, shared memory and argument
-// checks, then cudaGetLastError().
-int mega_launch(
-    int stop, const void* images, int bf16_input, int batch, int h, int w,
-    int stride, int oh, int ow, int channels, float in_scale, const void* conv_w,
-    const void* conv_b,
-    float thresh, int n_pad, int fr, int l1, int l2, int l3, int nc,
-    int qone, int s1, int s2, int conv_scale, float out_scale, int ft_steps,
-    const void* padsum, const void* ft_tiles, const void* ft_b,
-    const void* fc1_tiles, const void* fc1_b, const void* fc2_w,
-    const void* fc2_b, const void* out_w, const void* out_b,
-    void* logits, void* count, void* stream) {
+// nnue_mega_kernel<stop> on the images at `images`, the rest of its words
+// read from `r`: [batch, h, w, stride, oh, ow, channels, in_scale (f32),
+// conv_w, conv_b, the head's 22, out, count (kFull only), stream]. Its
+// tile, shared memory and argument checks, then cudaGetLastError().
+int mega_launch(int stop, const void* images, int bf16_input, ArgReader& r) {
+  ConvArgs c;
+  c.images = images; c.bf16_input = bf16_input;
+  const int batch = r.i();
+  c.h = r.i(); c.w = r.i(); c.stride = r.i(); c.oh = r.i(); c.ow = r.i();
+  c.channels = r.i();
+  c.in_scale = r.f();
+  c.conv_w = r.ptr<const int>();
+  c.conv_b = r.ptr<const int>();
+  const HeadArgs a = read_head(r);
+  float* out = r.ptr<float>();
+  int* cnt = stop == kFull ? r.ptr<int>() : nullptr;
+  const cudaStream_t s = r.ptr<CUstream_st>();
+  // a cut kernel writes kStageOut values of H*W*3, FR and L1 per image
+  if (stop < kFull && (c.h * c.w * 3 < kStageOut || a.fr < kStageOut || a.l1 < kStageOut))
+    return static_cast<int>(cudaErrorInvalidValue);
   TileArgs t;
   int smem = 0;
   // pack_feature's fields: channel < 256, window corner < 4096 / 2048
-  if (!head_ok(batch, fr, l1) || channels <= 0 || channels > 255 || h >= 4096 || w >= 2048 ||
-      !pick_tile(batch, fr, l1, l2, l3, channels, h * w * 3 * (bf16_input ? 2 : 4), h * w * 3,
-                 stop >= kFT, &t, &smem))
+  if (!head_ok(batch, a.fr, a.l1) || c.channels <= 0 || c.channels > 255 || c.h >= 4096 ||
+      c.w >= 2048 ||
+      !pick_tile(batch, a.fr, a.l1, a.l2, a.l3, c.channels,
+                 c.h * c.w * 3 * (bf16_input ? 2 : 4), c.h * c.w * 3, stop >= kFT, &t, &smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  ConvArgs c;
-  c.images = images; c.bf16_input = bf16_input;
-  c.h = h; c.w = w; c.stride = stride; c.oh = oh; c.ow = ow; c.channels = channels;
-  c.in_scale = in_scale;
-  c.conv_w = static_cast<const int*>(conv_w);
-  c.conv_b = static_cast<const int*>(conv_b);
-  const HeadArgs a = make_head(thresh, n_pad, fr, l1, l2, l3, nc, qone, s1, s2,
-                               conv_scale, out_scale, ft_steps, padsum, ft_tiles, ft_b,
-                               fc1_tiles, fc1_b, fc2_w, fc2_b, out_w, out_b);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(logits);
-  int* cnt = static_cast<int*>(count);
   switch (stop) {
     case kStage: return static_cast<int>(run_mega_rows<kStage>(c, a, t, smem, s, out, cnt));
     case kQuant: return static_cast<int>(run_mega_rows<kQuant>(c, a, t, smem, s, out, cnt));
@@ -763,62 +762,40 @@ int nnue_mega_tile(int batch, int fr, int l1, int l2, int l3, int channels, int 
   return 0;
 }
 
-int nnue_mega_launch(
-    const void* images, int bf16_input, int batch, int h, int w, int stride,
-    int oh, int ow, int channels, float in_scale, const void* conv_w,
-    const void* conv_b,
-    float thresh, int n_pad, int fr, int l1, int l2, int l3, int nc,
-    int qone, int s1, int s2, int conv_scale, float out_scale, int ft_steps,
-    const void* padsum, const void* ft_tiles, const void* ft_b,
-    const void* fc1_tiles, const void* fc1_b, const void* fc2_w,
-    const void* fc2_b, const void* out_w, const void* out_b,
-    void* logits, void* count, void* stream) {
-  return mega_launch(kFull, images, bf16_input, batch, h, w, stride, oh, ow, channels,
-                     in_scale, conv_w, conv_b, thresh, n_pad, fr, l1, l2, l3, nc, qone,
-                     s1, s2, conv_scale, out_scale, ft_steps, padsum, ft_tiles, ft_b,
-                     fc1_tiles, fc1_b, fc2_w, fc2_b, out_w, out_b, logits, count, stream);
+// a = [images, bf16_input, then mega_launch's words with logits and count
+// (0: none)]
+int nnue_mega_launch(const int64_t* p) {
+  ArgReader r{p};
+  const void* images = r.ptr<const void>();
+  const int bf16_input = r.i();
+  return mega_launch(kFull, images, bf16_input, r);
 }
 
 // The cut kernel nnue_mega_kernel<level>, level 0..3, on float32 images:
 // out (B, 128) float32. Needs H*W*3, FR and L1 all >= 128.
-int nnue_mega_stage_launch(
-    int level, const void* images, int batch, int h, int w, int stride,
-    int oh, int ow, int channels, float in_scale, const void* conv_w,
-    const void* conv_b,
-    float thresh, int n_pad, int fr, int l1, int l2, int l3, int nc,
-    int qone, int s1, int s2, int conv_scale, float out_scale, int ft_steps,
-    const void* padsum, const void* ft_tiles, const void* ft_b,
-    const void* fc1_tiles, const void* fc1_b, const void* fc2_w,
-    const void* fc2_b, const void* out_w, const void* out_b,
-    void* out, void* stream) {
-  if (level < kStage || level >= kFull || h * w * 3 < kStageOut || fr < kStageOut ||
-      l1 < kStageOut)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return mega_launch(level, images, 0, batch, h, w, stride, oh, ow, channels,
-                     in_scale, conv_w, conv_b, thresh, n_pad, fr, l1, l2, l3, nc, qone,
-                     s1, s2, conv_scale, out_scale, ft_steps, padsum, ft_tiles, ft_b,
-                     fc1_tiles, fc1_b, fc2_w, fc2_b, out_w, out_b, out, nullptr, stream);
+// a = [level, images, then mega_launch's words with out]
+int nnue_mega_stage_launch(const int64_t* p) {
+  ArgReader r{p};
+  const int level = r.i();
+  if (level < kStage || level >= kFull) return static_cast<int>(cudaErrorInvalidValue);
+  const void* images = r.ptr<const void>();
+  return mega_launch(level, images, 0, r);
 }
 
-int nnue_head_launch(
-    const void* acc, int batch,
-    float thresh, int n_pad, int fr, int l1, int l2, int l3, int nc,
-    int qone, int s1, int s2, int conv_scale, float out_scale, int ft_steps,
-    const void* padsum, const void* ft_tiles, const void* ft_b,
-    const void* fc1_tiles, const void* fc1_b, const void* fc2_w,
-    const void* fc2_b, const void* out_w, const void* out_b,
-    void* logits, void* count, void* stream) {
+// a = [acc, batch, the head's 22 words, logits, count (0: none), stream]
+int nnue_head_launch(const int64_t* p) {
+  ArgReader r{p};
+  const int* ag = r.ptr<const int>();
+  const int batch = r.i();
+  const HeadArgs a = read_head(r);
+  float* out = r.ptr<float>();
+  int* cnt = r.ptr<int>();
+  const cudaStream_t s = r.ptr<CUstream_st>();
   TileArgs t;
   int smem = 0;
-  if (!head_ok(batch, fr, l1) || !pick_tile(batch, fr, l1, l2, l3, 0, 0, 0, true, &t, &smem))
+  if (!head_ok(batch, a.fr, a.l1) ||
+      !pick_tile(batch, a.fr, a.l1, a.l2, a.l3, 0, 0, 0, true, &t, &smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  const HeadArgs a = make_head(thresh, n_pad, fr, l1, l2, l3, nc, qone, s1, s2,
-                               conv_scale, out_scale, ft_steps, padsum, ft_tiles, ft_b,
-                               fc1_tiles, fc1_b, fc2_w, fc2_b, out_w, out_b);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ag = static_cast<const int*>(acc);
-  float* out = static_cast<float*>(logits);
-  int* cnt = static_cast<int*>(count);
   cudaError_t err;
   if (t.rows == 64) err = run_head<2, 2>(ag, a, t, smem, s, out, cnt);
   else if (t.rows == 32) err = run_head<2, 1>(ag, a, t, smem, s, out, cnt);

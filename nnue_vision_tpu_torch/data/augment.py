@@ -570,6 +570,18 @@ def _ranges(strength: str) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.tensor(rec.width)[:, None], torch.tensor(rec.lo)[:, None]
 
 
+def _block_fields(u: torch.Tensor, strength: str, h: int, w: int
+                  ) -> List[torch.Tensor]:
+    """The tier's fields (`draw_fields`) of R rows from an (F, R) block of
+    [0, 1) uniforms, field f's R rows in its row f: the block scaled in
+    place to each field's range (`_ranges`), then derived on one intra-op
+    thread."""
+    width, low = _ranges(strength)
+    with _one_thread():
+        return draw_fields(Fields(u.mul_(width).add_(low)), strength,
+                           u.shape[1], h, w)
+
+
 def draw_chunk(gen: torch.Generator, strength: str, steps: int, b: int,
                h: int, w: int, shard: Shard = WHOLE) -> torch.Tensor:
     """All per-sample draws of `steps` steps of a batch of b of (h, w)
@@ -580,13 +592,12 @@ def draw_chunk(gen: torch.Generator, strength: str, steps: int, b: int,
     ends where those calls leave it."""
     if strength not in STRENGTHS:
         raise ValueError(f"strength must be one of {STRENGTHS}")
-    width, low = _ranges(strength)
-    n = len(width)
+    n = len(_ranges(strength)[0])
     DRAWS["host_draw_calls"] += 1
     with _one_thread():
         u = torch.rand((steps, n, b), generator=gen)
-        u = u.transpose(0, 1).reshape(n, steps * b).mul_(width).add_(low)
-        fields = draw_fields(Fields(u), strength, steps * b, h, w)
+        fields = _block_fields(u.transpose(0, 1).reshape(n, steps * b),
+                               strength, h, w)
         rows = shard_rows(b, shard)
         return pack_rows([f.reshape(steps, b, *f.shape[1:])[:, rows]
                           for f in fields])

@@ -9,6 +9,10 @@ interface, so the build takes seconds (no PyTorch headers).
 Only sources in the repository are compiled, and a failed build raises:
 there is no fallback. `--use_fast_math` is deliberately absent: it makes
 f32 division approximate, and the logits are `acc / out_scale`.
+
+`launch` is the wrappers' one path to a kernel: every launcher takes one
+packed int64 array (`csrc/launch_args.cuh`; ctypes then converts one
+pointer, not dozens), a float32 as its bits in a word's low 32 (`f32`).
 """
 
 from __future__ import annotations
@@ -18,11 +22,15 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -33,38 +41,21 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
-_HEAD_ARGS = [_F] + [_I] * 10 + [_F, _I] + [_P] * 9
+# the queries; every exported `*_launch` takes one packed int64 array
+# (`launch`) and gets its signature at its first call
 SIGNATURES = {
     "nnue_error_string": ([_I], ctypes.c_char_p),
-    "nnue_mega_launch": (
-        [_P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P] + _HEAD_ARGS
-        + [_P, _P, _P],
-        _I,
-    ),
-    "nnue_mega_stage_launch": (
-        [_I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P] + _HEAD_ARGS
-        + [_P, _P],
-        _I,
-    ),
-    "nnue_head_launch": ([_P, _I] + _HEAD_ARGS + [_P, _P, _P], _I),
     "nnue_mega_tile": ([_I] * 8 + [_P], _I),
-    # the ring kernels' launchers take one packed int64 array (ops/_ring.py)
-    "light_pipeline_launch": ([_P], _I),
     "light_pipeline_blocks_per_sm": ([_I] * 2, _I),
-    "warp_launch": ([_P], _I),
     "warp_blocks_per_sm": ([_I], _I),
-    "lerp_pass_launch": ([_P], _I),
     "lerp_pass_blocks_per_sm": ([_I] * 3, _I),
-    "photometric_launch": ([_P], _I),
     "photometric_blocks_per_sm": ([_I] * 2, _I),
-    "photometric_band_launch": ([_P], _I),
     "etiny_block_smem": ([_I] * 8, _I),
     "etiny_block_tile": ([_I] * 8, _I),
-    "etiny_block_launch": ([_P] + [_I] * 13 + [_P] * 6, _I),
-    "etiny_stem_launch": ([_P] + [_I] * 6 + [_P] * 4, _I),
-    "etiny_tail_launch": ([_P] + [_I] * 5 + [_P, _P, _F, _P, _P], _I),
 }
+# words of the packed argument: the widest launcher's, nnue_mega_launch's
+# 36, and the stream
+WORDS = 37
 
 
 class Built(NamedTuple):
@@ -145,3 +136,47 @@ def load_library() -> Built:
         fn.restype = restype
     log = log_path.read_text() if log_path.is_file() else ""
     return Built(lib, lib_path, seconds, log)
+
+
+def f32(x: float) -> int:
+    """A float32 argument's word: its bits in the low 32."""
+    return struct.unpack("<I", struct.pack("<f", x))[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(fn_name: str):
+    fn = getattr(load_library().lib, fn_name)
+    fn.argtypes, fn.restype = [_P], _I
+    return fn
+
+
+# the current device and its current stream's raw handle, without building
+# a torch.cuda.Stream (torch's own bindings where it has them)
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
+_raw_stream = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
+               or (lambda index: torch.cuda.current_stream(index).cuda_stream))
+_ARGS = threading.local()  # per thread: the packed argument array
+
+
+def launch(dev: torch.device, counters: Dict[str, int], kernel: str,
+           fn_name: str, args: Sequence[int]) -> None:
+    """Call launcher `fn_name` on `dev` with `args` and the current stream
+    of `dev`, packed into one int64 array; raise if it reports an error,
+    else add one to `counters[kernel]`. A device switch only when `dev` is
+    not the current device."""
+    fn = _launcher(fn_name)
+    index = dev.index
+    buf = getattr(_ARGS, "buf", None)
+    if buf is None:
+        buf = _ARGS.buf = (ctypes.c_int64 * WORDS)()
+    if index == _current_device():
+        buf[:len(args) + 1] = (*args, _raw_stream(index))
+        err = fn(buf)
+    else:
+        with torch.cuda.device(index):
+            buf[:len(args) + 1] = (*args, _raw_stream(index))
+            err = fn(buf)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: "
+                           f"{load_library().lib.nnue_error_string(err).decode()}")
+    counters[kernel] += 1

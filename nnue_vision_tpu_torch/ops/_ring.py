@@ -8,24 +8,17 @@ copies; the blocks resident on an SM overlap one another's copies and
 compute. `grid_size` sizes the grid from the kernel's resident blocks per
 SM, which the library reports per shape (`*_blocks_per_sm`) and `grid`
 asks once per kernel, shape and device. `grid_size` is plain Python, so
-the CPU tests hold it.
-
-`launch` is the wrappers' one path to a kernel: the library's functions
-looked up once, the arguments packed into one int64 array (ctypes then
-converts one pointer, not a dozen), the current stream's raw handle taken
-without building a `torch.cuda.Stream`, and a device switch only when the
-tensor is not on the current device. It raises when the launcher reports
-an error.
+the CPU tests hold it. The wrappers launch through `_build.launch`.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import threading
 from typing import Dict
 
 import torch
+
+from nnue_vision_tpu_torch.ops import _build
 
 TILE_CELLS = 1024  # cells ((row, pixel) pairs) per tile of a single pass
 
@@ -48,22 +41,8 @@ def pass_tile_rows(n: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def library():
-    from nnue_vision_tpu_torch.ops._build import load_library
-
-    return load_library().lib
-
-
-@functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-# the current device and its current stream's raw handle, without building
-# a torch.cuda.Stream (torch's own bindings where it has them)
-_current_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
-_raw_stream = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
-               or (lambda index: torch.cuda.current_stream(index).cuda_stream))
 
 
 _BLOCKS_PER_SM: Dict[tuple, int] = {}
@@ -77,29 +56,6 @@ def grid(dev: torch.device, items: int, query: str, *shape: int) -> int:
     per_sm = _BLOCKS_PER_SM.get(key)
     if per_sm is None:
         with torch.cuda.device(dev):
-            per_sm = _BLOCKS_PER_SM[key] = int(getattr(library(), query)(*shape))
+            per_sm = _BLOCKS_PER_SM[key] = int(
+                getattr(_build.load_library().lib, query)(*shape))
     return grid_size(items, sm_count(dev.index), per_sm)
-
-
-_ARGS = threading.local()  # per thread: the packed argument array
-
-
-def launch(dev: torch.device, kernel: str, fn_name: str, args: tuple) -> None:
-    """Call launcher `fn_name` on `dev` with `args` and the current stream
-    of `dev`, packed into one int64 array (one pointer for ctypes to
-    convert); raise if it reports an error."""
-    fn = getattr(library(), fn_name)
-    index = dev.index
-    buf = getattr(_ARGS, "buf", None)
-    if buf is None:
-        buf = _ARGS.buf = (ctypes.c_int64 * 24)()
-    if index == _current_device():
-        buf[:len(args) + 1] = args + (_raw_stream(index),)
-        err = fn(buf)
-    else:
-        with torch.cuda.device(index):
-            buf[:len(args) + 1] = args + (_raw_stream(index),)
-            err = fn(buf)
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: "
-                           f"{library().nnue_error_string(err).decode()}")

@@ -43,6 +43,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from nnue_vision_tpu_torch import tracing
+from nnue_vision_tpu_torch.ops import _build
 from nnue_vision_tpu_torch.ops.engine_sim import (
     EtinyBlockCfg,
     EtinySimCfg,
@@ -54,9 +55,8 @@ from nnue_vision_tpu_torch.ops.engine_sim import (
 from nnue_vision_tpu_torch.ops.nnue_kernels import mma_tiles
 from nnue_vision_tpu_torch.tracing import span
 
-# Launches since the last reset_launch_counts(); each wrapper adds one where
-# it launches its kernel, and nowhere else; `band_launches` counts the K6
-# launches that took the band path.
+# Launches since the last reset_launch_counts(), counted by `_build.launch`;
+# `band_launches` counts the K6 launches that took the band path.
 LAUNCHES = tracing.counters("etiny_kernels", "etiny_block_kernel", "band_launches",
                             "etiny_stem_kernel", "etiny_tail_kernel")
 
@@ -267,15 +267,8 @@ def _require(kernel: str, dev: torch.device, *args) -> None:
                 f"{dtype} tensor on {dev}; got {t.dtype} on {t.device}")
 
 
-def _check_launch(kernel: str, lib, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: "
-                           f"{lib.nnue_error_string(err).decode()}")
-
-
-def _launch(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg) -> torch.Tensor:
-    from nnue_vision_tpu_torch.ops._build import load_library
-
+def _launch_block(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg
+                  ) -> torch.Tensor:
     dev = x.device
     b, h, w, cin = x.shape
     mid, cout = blk["dw"].shape[0], blk["pw_project_w"].shape[0]
@@ -292,16 +285,11 @@ def _launch(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg) -> torch.Tensor:
     if b == 0:
         return out
     band = band_plan(h, w, cin, mid, cout, bs.stride)
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.etiny_block_launch(
-            x.data_ptr(), b, h, w, cin, mid, cout, bs.stride, oh, ow,
-            bs.s_expand, bs.s_dw, bs.s_project, band, blk["we"].data_ptr(),
-            blk["be"].data_ptr(), blk["dw"].data_ptr(), blk["wp"].data_ptr(),
-            out.data_ptr(), stream)
-    _check_launch("etiny_block_kernel", lib, err)
-    LAUNCHES["etiny_block_kernel"] += 1
+    _build.launch(dev, LAUNCHES, "etiny_block_kernel", "etiny_block_launch", (
+        x.data_ptr(), b, h, w, cin, mid, cout, bs.stride, oh, ow,
+        bs.s_expand, bs.s_dw, bs.s_project, band, blk["we"].data_ptr(),
+        blk["be"].data_ptr(), blk["dw"].data_ptr(), blk["wp"].data_ptr(),
+        out.data_ptr()))
     if band:
         LAUNCHES["band_launches"] += 1
     return out
@@ -312,13 +300,11 @@ def lb_block(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg) -> torch.Tensor:
     int8, `blk` from `etiny_kernel_params`."""
     if x.device.type == "cpu":
         return lb_block_reference(x, blk, bs)
-    return _launch(x.contiguous(), blk, bs)
+    return _launch_block(x.contiguous(), blk, bs)
 
 
 def _launch_stem(kparams: Dict, images: torch.Tensor, cfg: EtinySimCfg
                  ) -> torch.Tensor:
-    from nnue_vision_tpu_torch.ops._build import load_library
-
     dev = images.device
     if images.dim() != 4 or images.shape[3] != 3:
         raise ValueError(f"the stem takes (B, H, W, 3) images; got "
@@ -335,14 +321,9 @@ def _launch_stem(kparams: Dict, images: torch.Tensor, cfg: EtinySimCfg
     out = torch.empty((b, oh, ow, c), dtype=torch.int8, device=dev)
     if b == 0:
         return out
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        err = lib.etiny_stem_launch(
-            images.data_ptr(), b, h, w, c, cfg.stem_scale, kparams["stem_q_max"],
-            wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch("etiny_stem_kernel", lib, err)
-    LAUNCHES["etiny_stem_kernel"] += 1
+    _build.launch(dev, LAUNCHES, "etiny_stem_kernel", "etiny_stem_launch", (
+        images.data_ptr(), b, h, w, c, cfg.stem_scale, kparams["stem_q_max"],
+        wp.data_ptr(), bp.data_ptr(), out.data_ptr()))
     return out
 
 
@@ -358,8 +339,6 @@ def etiny_stem_int8(kparams: Dict, images: torch.Tensor, cfg: EtinySimCfg
 
 def _launch_tail(kparams: Dict, x: torch.Tensor, cfg: EtinySimCfg
                  ) -> torch.Tensor:
-    from nnue_vision_tpu_torch.ops._build import load_library
-
     dev = x.device
     if x.dim() != 4:
         raise ValueError(f"the tail takes (B, H, W, C) int8; got {tuple(x.shape)}")
@@ -374,14 +353,10 @@ def _launch_tail(kparams: Dict, x: torch.Tensor, cfg: EtinySimCfg
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        err = lib.etiny_tail_launch(
-            x.data_ptr(), b, h * w, c, k, int(kparams["tail_int64"]),
-            wt.data_ptr(), kparams["cls_b"].data_ptr(), cfg.cls_scale,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch("etiny_tail_kernel", lib, err)
-    LAUNCHES["etiny_tail_kernel"] += 1
+    _build.launch(dev, LAUNCHES, "etiny_tail_kernel", "etiny_tail_launch", (
+        x.data_ptr(), b, h * w, c, k, int(kparams["tail_int64"]),
+        wt.data_ptr(), kparams["cls_b"].data_ptr(), _build.f32(cfg.cls_scale),
+        out.data_ptr()))
     return out
 
 

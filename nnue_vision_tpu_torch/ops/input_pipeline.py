@@ -12,8 +12,9 @@ second copy padded to 128 lanes, which the kernel's reversed column index
 replaces.
 
 All randomness is drawn on the host from a CPU `torch.Generator`
-(`draw_light_params`), with the light tier's distributions folded to a
-flip bit, an (α, β) pair and a hole rectangle per sample.
+(`draw_light_params`, the light tier's fields as `data/augment.py` derives
+them), folded to a flip bit, an (α, β) pair and a hole rectangle per
+sample.
 
 `fused_light_pipeline` dispatches on the device of the dataset: a CPU
 tensor takes the plain version, a CUDA tensor the kernel, which launches or
@@ -24,7 +25,7 @@ block's shared memory (`csrc/bulk_ring.cuh`, `ops/_ring.py`): an item is a
 band of at most `BAND_CELLS` pixels of one image, whole rows, or a
 segment of one row where a row is wider. `band_plan` picks the bands, in
 plain Python so that the CPU tests hold it; `ops/_ring.py` sizes the grid
-and launches. Every shape goes through the kernel: where a band's bytes are
+and `ops/_build.py` launches. Every shape goes through the kernel: where a band's bytes are
 not whole 16-byte units at 16-byte boundaries (H·W % 4 != 0), the kernel
 moves the few values at either end with plain loads and stores.
 """
@@ -40,15 +41,15 @@ import torch
 
 from nnue_vision_tpu_torch import tracing
 from nnue_vision_tpu_torch.data.augment import (
+    DRAWS,
     IMAGENET_MEAN,
     IMAGENET_STD,
-    uniform,
+    _block_fields,
     normalize_images,
 )
-from nnue_vision_tpu_torch.ops import _ring
+from nnue_vision_tpu_torch.ops import _build, _ring
 
-# Launches since the last reset_launch_counts(); the wrapper adds one where
-# it launches the kernel, and nowhere else.
+# Launches since the last reset_launch_counts(), counted by `_build.launch`.
 LAUNCHES = tracing.counters("input_pipeline", "light_pipeline_kernel")
 
 
@@ -117,25 +118,20 @@ def prepare_gather_dataset(images: torch.Tensor) -> torch.Tensor:
 def draw_light_params(gen: torch.Generator, steps: int, batch: int,
                       h: int, w: int) -> LightParams:
     """All light-tier randomness for `steps` steps of `batch` samples, as
-    CPU tensors of leading shape (steps, batch): hflip p .5; brightness/
-    contrast p .2 with limits ±0.1, folded to x·α + β; cutout p .2 with a
-    side of max(1, frac·size), frac ∈ [0.05, 0.051)."""
-    shape = (steps, batch)
-    flip = uniform(gen, shape) < 0.5
-
-    bc_apply = uniform(gen, shape) < 0.2
-    bright = uniform(gen, shape, -0.1, 0.1)
-    contr = 1.0 + uniform(gen, shape, -0.1, 0.1)
+    CPU tensors of leading shape (steps, batch), from one `torch.rand` on
+    the host generator: the light tier's eight fields (`draw_fields`),
+    field-major, so equal bit for bit to one generator call a field over
+    (steps, batch); folded to the flip, x·α + β where the brightness/
+    contrast gate is on, and the hole [y0, y0 + hh) × [x0, x0 + ww) where
+    the cutout's is."""
+    n = steps * batch
+    DRAWS["host_draw_calls"] += 1
+    flip, bc_apply, bright, contr, cut_apply, y0, hh, x0, ww = (
+        f.reshape(steps, batch) for f in _block_fields(
+            torch.rand((8, n), generator=gen), "light", h, w))
     alpha = torch.where(bc_apply, contr, 1.0)
     beta = torch.where(bc_apply, 0.5 - 0.5 * contr + bright, 0.0)
     pf = torch.stack([alpha, beta], dim=-1).to(torch.float32)
-
-    cut_apply = uniform(gen, shape) < 0.2
-    frac = uniform(gen, shape, 0.05, 0.051)
-    hh = torch.clamp((frac * h).to(torch.int32), min=1)
-    ww = torch.clamp((frac * w).to(torch.int32), min=1)
-    y0 = (uniform(gen, shape) * (h - hh)).to(torch.int32)
-    x0 = (uniform(gen, shape) * (w - ww)).to(torch.int32)
     zero = torch.zeros_like(y0)
     pi = torch.stack([
         torch.where(cut_apply, y0, zero), torch.where(cut_apply, y0 + hh, zero),
@@ -228,12 +224,11 @@ def _launch(dataset, idx_eff, pf, pi, h, w, stamps=None):
     if items >= 2**30:
         raise ValueError(f"the kernel walks fewer than 2^30 bands; got {items}")
     grid = _ring.grid(dev, items, "light_pipeline_blocks_per_sm", rows, cols)
-    _ring.launch(dev, "light_pipeline_kernel", "light_pipeline_launch",
-                 (dataset.data_ptr(), n, h, w, idx_eff.data_ptr(),
-                  pf.data_ptr(), pi.data_ptr(), b, rows, cols, grid,
-                  out.data_ptr()) + _NORM
-                 + (0 if stamps is None else stamps.data_ptr(),))
-    LAUNCHES["light_pipeline_kernel"] += 1
+    _build.launch(dev, LAUNCHES, "light_pipeline_kernel", "light_pipeline_launch",
+                  (dataset.data_ptr(), n, h, w, idx_eff.data_ptr(),
+                   pf.data_ptr(), pi.data_ptr(), b, rows, cols, grid,
+                   out.data_ptr()) + _NORM
+                  + (0 if stamps is None else stamps.data_ptr(),))
     return out
 
 

@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from nnue_vision_tpu_torch import tracing
+from nnue_vision_tpu_torch.ops import _build
 from nnue_vision_tpu_torch.ops.engine_sim import (
     NNUESimCfg,
     _int_conv3x3,
@@ -51,8 +52,8 @@ from nnue_vision_tpu_torch.ops.engine_sim import (
 )
 from nnue_vision_tpu_torch.tracing import span
 
-# Launches of each kernel since the last reset_launch_counts(); each wrapper
-# adds one where it launches its kernel, and nowhere else.
+# Launches of each kernel since the last reset_launch_counts(), counted by
+# `_build.launch`.
 LAUNCHES = tracing.counters("nnue_kernels", "nnue_mega_kernel",
                             "nnue_head_kernel", "nnue_mega_stage_kernel")
 
@@ -238,7 +239,8 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 def _head_args(head: Dict, padsum: torch.Tensor, cfg: NNUESimCfg, fr: int,
                n_pad: int, conv_scale: int, device) -> list:
-    """The head's scalar and pointer arguments, after checking every weight."""
+    """The head's 22 words (csrc/nnue_head.cu read_head), after checking
+    every weight."""
     l1, l2, l3, nc = cfg.l1, cfg.l2, cfg.l3, cfg.num_classes
     f = cfg.num_features
     if fr + n_pad != f:
@@ -266,24 +268,10 @@ def _head_args(head: Dict, padsum: torch.Tensor, cfg: NNUESimCfg, fr: int,
     )
     for name, t, dtype, shape in specs:
         _require(t, name, dtype, shape, device)
-    scalars = [head["thresh"], n_pad, fr, l1, l2, l3, nc, cfg.quantized_one,
-               cfg.fc1_scale, cfg.fc2_scale, conv_scale, cfg.out_scale,
-               ft_steps]
+    scalars = [_build.f32(head["thresh"]), n_pad, fr, l1, l2, l3, nc,
+               cfg.quantized_one, cfg.fc1_scale, cfg.fc2_scale, conv_scale,
+               _build.f32(cfg.out_scale), ft_steps]
     return scalars + [t.data_ptr() for _, t, _, _ in specs]
-
-
-def _launch(fn_name: str, kernel: str, args: list, device) -> None:
-    from nnue_vision_tpu_torch.ops._build import load_library
-
-    lib = load_library().lib
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{kernel} launch failed: {lib.nnue_error_string(err).decode()}"
-        )
-    LAUNCHES[kernel] += 1
 
 
 def _outputs_like(x: torch.Tensor, cfg: NNUESimCfg, with_count: bool):
@@ -320,8 +308,8 @@ def _mega_args(head, images_flat, *, cfg, image_h, image_w, input_mode):
     if b == 0:
         return None
     return ([images_flat.data_ptr(), b, image_h, image_w, stride, oh, ow,
-             cfg.channels, float(cfg.conv_scale), head["conv_w"].data_ptr(),
-             head["conv_b"].data_ptr()] + head_args)
+             cfg.channels, _build.f32(cfg.conv_scale),
+             head["conv_w"].data_ptr(), head["conv_b"].data_ptr()] + head_args)
 
 
 def _mega_launch(head, images_flat, *, cfg, image_h, image_w, with_count,
@@ -333,8 +321,9 @@ def _mega_launch(head, images_flat, *, cfg, image_h, image_w, with_count,
     if args is None:
         return logits, count
     args.insert(1, int(input_mode == "qbf16"))
-    args += [logits.data_ptr(), count.data_ptr() if with_count else None]
-    _launch("nnue_mega_launch", "nnue_mega_kernel", args, images_flat.device)
+    args += [logits.data_ptr(), count.data_ptr() if with_count else 0]
+    _build.launch(images_flat.device, LAUNCHES, "nnue_mega_kernel",
+                  "nnue_mega_launch", args)
     return logits, count
 
 
@@ -358,8 +347,8 @@ def _stage_launch(head, images_flat, *, cfg, image_h, image_w, level):
                       device=images_flat.device)
     if args is None:
         return out
-    _launch("nnue_mega_stage_launch", "nnue_mega_stage_kernel",
-            [level] + args + [out.data_ptr()], images_flat.device)
+    _build.launch(images_flat.device, LAUNCHES, "nnue_mega_stage_kernel",
+                  "nnue_mega_stage_launch", [level] + args + [out.data_ptr()])
     return out
 
 
@@ -377,8 +366,8 @@ def _head_launch(head, acc, *, cfg, n_pad, conv_scale, with_count):
     args = [acc.data_ptr(), b]
     args += _head_args(head, _padsum(head, fr), cfg, fr, n_pad, conv_scale,
                        dev)
-    args += [logits.data_ptr(), count.data_ptr() if with_count else None]
-    _launch("nnue_head_launch", "nnue_head_kernel", args, dev)
+    args += [logits.data_ptr(), count.data_ptr() if with_count else 0]
+    _build.launch(dev, LAUNCHES, "nnue_head_kernel", "nnue_head_launch", args)
     return logits, count
 
 

@@ -26,7 +26,7 @@ Where one image and the blur's rows fit a block's shared memory
 (`slot_fits`: up to 96×96), the kernel is a persistent grid that walks
 images through one shared-memory slot per block, fed by bulk copies (the
 noise is read only where its gate is on); `ops/_ring.py` sizes the grid
-and launches. A larger image (224×224, or any shape past the slot) takes
+and `ops/_build.py` launches. A larger image (224×224, or any shape past the slot) takes
 the band path (`photometric_band_kernel`, then for the medium variant
 `photometric_stretch_kernel`): one block per band of `band_rows(w)` rows of
 an image, the chain up to posterize per pixel with the per-band min and
@@ -42,10 +42,9 @@ import torch
 from torch.nn import functional as F
 
 from nnue_vision_tpu_torch import tracing
-from nnue_vision_tpu_torch.ops import _ring
+from nnue_vision_tpu_torch.ops import _build, _ring
 
-# Launches since the last reset_launch_counts(); the wrapper adds one where
-# it launches the kernel, and nowhere else.
+# Launches since the last reset_launch_counts(), counted by `_build.launch`.
 LAUNCHES = tracing.counters("photometric_kernel", "photometric_kernel",
                             "photometric_band_kernel")
 
@@ -262,17 +261,16 @@ def _launch(x, noise, fparams, iparams, variant):
         rows = band_rows(w)
         minmax = torch.empty((b * -(-h // rows) * 2 if medium else 0,),
                              dtype=_F32, device=dev)
-        _ring.launch(dev, "photometric_band_kernel", "photometric_band_launch",
-                     head + (rows, minmax.data_ptr() if medium else 0, op))
-        LAUNCHES["photometric_band_kernel"] += 1
+        _build.launch(dev, LAUNCHES, "photometric_band_kernel",
+                      "photometric_band_launch",
+                      head + (rows, minmax.data_ptr() if medium else 0, op))
         return out
     if (xp | op) & 15:
         raise ValueError("photometric_kernel: x must start at a 16-byte "
                          "boundary")
     grid = _ring.grid(dev, b, "photometric_blocks_per_sm", h, w)
-    _ring.launch(dev, "photometric_kernel", "photometric_launch",
-                 head + (grid, op))
-    LAUNCHES["photometric_kernel"] += 1
+    _build.launch(dev, LAUNCHES, "photometric_kernel", "photometric_launch",
+                  head + (grid, op))
     return out
 
 

@@ -29,7 +29,8 @@ arithmetic `warp_kernel` runs.
 their input: a CPU tensor takes the plain version, a CUDA tensor the
 kernel, which launches or raises. The kernels are persistent grids that
 walk images (or tiles of packed rows) through one shared-memory slot per
-block, fed by bulk copies; `ops/_ring.py` sizes the grid and launches.
+block, fed by bulk copies; `ops/_ring.py` sizes the grid and
+`ops/_build.py` launches.
 They take three channels and 16-byte units: an even n for the warp,
 n % 4 == 0 for a single pass.
 """
@@ -41,10 +42,9 @@ from typing import Tuple
 import torch
 
 from nnue_vision_tpu_torch import tracing
-from nnue_vision_tpu_torch.ops import _ring
+from nnue_vision_tpu_torch.ops import _build, _ring
 
-# Launches since the last reset_launch_counts(); the wrapper adds one where
-# it launches the kernel, and nowhere else.
+# Launches since the last reset_launch_counts(), counted by `_build.launch`.
 LAUNCHES = tracing.counters("warp_kernel", "warp_kernel", "lerp_pass_kernel",
                             "nogather_pass_kernel")
 PARAMS = 8
@@ -184,9 +184,8 @@ def _launch(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
         raise ValueError("warp_kernel: x must start at a 16-byte boundary")
     dev = x.device
     grid = _ring.grid(dev, b, "warp_blocks_per_sm", n)
-    _ring.launch(dev, "warp_kernel", "warp_launch",
-                 (xp, b, n, c, params.data_ptr(), grid, op))
-    LAUNCHES["warp_kernel"] += 1
+    _build.launch(dev, LAUNCHES, "warp_kernel", "warp_launch",
+                  (xp, b, n, c, params.data_ptr(), grid, op))
     return out
 
 
@@ -210,10 +209,9 @@ def _pass_launch(x: torch.Tensor, coef: torch.Tensor, n: int, c: int,
     tile_rows = _ring.pass_tile_rows(n)
     grid = _ring.grid(dev, -(-(b * rows) // tile_rows),
                       "lerp_pass_blocks_per_sm", n, tile_rows, int(gather))
-    _ring.launch(dev, kernel, "lerp_pass_launch",
-                 (xp, b, rows, n, c, coef.data_ptr(), int(gather), tile_rows,
-                  grid, op))
-    LAUNCHES[kernel] += 1
+    _build.launch(dev, LAUNCHES, kernel, "lerp_pass_launch",
+                  (xp, b, rows, n, c, coef.data_ptr(), int(gather), tile_rows,
+                   grid, op))
     return out
 
 

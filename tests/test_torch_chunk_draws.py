@@ -10,7 +10,9 @@ K4, 224×224 for the gather) and a data-parallel shard.
 The draws run on one intra-op thread and give the caller's thread count
 back. The 2×2 products (`_mm`) are elementwise and summed from +0, as
 `bmm`'s CPU kernel sums them: equal bit for bit to `m @ x` on matrices
-with zero, −0 and ±1 entries besides floats. The file imports no jax.
+with zero, −0 and ±1 entries besides floats. The fused light chunk's
+`draw_light_params` is held the same way to eight calls over (K, B). The
+file imports no jax.
 """
 
 import pytest
@@ -59,6 +61,52 @@ def test_chunk_draw_equals_per_step_draws(tier, steps, b, hw, shard):
             w = w[mine]
             assert g.dtype == w.dtype and torch.equal(_bits(g), _bits(w))
     assert torch.equal(chunk_gen.get_state(), gen.get_state())
+
+
+def _light_params_per_field(gen, steps, batch, h, w):
+    """The fused chunk's light draws made one generator call a field over
+    (steps, batch), folded to (flip, pf, pi): the derivation
+    `draw_light_params` replaced."""
+    shape = (steps, batch)
+    flip = aug.uniform(gen, shape) < 0.5
+    bc_apply = aug.uniform(gen, shape) < 0.2
+    bright = aug.uniform(gen, shape, -0.1, 0.1)
+    contr = 1.0 + aug.uniform(gen, shape, -0.1, 0.1)
+    alpha = torch.where(bc_apply, contr, 1.0)
+    beta = torch.where(bc_apply, 0.5 - 0.5 * contr + bright, 0.0)
+    pf = torch.stack([alpha, beta], dim=-1).to(torch.float32)
+    cut_apply = aug.uniform(gen, shape) < 0.2
+    frac = aug.uniform(gen, shape, 0.05, 0.051)
+    hh = torch.clamp((frac * h).to(torch.int32), min=1)
+    ww = torch.clamp((frac * w).to(torch.int32), min=1)
+    y0 = (aug.uniform(gen, shape) * (h - hh)).to(torch.int32)
+    x0 = (aug.uniform(gen, shape) * (w - ww)).to(torch.int32)
+    zero = torch.zeros_like(y0)
+    pi = torch.stack([
+        torch.where(cut_apply, y0, zero), torch.where(cut_apply, y0 + hh, zero),
+        torch.where(cut_apply, x0, zero), torch.where(cut_apply, x0 + ww, zero),
+    ], dim=-1).to(torch.int32)
+    return flip, pf, pi
+
+
+@pytest.mark.parametrize("steps,batch,h,w", [
+    (1, 37, 32, 32), (39, 512, 32, 32), (2, 64, 77, 77), (8, 1000, 224, 224)])
+def test_light_params_equal_per_field_draws(steps, batch, h, w):
+    """The fused chunk's `draw_light_params`, one generator call a chunk,
+    against eight calls over (steps, batch): flip, pf and pi bit for bit
+    and the generator's state."""
+    from nnue_vision_tpu_torch.ops.input_pipeline import draw_light_params
+
+    gen = torch.Generator().manual_seed(SEED)
+    calls = aug.DRAWS["host_draw_calls"]
+    got = draw_light_params(gen, steps, batch, h, w)
+    assert aug.DRAWS["host_draw_calls"] - calls == 1
+    want_gen = torch.Generator().manual_seed(SEED)
+    want = _light_params_per_field(want_gen, steps, batch, h, w)
+    for g, w_ in zip(got, want, strict=True):
+        assert g.shape == w_.shape and g.dtype == w_.dtype
+        assert torch.equal(_bits(g), _bits(w_))
+    assert torch.equal(gen.get_state(), want_gen.get_state())
 
 
 def test_draw_batch_is_a_chunk_of_one_step():

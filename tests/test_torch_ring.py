@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from nnue_vision_tpu_torch.ops import _ring
+from nnue_vision_tpu_torch.ops import _build, _ring
 from nnue_vision_tpu_torch.ops import input_pipeline as ip
 from nnue_vision_tpu_torch.ops import photometric_kernel as pk
 from nnue_vision_tpu_torch.ops import warp_kernel as wk
@@ -133,7 +133,7 @@ def test_cpu_tensors_never_plan_or_load(monkeypatch):
         raise AssertionError("a grid was planned for a CPU tensor")
 
     monkeypatch.setattr(_ring, "grid", boom)
-    monkeypatch.setattr(_ring, "library", boom)
+    monkeypatch.setattr(_build, "load_library", boom)
     x = torch.rand((2, 8, 8, 3))
     params = torch.zeros((2, wk.PARAMS))
     params[:, 2] = params[:, 5] = 1.0  # identity maps

@@ -63,7 +63,7 @@ OPT = dict(learning_rate=0.05, weight_decay=1e-4, momentum=0.9,
            max_epochs=1, decay_lr=False, use_cyclical_lr=False)
 # host generator calls of one step's or one chunk's draws, by tier
 CALLS = {"none": 0, "light": 1, "medium": 1, "heavy": 1}
-FUSED_CALLS = 8  # the fused light chunk's `draw_light_params`, a chunk
+FUSED_CALLS = 1  # the fused light chunk's `draw_light_params`, a chunk
 CHUNK = ("chunk.draws", "chunk.pack", "chunk.load", "chunk.eager")
 
 
