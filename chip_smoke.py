@@ -64,7 +64,8 @@ Phases, one line each (any failure raises and exits non-zero):
              norm statistics) → etinynet_quantize → write_etiny → read_etiny,
              and a stress model at full int8 ranges; batches 1, 37, 1024 and
              8192 through etiny_forward_kernel (the stem kernel, K6 one launch
-             per LB block, the tail kernel), each torch.equal to the engine sim
+             per run of its run_plan, the tail kernel), each torch.equal to the
+             engine sim
 14. augment  on synthetic-hard 32×32 images at batch 1024, 512 (a rank's
              shard in 32) and 37: K4 on drawn
              heavy-tier maps, rot90/flip-only maps and out-of-frame maps; K5,
@@ -78,9 +79,11 @@ Phases, one line each (any failure raises and exits non-zero):
 16. launches the kernels launched on their paths (serving: 13, the stem
              and tail once a call; training: 15)
 17. timing   K4, K5 (each variant) and K6 (the whole int8 forward, and its 12
-             LB blocks alone) vs plain at batch 1024 and 8192; K4 and K5 also
-             graph-timed with their host cost per call (the host clock over
-             many enqueues, no sync inside), the 12 blocks at 8192 graph-timed;
+             LB blocks alone, one launch per run) vs plain at batch 1024 and
+             8192; K4 and K5 also graph-timed with their host cost per call
+             (the host clock over many enqueues, no sync inside), the 12
+             blocks at 8192 graph-timed, each run beside its blocks' single
+             launches;
              the stem and tail kernels at 8192×32×32 (0.98M) and at
              1024×224×224 (EtinyNet-1.0, 1,000 classes), each torch.equal to
              its plain version, event-, graph- and host-timed beside it;
@@ -314,7 +317,8 @@ one-rank turns stay eager, as the ranks run.
 Then one JSON line with each kernel's launches, error and times (kernel,
 plain version, the card's bound for the same work and, where one PyTorch
 call computes the same function, that call; K6's are its 12 LB blocks
-alone at batch 8192, graph-timed too, once on the 0.98M model and again,
+alone at batch 8192, one launch per run of its plan, graph-timed too, once
+on the 0.98M model and again,
 as a second entry, on the engine_friendly 0.75 `.etiny` of phase 18, whose
 launches the first entry's count includes; K7's level 3; K1, K2, K3, K4,
 K5, K6, K7, the single pass and K8 also graph-timed, with their host cost
@@ -538,7 +542,8 @@ GRAPH_REPS = 50  # calls per CUDA graph in the graph-timed rows
 K6_HOST_CALLS = 40  # 480 launches: within the launch queue
 # the tensor-core kernels and the bulk-copy kernels, as their names appear
 # (mangled) in the SASS, and the instructions counted there
-TENSOR_CORE_KERNELS = ("etiny_block_kernel", "nnue_mega_kernel", "nnue_head_kernel")
+TENSOR_CORE_KERNELS = ("etiny_block_kernel_run", "etiny_block_kernel", "nnue_mega_kernel",
+                       "nnue_head_kernel")
 BULK_KERNELS = ("light_pipeline_kernel", "warp_kernel", "lerp_pass_kernel",
                 "photometric_kernel")
 SASS_KERNELS = TENSOR_CORE_KERNELS + BULK_KERNELS
@@ -976,28 +981,29 @@ def k6_blocks(kp, ecfg, x: torch.Tensor) -> list:
     return list(zip(inputs, kp["blocks"], ecfg.blocks))
 
 
-def etiny_launch_shapes(kp: dict, ecfg, side: int) -> list:
-    """(h, w, cin, mid, cout, stride) of each K6 launch of a square input
-    of `side`."""
+def k6_plan(kp: dict, batch: int, side: int) -> tuple:
+    """`run_plan` of the model's LB blocks for `batch` square images of
+    `side` on this card."""
     h = (side - 1) // 2 + 1
-    out = []
-    for blk, bs in zip(kp["blocks"], ecfg.blocks):
-        mid, cout = blk["dw"].shape[0], blk["pw_project_w"].shape[0]
-        out.append((h, h, blk["pw_expand_w"].shape[1], mid, cout, bs.stride))
-        h = (h - 1) // bs.stride + 1
-    return out
+    return ek.run_plan(ek.block_shapes(kp["k6_specs"], h, h), batch,
+                       ek.sm_count(torch.cuda.current_device()))
 
 
-def k6_graph_ms(blocks: list, smi: str, tag: str) -> float:
-    """The LB blocks graph-timed together, and each block's tile, shared
-    memory and graph-timed ms printed; returns the blocks' ms."""
+def k6_graph_ms(blocks: list, kp: dict, ecfg, smi: str, tag: str) -> float:
+    """The LB blocks graph-timed together, one launch per run of the plan
+    and as a chain of single-block launches; each block's tile, shared
+    memory and graph-timed ms, and each run's graph-timed ms beside the
+    sum of its blocks', printed; returns the runs' ms."""
     lib = load_library().lib
+    x = blocks[0][0]
+    runs_ms = chained_best_ms(lambda: ek.lb_blocks(x, kp, ecfg), GRAPH_REPS)
     block_ms = chained_best_ms(
         lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in blocks][-1], GRAPH_REPS)
-    tiles = []
+    tiles, ones = [], []
     for a, blk, bs in blocks:
         one_ms = chained_best_ms(lambda a=a, blk=blk, bs=bs: ek.lb_block(a, blk, bs),
                                  GRAPH_REPS)
+        ones.append(one_ms)
         b, h, w, cin = a.shape
         oh, ow = conv_out_hw(h, w, bs.stride)
         mid, cout = blk["dw"].shape[0], blk["pw_project_w"].shape[0]
@@ -1006,18 +1012,29 @@ def k6_graph_ms(blocks: list, smi: str, tag: str) -> float:
         tiles.append(f"{h}x{w}x{cin}->{mid}->{cout}: T={t}, "
                      f"{lib.etiny_block_smem(t, *shape)} B with 2 ring slots, "
                      f"{one_ms:.4f} ms")
-    say("timing", f"{tag} B={blocks[0][0].shape[0]} the {len(blocks)} LB blocks, "
-        f"graph-timed ({GRAPH_REPS} calls per CUDA graph, best of 3): "
-        f"{block_ms:.4f} ms on {smi}; tile, shared memory and graph-timed ms "
-        "per block: " + "; ".join(tiles))
-    return block_ms
+    runs = []
+    for r in k6_plan(kp, x.shape[0], 2 * x.shape[1]):
+        end = r.first + r.count
+        if r.count == 1:
+            runs.append(f"block {r.first} alone {ones[r.first]:.4f} ms")
+            continue
+        run_ms = chained_best_ms(lambda r=r, end=end: ek._launch_run(
+            blocks[r.first][0], [blk for _, blk, _ in blocks[r.first:end]],
+            [bs for _, _, bs in blocks[r.first:end]], r.tile), GRAPH_REPS)
+        runs.append(f"blocks {r.first}-{end - 1} at T={r.tile}: {run_ms:.4f} ms "
+                    f"(their single launches {sum(ones[r.first:end]):.4f} ms)")
+    say("timing", f"{tag} B={x.shape[0]} the {len(blocks)} LB blocks, graph-timed "
+        f"({GRAPH_REPS} calls per CUDA graph, best of 3) on {smi}: "
+        f"{runs_ms:.4f} ms in the plan's runs, {block_ms:.4f} ms as single-block "
+        "launches; per run: " + "; ".join(runs) + "; tile, shared memory and "
+        "graph-timed ms per single-block launch: " + "; ".join(tiles))
+    return runs_ms
 
 
-def k6_host_ms(blocks: list) -> float:
-    """The host's cost of one call of the LB blocks (12 K6 launches), over
-    K6_HOST_CALLS calls with no sync inside."""
-    return host_ms(lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in blocks][-1],
-                   K6_HOST_CALLS)
+def k6_host_ms(blocks: list, kp: dict, ecfg) -> float:
+    """The host's cost of one call of the LB blocks (one K6 launch per run
+    of the plan), over K6_HOST_CALLS calls with no sync inside."""
+    return host_ms(lambda: ek.lb_blocks(blocks[0][0], kp, ecfg), K6_HOST_CALLS)
 
 
 def k6_bound(blocks: list) -> tuple:
@@ -1082,8 +1099,11 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict:
-    return {**nk.LAUNCHES, **ip.LAUNCHES, **ek.LAUNCHES, **wk.LAUNCHES,
-            **pk.LAUNCHES}
+    """Each kernel's launches (K6's counts of band and run launches, parts
+    of its own, left out)."""
+    counts = {**nk.LAUNCHES, **ip.LAUNCHES, **ek.LAUNCHES, **wk.LAUNCHES,
+              **pk.LAUNCHES}
+    return {k: v for k, v in counts.items() if k not in ("band_launches", "run_launches")}
 
 
 def train_run(cfg, model_type: str, log_dir: Path, run_id: str) -> dict:
@@ -1508,10 +1528,11 @@ def imagenet_phases(errs: Errors, smi: str) -> dict:
     np.testing.assert_array_equal(
         eng, as_engine_prints(sim_logits),
         err_msg="224: the engine's logits differ from the sim's as printed")
-    # the same .etiny served through K6: 14 launches, the blocks past shared
-    # memory (112, 56 and 28 on a side) on row bands
+    # the same .etiny served through K6: one launch per run of the plan, the
+    # blocks past shared memory (112, 56 and 28 on a side) alone on row bands
     ikp = ek.etiny_kernel_params(isim, icfg)
-    bands = sum(bool(ek.band_plan(*shape)) for shape in etiny_launch_shapes(ikp, icfg, 224))
+    bands = sum(bool(ek.band_plan(*shape)) for shape in ek.block_shapes(ikp["k6_specs"], 112, 112))
+    iplan = k6_plan(ikp, len(xs), 224)
     before = dict(ek.LAUNCHES)
     k6_logits = ek.etiny_forward_kernel(ikp, xs, cfg=icfg, image_h=224, image_w=224)
     torch.cuda.synchronize()
@@ -1522,9 +1543,10 @@ def imagenet_phases(errs: Errors, smi: str) -> dict:
     np.testing.assert_array_equal(
         eng, as_engine_prints(k6_logits.cpu().numpy()),
         err_msg="224: the engine's logits differ from K6's as printed")
-    check(k6_launches == len(icfg.blocks) == 14 and k6_bands == bands == 9,
-          f"224 K6: {k6_launches} launches, {k6_bands} on bands (the plan: {bands}) "
-          f"for {len(icfg.blocks)} blocks")
+    check(len(icfg.blocks) == 14 and k6_launches == len(iplan)
+          and k6_bands == bands == 9,
+          f"224 K6: {k6_launches} launches ({len(iplan)} runs in the plan), "
+          f"{k6_bands} on bands (the plan: {bands}) for {len(icfg.blocks)} blocks")
     say("imagenet", f"{IMAGENET_CONFIG} (EtinyNet-1.0, {count_parameters(model):,} "
         f"params, 1000 classes, 224x224, float32, medium tier) on "
         f"{IMAGENET_TRAIN_SIZE} synthetic images, 1 epoch of {steps} steps at batch "
@@ -2936,7 +2958,8 @@ def main() -> int:
         + " | ".join(ptxas))
     sass = sass_counts(built.path)
     say("build", "SASS (IMMA, LDGSTS, UBLKCP) per kernel: " + json.dumps(sass))
-    for name in ("etiny_block_kernel<0>", "etiny_block_kernel<1>", "nnue_mega_kernel<4,2,2>",
+    for name in ("etiny_block_kernel<0>", "etiny_block_kernel<1>", "etiny_block_kernel_run",
+                 "nnue_mega_kernel<4,2,2>",
                  "nnue_mega_kernel<4,1,1>", "nnue_head_kernel<2,2>"):
         check(name in sass and sass[name]["IMMA"] > 0 and sass[name]["LDGSTS"] > 0,
               f"{name}: no int8 tensor-core or cp.async instruction in its SASS")
@@ -3242,8 +3265,9 @@ def main() -> int:
             f"({time.perf_counter() - t0:.2f} s)")
     serve_launches = dict(ek.LAUNCHES)
     check(serve_launches["etiny_block_kernel"]
-          == 2 * len(ETINY_SERVE_BATCHES) * len(qe.blocks),
-          f"K6 launches {serve_launches} are not one per LB block and call")
+          == 2 * sum(len(k6_plan(etiny_params["0.98M"][0], b, H))
+                     for b in ETINY_SERVE_BATCHES),
+          f"K6 launches {serve_launches} are not one per run of the plan and call")
     check(serve_launches["etiny_stem_kernel"] == serve_launches["etiny_tail_kernel"]
           == 2 * len(ETINY_SERVE_BATCHES),
           f"stem and tail launches {serve_launches} are not one per call")
@@ -3333,17 +3357,18 @@ def main() -> int:
         }
         blocks = k6_blocks(kp, ecfg, x)
         rows["etiny_block_kernel, the LB blocks alone"] = time_pair(
-            lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in blocks],
+            lambda: ek.lb_blocks(blocks[0][0], kp, ecfg),
             lambda: [ek.lb_block_reference(a, blk, bs) for a, blk, bs in blocks])
         if batch == TIMING_BATCH:
-            extra["etiny_block_kernel"] = (k6_graph_ms(blocks, smi, "0.98M"),
-                                           k6_host_ms(blocks))
+            extra["etiny_block_kernel"] = (k6_graph_ms(blocks, kp, ecfg, smi, "0.98M"),
+                                           k6_host_ms(blocks, kp, ecfg))
             stem_tail_timing(errs, smi, kp, ecfg, x,
                              ("etiny_stem_kernel", "etiny_tail_kernel"),
                              (ms, bounds, extra, library))
         for name, (k, p) in rows.items():
-            what = ("the whole int8 forward (the stem kernel, 12 K6 launches, the "
-                    "tail kernel) vs the sim" if name == "etiny_block_kernel" else name)
+            what = ("the whole int8 forward (the stem kernel, K6 one launch per "
+                    "run, the tail kernel) vs the sim" if name == "etiny_block_kernel"
+                    else name)
             say("timing", f"B={batch} {what}: kernel {k:.4f} ms "
                 f"({batch / k * 1e3:,.0f} img/s), plain {p:.4f} ms "
                 f"({batch / p * 1e3:,.0f} img/s) on {smi}")
@@ -3454,10 +3479,12 @@ def main() -> int:
     errs.max[EF_K6] = st["k6_max_abs_err_vs_sim"]
     check(st["k6_max_abs_err_vs_sim"] == 0.0, "trained ef EtinyNet: K6 differs "
           f"from the sim (max {st['k6_max_abs_err_vs_sim']})")
-    calls = -(-len(ef_val.labels) // 1024)
+    runs = sum(len(k6_plan(fkp, min(1024, len(ef_val.labels) - i), H))
+               for i in range(0, len(ef_val.labels), 1024))
     ef_launches = {"etiny_block_kernel": ek.LAUNCHES["etiny_block_kernel"]}
-    check(ef_launches["etiny_block_kernel"] == 12 * calls,
-          f"K6 launches {ef_launches} are not 12 per call")
+    check(ef_launches["etiny_block_kernel"] == runs,
+          f"K6 launches {ef_launches} are not one per run of the plan and call "
+          f"({runs})")
     n_val = len(ef_val.labels)
     best = ef["epochs"][efpayload["epoch"]]
     check(st["int8_acc"] == best["compiled/accuracy"],
@@ -3501,13 +3528,14 @@ def main() -> int:
                       lambda: etiny_engine_forward(fsim, xf, **fkw))
     fblocks = k6_blocks(fkp, fcfg_e, xf)
     ms[EF_K6] = time_pair(
-        lambda: [ek.lb_block(a, blk, bs) for a, blk, bs in fblocks],
+        lambda: ek.lb_blocks(fblocks[0][0], fkp, fcfg_e),
         lambda: [ek.lb_block_reference(a, blk, bs) for a, blk, bs in fblocks])
-    extra[EF_K6] = (k6_graph_ms(fblocks, smi, "0.75 ef"), k6_host_ms(fblocks))
+    extra[EF_K6] = (k6_graph_ms(fblocks, fkp, fcfg_e, smi, "0.75 ef"),
+                    k6_host_ms(fblocks, fkp, fcfg_e))
     bounds[EF_K6] = k6_bound(fblocks)
     library[EF_K6] = None  # expand, depthwise, project
-    for name, (k, p) in (("the whole int8 forward (12 K6 launches + plain stem/"
-                          "tail) vs the sim", whole),
+    for name, (k, p) in (("the whole int8 forward (the stem kernel, K6 one launch "
+                          "per run, the tail kernel) vs the sim", whole),
                          ("the 12 LB blocks alone", ms[EF_K6])):
         say("timing", f"0.75 ef B={TIMING_BATCH} {name}: kernel {k:.4f} ms "
             f"({TIMING_BATCH / k * 1e3:,.0f} img/s), plain {p:.4f} ms on {smi}; "

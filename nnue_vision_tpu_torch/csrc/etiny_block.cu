@@ -1,4 +1,5 @@
-// One EtinyNet int8 LB block for Hopper (sm_90a), on the int8 tensor cores.
+// EtinyNet int8 LB blocks for Hopper (sm_90a), on the int8 tensor cores:
+// one block a launch, or a run of consecutive blocks a launch.
 //
 //   etiny_block_kernel  replaces nnue_vision_tpu/ops/etiny_pallas.py
 //                       _lb_block_kernel (lb_block_pallas, driven by
@@ -56,17 +57,39 @@
 // shared memory do not depend on the band path. Any block side and stride
 // works on both paths: the output side is (side - 1) / stride + 1.
 //
-// What bounds it now (PERF.md, PR 5): the blocks at 16x16 and 8x8 with 28
-// channels, half of the 12 blocks' time at batch 8192, where the
-// CUDA-core work per row (epilogues, depthwise) and each tile's latencies
-// weigh more than the products; the final block's weights the most of the
-// rest. Loops that read shared or device memory and write shared memory
-// name their regions __restrict__ (they never overlap), so that a value's
-// reads are not held behind the last value's store.
+// Runs of blocks (etiny_block_kernel_run). Launched one block at a time,
+// the blocks at 16x16, 8x8 and 4x4 (b0-b5 of the 0.98M model) took two
+// thirds of the 12 blocks' time at batch 8192: 15,360 blocks of threads,
+// each reading its tile from device memory, streaming two whole 16 KB
+// weight stages and writing its output for the next launch to read back
+// (PERF.md). A run launch carries a tile of images through
+// consecutive blocks: it reads the run's input tile once, each block's
+// pw-project epilogue writes the next block's input into shared memory in
+// the operand layout that block's pw-expand reads (a_stride(cin)), and
+// only the run's last output goes to device memory. The arithmetic is the
+// tile path's, so the run is exact in the same way. Its products copy of
+// each weight stage only what they read and, where a product's stages
+// stay resident, meet the block's barrier once; a product of at most 32
+// columns takes a layout whose every warp holds real columns; the
+// epilogues store two values at a time; the depthwise takes four channels
+// a thread with __dp4a (run_depthwise). The caller
+// (ops/etiny_kernels.py run_plan) picks the runs and their tile, at which
+// every product keeps at least kSuperRows GEMM rows; a run of one block
+// is the single-block launch above, unchanged.
 //
-// C interface (ctypes): the launcher takes one packed argument
-// (launch_args.cuh) and returns cudaGetLastError() after the launch. The
-// kernel launches on the caller's stream and allocates nothing.
+// What bounds it now (PERF.md): the run's CUDA-core work, the
+// depthwise and the epilogues, and its products' latency chains with 8
+// warps a block of threads and 2 blocks an SM; then the final block alone
+// (224 -> 1120 -> 1120), whose 1.5 MB of weights each block of threads
+// streams through the ring. Loops that read shared or device memory and
+// write shared memory name their regions __restrict__ (they never
+// overlap), so that a value's reads are not held behind the last value's
+// store.
+//
+// C interface (ctypes): each launcher (etiny_block_launch, one block;
+// etiny_run_launch, a run) takes one packed argument (launch_args.cuh)
+// and returns cudaGetLastError() after the launch. The kernels launch on
+// the caller's stream and allocate nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -98,6 +121,7 @@ struct BlockArgs {
 };
 
 __host__ __device__ inline int align128(int n) { return round_up(n, 128); }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 // The shared-memory regions of a tile of `tile` images: the input / the
 // depthwise output, the expanded activations / the output tile, the
@@ -250,6 +274,327 @@ etiny_block_kernel(BlockArgs a) {
   }
 }
 
+// ---- Runs of blocks (etiny_block_kernel_run) ------------------------------
+
+constexpr int kMaxRun = 16;  // blocks a run carries at most
+constexpr int kNarrow = 32;  // a product with at most this many columns takes <1, 4, 32>
+
+// One block of a run: its shape, its scales' log2, its weights, and where
+// its bias and depthwise weights lie in the run's constants.
+struct RunBlock {
+  const uint8_t* we;
+  const int* be;
+  const int8_t* dw;
+  const uint8_t* wp;
+  int h, w, cin, mid, cout, stride, oh, ow;
+  int k_expand, k_dw, k_project;
+  int consts;  // byte offset in the constants region
+};
+
+struct RunArgs {
+  const int8_t* x;  // (batch, h, w, cin) of the run's first block
+  int8_t* out;      // (batch, oh, ow, cout) of its last
+  int batch, tile, slots, n;
+  int q, consts, ring;  // byte offsets of region Q, the constants and the ring
+  RunBlock b[kMaxRun];
+};
+
+// The shared memory of a run at `tile` images (host side; the launcher
+// hands the kernel the offsets). Two regions take turns: block k reads its
+// input from one (P for even k) and leaves its depthwise output there;
+// its expanded activations, then its output, go to the other, in the
+// operand layout that block k + 1's pw-expand reads (the run's last
+// output densely, for the copy out). Then every block's bias and
+// depthwise weights, then the weight ring.
+struct RunSmem {
+  int p, q, consts, slots_used, total;
+  RunSmem(int tile, const int (*shape)[6], int n, int slots) {
+    int reg[2] = {0, 0};
+    consts = slots_used = 0;
+    for (int k = 0; k < n; ++k) {
+      const int h = shape[k][0], w = shape[k][1], cin = shape[k][2], mid = shape[k][3];
+      const int cout = shape[k][4], stride = shape[k][5];
+      const int oh = (h - 1) / stride + 1, ow = (w - 1) / stride + 1;
+      const int rows = round_up(tile * h * w, kSuperRows);
+      const int orows = round_up(tile * oh * ow, kSuperRows);
+      const int in = imax(a_region(rows, cin), a_region(orows, mid));
+      const int out = imax(rows * mid, k + 1 < n ? a_region(orows, cout) : orows * cout);
+      reg[k & 1] = imax(reg[k & 1], in);
+      reg[~k & 1] = imax(reg[~k & 1], out);
+      consts += align128(4 * mid) + align128(9 * mid);
+      slots_used = imax(slots_used,
+                        imax(ring_slots((mid + kCols - 1) / kCols * k_stages(cin), slots),
+                             ring_slots((cout + kCols - 1) / kCols * k_stages(mid), slots)));
+    }
+    p = align128(reg[0]);
+    q = align128(reg[1]);
+    total = p + q + consts + slots_used * kSlotBytes;
+  }
+};
+
+// f(row, col, value at col, value at col + 1, cv(col), cv(col + 1)) for
+// each pair of neighbouring columns a thread holds (cv read first).
+template <int kMW, int kNW, class CV, class F>
+__device__ inline void for_each_pair(const int (&acc)[kMW][kNW][4], int row0, int col0, CV&& cv,
+                                     F&& f) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  int v[kNW][2];
+#pragma unroll
+  for (int j = 0; j < kNW; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) v[j][e] = cv(col0 + j * 8 + 2 * t + e);
+#pragma unroll
+  for (int i = 0; i < kMW; ++i)
+#pragma unroll
+    for (int j = 0; j < kNW; ++j) {
+      const int r = row0 + i * 16 + g, c = col0 + j * 8 + 2 * t;
+      f(r, c, acc[i][j][0], acc[i][j][1], v[j][0], v[j][1]);
+      f(r + 8, c, acc[i][j][2], acc[i][j][3], v[j][0], v[j][1]);
+    }
+}
+
+// clamp(v / 2^k, 0, 6) with C's truncating division: for v < 0 both the
+// truncated and the floored quotient clamp to 0, so a shift does.
+__device__ inline int relu6_shift(int v, int k) { return min(max(v >> k, 0), 6); }
+
+// Two int8 values at dst[0] and dst[1]: one 16-bit store where both
+// columns exist and the address is even, else a byte each that exists.
+__device__ inline void store_pair(int8_t* dst, int c, int n, int q0, int q1) {
+  if (c + 1 < n && (reinterpret_cast<uintptr_t>(dst) & 1) == 0) {
+    *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>((q0 & 0xff) | ((q1 & 0xff) << 8));
+  } else if (c < n) {
+    dst[0] = static_cast<int8_t>(q0);
+    if (c + 1 < n) dst[1] = static_cast<int8_t>(q1);
+  }
+}
+
+// C = A . W^T for a block's product, n columns of k bytes, with the
+// layout its width calls for; each stage copied only as far as read.
+template <class Before, class Epi>
+__device__ inline void run_product(const int8_t* a, int lda, int rows, const uint8_t* w, int k,
+                                   int n, unsigned char* ring, int slots, Before&& before,
+                                   Epi&& epi) {
+  const int n_super = (rows + kSuperRows - 1) / kSuperRows;
+  if (n <= kNarrow)
+    stream_gemm<1, 4, kNarrow, true>(a, lda, n_super, w, Chunks{0, 1, 1}, k, n, k_stages(k), 0,
+                                     ring, slots, blockIdx.x, before, epi);
+  else
+    stream_gemm<2, 2, kCols, true>(a, lda, n_super, w, Chunks{0, 1, (n + kCols - 1) / kCols}, k,
+                                   n, k_stages(k), 0, ring, slots, blockIdx.x, before, epi);
+}
+
+// The 4x4 byte transpose: o[c] byte i = byte c of the i-th word.
+__device__ inline void transpose4(uint32_t q0, uint32_t q1, uint32_t q2, uint32_t q3,
+                                  uint32_t (&o)[4]) {
+  const uint32_t x01 = __byte_perm(q0, q1, 0x5140), y01 = __byte_perm(q2, q3, 0x5140);
+  const uint32_t x23 = __byte_perm(q0, q1, 0x7362), y23 = __byte_perm(q2, q3, 0x7362);
+  o[0] = __byte_perm(x01, y01, 0x5410);
+  o[1] = __byte_perm(x01, y01, 0x7632);
+  o[2] = __byte_perm(x23, y23, 0x5410);
+  o[3] = __byte_perm(x23, y23, 0x7632);
+}
+
+// 3x3 depthwise, zero padding, at `stride`, of n_img images of h x w
+// positions in h1 (mid values a row, dense) into h2 (ldh bytes a row);
+// /2^k_dw, clamp [0, 6]. A thread takes one group of channels (four where
+// mid allows, else one) at positions p0, p0 + step, ..., its weights held
+// in registers; it walks the positions by carries, with no division in
+// the loop. Four channels are read as one word a tap; the four words of
+// taps 0-3 (and of 4-7) are transposed with byte permutes into one word a
+// channel, so that __dp4a sums four taps at once, and tap 8's word meets
+// a weight word that holds the channel's weight at its own byte. Values
+// 0..6 times int8 weights, nine a sum: exact in int32.
+__device__ inline void run_depthwise(const int8_t* __restrict__ h1, const int8_t* __restrict__ wdw,
+                                     int8_t* __restrict__ h2, int ldh, int n_img, int h, int w,
+                                     int oh, int ow, int mid, int stride, int k_dw) {
+  const bool quads = (mid & 3) == 0;
+  const int groups = quads ? mid >> 2 : mid;
+  const int step = groups < kThreads ? kThreads / groups : 1;  // positions in parallel
+  const int ohw = oh * ow, total = n_img * ohw;
+  const int di = step / ohw, dy = (step - di * ohw) / ow, dx = step - di * ohw - dy * ow;
+  // tap t's offset from the window's first tap; the centre tap lies in
+  // the image at any stride, so only the outer rows and columns are tested
+  int off[9];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) off[t] = ((t / 3) * w + t % 3) * mid;
+  // (img, oy, ox) of the position `step` further on
+  auto advance = [&](int& img, int& oy, int& ox) {
+    ox += dx;
+    if (ox >= ow) { ox -= ow; ++oy; }
+    oy += dy;
+    if (oy >= oh) { oy -= oh; ++img; }
+    img += di;
+  };
+  for (int item = threadIdx.x; item < groups * step; item += kThreads) {
+    const int g = item % groups, p0 = item / groups;
+    int img = p0 / ohw, oy = (p0 - img * ohw) / ow, ox = p0 - img * ohw - oy * ow;
+    if (quads) {
+      uint32_t w0[4], w1[4], w2[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int8_t* wc = wdw + (4 * g + c) * 9;
+        uint32_t a = 0, b = 0;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          a |= static_cast<uint32_t>(static_cast<uint8_t>(wc[t])) << (8 * t);
+          b |= static_cast<uint32_t>(static_cast<uint8_t>(wc[4 + t])) << (8 * t);
+        }
+        w0[c] = a;
+        w1[c] = b;
+        w2[c] = static_cast<uint32_t>(static_cast<uint8_t>(wc[8])) << (8 * c);
+      }
+      for (int p = p0; p < total; p += step) {
+        const int iy0 = oy * stride - 1, ix0 = ox * stride - 1;
+        const int8_t* win = h1 + ((img * h + iy0) * w + ix0) * mid + 4 * g;
+        const bool rows_ok[3] = {iy0 >= 0, true, iy0 + 2 < h};
+        const bool cols_ok[3] = {ix0 >= 0, true, ix0 + 2 < w};
+        uint32_t v[9];
+#pragma unroll
+        for (int t = 0; t < 9; ++t)
+          v[t] = rows_ok[t / 3] && cols_ok[t % 3]
+                     ? *reinterpret_cast<const uint32_t*>(win + off[t])
+                     : 0u;
+        // one word a channel: taps 0-3 (t) and 4-7 (u), tap i at byte i
+        uint32_t t[4], u[4];
+        transpose4(v[0], v[1], v[2], v[3], t);
+        transpose4(v[4], v[5], v[6], v[7], u);
+        uint32_t packed = 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int acc = __dp4a(static_cast<int>(t[c]), static_cast<int>(w0[c]),
+                                 __dp4a(static_cast<int>(u[c]), static_cast<int>(w1[c]),
+                                        __dp4a(static_cast<int>(v[8]), static_cast<int>(w2[c]), 0)));
+          packed |= static_cast<uint32_t>(relu6_shift(acc, k_dw)) << (8 * c);
+        }
+        *reinterpret_cast<uint32_t*>(h2 + p * ldh + 4 * g) = packed;
+        advance(img, oy, ox);
+      }
+    } else {
+      int wt[9];
+#pragma unroll
+      for (int t = 0; t < 9; ++t) wt[t] = wdw[g * 9 + t];
+      for (int p = p0; p < total; p += step) {
+        const int iy0 = oy * stride - 1, ix0 = ox * stride - 1;
+        const int8_t* win = h1 + ((img * h + iy0) * w + ix0) * mid + g;
+        const bool rows_ok[3] = {iy0 >= 0, true, iy0 + 2 < h};
+        const bool cols_ok[3] = {ix0 >= 0, true, ix0 + 2 < w};
+        int acc = 0;
+#pragma unroll
+        for (int t = 0; t < 9; ++t)
+          if (rows_ok[t / 3] && cols_ok[t % 3]) acc += static_cast<int>(win[off[t]]) * wt[t];
+        h2[p * ldh + g] = static_cast<int8_t>(relu6_shift(acc, k_dw));
+        advance(img, oy, ox);
+      }
+    }
+  }
+}
+
+// A tile of a.tile images through the a.n consecutive blocks of a run:
+// each block's steps 1-4 as the tile path's, its output written by the
+// pw-project epilogue straight into shared memory as the next block's
+// input; only the last block's output goes to device memory.
+__global__ void __launch_bounds__(kThreads)
+etiny_block_kernel_run(const __grid_constant__ RunArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* const rp = reinterpret_cast<int8_t*>(smem);
+  int8_t* const rq = reinterpret_cast<int8_t*>(smem + a.q);
+  unsigned char* const consts = smem + a.consts;
+  unsigned char* const ring = smem + a.ring;
+  const int img0 = blockIdx.x * a.tile;
+  const int n_img = min(a.tile, a.batch - img0);
+
+  for (int k = 0; k < a.n; ++k) {
+    const RunBlock& b = a.b[k];
+    int8_t* const in = k & 1 ? rq : rp;   // the input, then the depthwise output
+    int8_t* const oth = k & 1 ? rp : rq;  // the expansion, then the output
+    const int rows = n_img * b.h * b.w, orows = n_img * b.oh * b.ow;
+    const int ldo = k + 1 < a.n ? a_stride(b.cout) : b.cout;
+    const int* s_be = reinterpret_cast<const int*>(consts + b.consts);
+    const int8_t* s_dw = reinterpret_cast<const int8_t*>(consts + b.consts + align128(4 * b.mid));
+
+    // 1 + 2. (first block) every block's bias and depthwise weights and the
+    // run's input tile land while the first weight stages load; pw-expand
+    // + bias, /s_expand, ReLU6 into `oth`.
+    auto load_in = [&] {
+      if (k != 0) return;
+      for (int j = 0; j < a.n; ++j) {
+        const RunBlock& c = a.b[j];
+        unsigned char* be = consts + c.consts;
+        unsigned char* dw = be + align128(4 * c.mid);
+        for (int m = threadIdx.x; m < c.mid; m += kThreads) cp_async4(be + 4 * m, c.be + m);
+        if ((c.mid & 3) == 0) {
+          for (int e = threadIdx.x; e < c.mid * 9 / 4; e += kThreads)
+            cp_async4(dw + 4 * e, c.dw + 4 * e);
+        } else {
+          for (int e = threadIdx.x; e < c.mid * 9; e += kThreads)
+            reinterpret_cast<int8_t*>(dw)[e] = c.dw[e];
+        }
+      }
+      const int8_t* xg = a.x + static_cast<size_t>(img0) * b.h * b.w * b.cin;
+      const int ldx = a_stride(b.cin);
+      if ((b.cin & 3) == 0) {
+        // word e of the tile is row r's word c; the walk adds kThreads
+        const int words = b.cin >> 2, dr = kThreads / words, dc = kThreads - dr * words;
+        int r = threadIdx.x / words, c = threadIdx.x - r * words;
+        for (int e = threadIdx.x; e < rows * words; e += kThreads) {
+          cp_async4(in + r * ldx + 4 * c, xg + 4 * e);
+          r += dr;
+          c += dc;
+          if (c >= words) { c -= words; ++r; }
+        }
+      } else {
+        for (int e = threadIdx.x; e < rows * b.cin; e += kThreads) {
+          const int r = e / b.cin, c = e - r * b.cin;
+          in[r * ldx + c] = xg[e];
+        }
+      }
+      // everything above, and the first weight stages, landed
+      cp_async_commit();
+      cp_async_wait<0>();
+    };
+    run_product(in, a_stride(b.cin), rows, b.we, b.cin, b.mid, ring, a.slots, load_in,
+                [&](int, int c, const auto& acc, int row0, int col0) {
+                  for_each_pair(
+                      acc, row0, c * kCols + col0, [&](int m) { return m < b.mid ? s_be[m] : 0; },
+                      [&](int r, int m, int v0, int v1, int b0, int b1) {
+                        if (r < rows)
+                          store_pair(oth + r * b.mid + m, m, b.mid,
+                                     relu6_shift(v0 + b0, b.k_expand),
+                                     relu6_shift(v1 + b1, b.k_expand));
+                      });
+                });
+
+    // 3. depthwise from `oth` into `in` (the input is dead)
+    run_depthwise(oth, s_dw, in, a_stride(b.mid), n_img, b.h, b.w, b.oh, b.ow, b.mid, b.stride,
+                  b.k_dw);
+    __syncthreads();
+
+    // 4. pw-project, /s_project, clamp +-127 into `oth` (the expansion is
+    // dead): the next block's input, or the run's output tile
+    run_product(in, a_stride(b.mid), orows, b.wp, b.mid, b.cout, ring, a.slots, [] {},
+                [&](int, int c, const auto& acc, int row0, int col0) {
+                  for_each_pair(acc, row0, c * kCols + col0, [](int) { return 0; },
+                                [&](int r, int o, int v0, int v1, int, int) {
+                                  if (r < orows)
+                                    store_pair(oth + r * ldo + o, o, b.cout,
+                                               clampi(tdiv_pow2(v0, b.k_project), -127, 127),
+                                               clampi(tdiv_pow2(v1, b.k_project), -127, 127));
+                                });
+                });
+  }
+
+  const RunBlock& l = a.b[a.n - 1];
+  const int8_t* os = a.n & 1 ? rq : rp;
+  int8_t* og = a.out + static_cast<size_t>(img0) * l.oh * l.ow * l.cout;
+  const int bytes = n_img * l.oh * l.ow * l.cout;
+  if (((reinterpret_cast<uintptr_t>(og) | bytes) & 15) == 0) {
+    for (int e = threadIdx.x; e < (bytes >> 4); e += blockDim.x)
+      reinterpret_cast<int4*>(og)[e] = reinterpret_cast<const int4*>(os)[e];
+  } else {
+    for (int e = threadIdx.x; e < bytes; e += blockDim.x) og[e] = os[e];
+  }
+}
+
 // log2 of a power of two in 1..2^30, else -1 (the engine sim's scales are
 // powers of two: ops/engine_sim.py _check_pow2).
 int log2_exact(int s) {
@@ -272,6 +617,16 @@ cudaError_t allow_max_smem() {
   if (done) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
       etiny_block_kernel<kBand>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  done = err == cudaSuccess;
+  return err;
+}
+
+// Lets etiny_block_kernel_run take kMaxSmem bytes, once per process.
+cudaError_t allow_max_smem_run() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      etiny_block_kernel_run, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   done = err == cudaSuccess;
   return err;
 }
@@ -369,6 +724,73 @@ int etiny_block_launch(const int64_t* p) {
     etiny_block_kernel<true><<<blocks, kThreads, smem, s>>>(a);
   else
     etiny_block_kernel<false><<<blocks, kThreads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory of a run at `tile` images with the fewest ring slots (2),
+// in bytes; -1 for a run of no blocks or of more than kMaxRun. p = [tile,
+// n, then n x (h, w, cin, mid, cout, stride)].
+int etiny_run_smem(const int64_t* p) {
+  ArgReader r{p};
+  const int tile = r.i(), n = r.i();
+  if (tile <= 0 || n <= 0 || n > kMaxRun) return -1;
+  int shape[kMaxRun][6];
+  for (int k = 0; k < n; ++k)
+    for (int f = 0; f < 6; ++f) shape[k][f] = r.i();
+  return RunSmem(tile, shape, n, 2).total;
+}
+
+// One launch of a run of 2 to kMaxRun consecutive tile-path blocks, each
+// block of threads a tile of `tile` images through all of them (the
+// caller's plan, ops/etiny_kernels.py run_plan, picks the run and the
+// tile, which must fit with 2 ring slots). a = [x, batch, tile, n, then n
+// x (h, w, cin, mid, cout, stride, s_expand, s_dw, s_project, we, be, dw,
+// wp), out, stream]; each block's input is the block before it's output.
+int etiny_run_launch(const int64_t* p) {
+  ArgReader r{p};
+  RunArgs a;
+  a.x = r.ptr<const int8_t>();
+  a.batch = r.i();
+  a.tile = r.i();
+  a.n = r.i();
+  if (a.batch <= 0 || a.tile <= 0 || a.n < 2 || a.n > kMaxRun)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int shape[kMaxRun][6];
+  int consts = 0;
+  for (int k = 0; k < a.n; ++k) {
+    RunBlock& b = a.b[k];
+    b.h = r.i(); b.w = r.i(); b.cin = r.i(); b.mid = r.i(); b.cout = r.i(); b.stride = r.i();
+    b.k_expand = log2_exact(r.i());
+    b.k_dw = log2_exact(r.i());
+    b.k_project = log2_exact(r.i());
+    b.we = r.ptr<const uint8_t>();
+    b.be = r.ptr<const int>();
+    b.dw = r.ptr<const int8_t>();
+    b.wp = r.ptr<const uint8_t>();
+    if (b.h <= 0 || b.w <= 0 || b.cin <= 0 || b.mid <= 0 || b.cout <= 0 || b.stride <= 0 ||
+        b.k_expand < 0 || b.k_dw < 0 || b.k_project < 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    b.oh = (b.h - 1) / b.stride + 1;
+    b.ow = (b.w - 1) / b.stride + 1;
+    if (k > 0 && (b.h != a.b[k - 1].oh || b.w != a.b[k - 1].ow || b.cin != a.b[k - 1].cout))
+      return static_cast<int>(cudaErrorInvalidValue);
+    b.consts = consts;
+    consts += align128(4 * b.mid) + align128(9 * b.mid);
+    const int row[6] = {b.h, b.w, b.cin, b.mid, b.cout, b.stride};
+    for (int f = 0; f < 6; ++f) shape[k][f] = row[f];
+  }
+  a.out = r.ptr<int8_t>();
+  const cudaStream_t s = r.ptr<CUstream_st>();
+  if (RunSmem(a.tile, shape, a.n, 2).total > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  a.slots = kMaxSlots;
+  while (a.slots > 2 && RunSmem(a.tile, shape, a.n, a.slots).total > kMaxSmem) --a.slots;
+  const RunSmem sm(a.tile, shape, a.n, a.slots);
+  a.q = sm.p;
+  a.consts = sm.p + sm.q;
+  a.ring = sm.p + sm.q + sm.consts;
+  const cudaError_t err = allow_max_smem_run();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  etiny_block_kernel_run<<<(a.batch + a.tile - 1) / a.tile, kThreads, sm.total, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

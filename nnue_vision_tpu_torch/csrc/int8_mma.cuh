@@ -125,13 +125,16 @@ __device__ inline void mma_16832(int (&c)[4], const uint32_t (&a)[4], uint32_t b
   }
 }
 
-// The warps' layout over one super-tile of kRows rows x kCols columns:
-// kWM warps down, 8 / kWM across; each warp owns kMW x kNW fragments of
-// 16 x 8. <2, 2> covers 64 rows, <2, 1> 32 and <1, 1> 16.
-template <int kMW, int kWM>
+// The warps' layout over one super-tile of kRows rows x kChunkCols
+// columns: kWM warps down, 8 / kWM across; each warp owns kMW x kNW
+// fragments of 16 x 8. <2, 2> covers 64 rows, <2, 1> 32 and <1, 1> 16, all
+// a whole chunk of 128 columns; <1, 4, 32> covers 64 rows of the first 32
+// columns, for a product whose N is at most 32 (every warp then holds
+// columns that exist).
+template <int kMW, int kWM, int kChunkCols = kCols>
 struct Layout {
   static constexpr int kWarpsN = 8 / kWM;
-  static constexpr int kNW = kCols / 8 / kWarpsN;
+  static constexpr int kNW = kChunkCols / 8 / kWarpsN;
   static constexpr int kRows = kMW * kWM * 16;
   static_assert(kNW % 2 == 0, "ldmatrix.x4 loads two 8-column fragments");
 };
@@ -190,6 +193,19 @@ __device__ inline void load_stage(unsigned char* slot, const uint8_t* src) {
   }
 }
 
+// The part of a stage a product reads: its first `cols` columns (a
+// multiple of 32) and `bytes` K-bytes of each (a multiple of 32, with the
+// zero padding up to it). The rest of the slot keeps what it held: it
+// meets only columns that the epilogue drops, or K past the product's.
+__device__ inline void load_stage_cut(unsigned char* slot, const uint8_t* src, int cols,
+                                      int bytes) {
+  const int per_col = bytes >> 4;
+  for (int p = threadIdx.x; p < cols * per_col; p += kThreads) {
+    const int c = p / per_col, piece = p - c * per_col;
+    cp_async16(slot + c * kSlotRow + piece * 16, src + c * kStageK + piece * 16);
+  }
+}
+
 // The chunks of 128 columns of W a product covers: first, first + step, ...
 struct Chunks {
   int first, step, count;
@@ -207,13 +223,19 @@ struct Chunks {
 // once between issuing the first loads and the first wait: the A operand
 // may be written then. The ring holds ring_slots(ch.count * k_steps,
 // max_slots) slots. Every thread of the block calls this; it starts and
-// ends with the ring free.
-template <int kMW, int kWM, class Before, class Epi>
+// ends with the ring free. kChunkCols is the layout's (a narrow layout
+// takes one chunk, N <= 32). kLean: each stage is copied only as far as
+// the product reads it (load_stage_cut), and a product whose stages all
+// stay resident meets the block's barrier once, when they have landed
+// (its epilogue then holds no barrier and writes nothing the product
+// reads); else whole stages and a barrier every stage.
+template <int kMW, int kWM, int kChunkCols = kCols, bool kLean = false, class Before,
+          class Epi>
 __device__ void stream_gemm(const int8_t* a, int lda, int n_super, const uint8_t* w,
                             Chunks ch, int k_bytes, int n_cols, int chunk_steps, int u8_cols,
                             unsigned char* ring, int max_slots, int rot, Before&& before,
                             Epi&& epi) {
-  using L = Layout<kMW, kWM>;
+  using L = Layout<kMW, kWM, kChunkCols>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp / L::kWarpsN, wn = warp % L::kWarpsN;
   const int n_chunks = ch.count;
@@ -231,9 +253,16 @@ __device__ void stream_gemm(const int8_t* a, int lda, int n_super, const uint8_t
   int lc = c0, ls = s0, ln = 0, lq = 0, lslot = 0;
   auto load_next = [&] {
     if (lq < loads) {
-      load_stage(ring + lslot * kSlotBytes,
-                 w + (static_cast<size_t>(ch.first + ch.step * lc) * chunk_steps + ls) *
-                         kStageBytes);
+      const int chunk = ch.first + ch.step * lc;
+      unsigned char* slot = ring + lslot * kSlotBytes;
+      const uint8_t* src = w + (static_cast<size_t>(chunk) * chunk_steps + ls) * kStageBytes;
+      if constexpr (kLean) {
+        const int cols = n_cols - chunk * kCols, bytes = k_bytes - ls * kStageK;
+        load_stage_cut(slot, src, cols < kCols ? round_up(cols, 32) : kCols,
+                       bytes < kStageK ? round_up(bytes, kDepth) : kStageK);
+      } else {
+        load_stage(slot, src);
+      }
       ls = wrap(ls, k_steps);
       if (++ln == k_steps) {
         ln = 0;
@@ -262,7 +291,8 @@ __device__ void stream_gemm(const int8_t* a, int lda, int n_super, const uint8_t
   for (int q = 0; q < total; ++q) {
     if (!resident) cp_async_wait_upto(slots - 2);
     else if (q == 0) cp_async_wait<0>();
-    __syncthreads();  // stage q landed for all; the slot of stage q - 1 is free
+    // stage q landed for all; the slot of stage q - 1 is free
+    if (!(kLean && resident) || q == 0) __syncthreads();
     if (!resident) load_next();
 
     const unsigned char* slot = ring + cslot * kSlotBytes;

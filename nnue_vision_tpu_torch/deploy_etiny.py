@@ -8,7 +8,7 @@ float one.
 The checkpoint's model (this package's or the JAX package's pickle) goes
 through `etinynet_quantize` into a `.etiny` file (`--out`, or a temporary
 one), which is read back and run by `etiny_forward_kernel`, one K6 launch
-per LB block, on the first `--max_samples` images of the config's val
+per run of consecutive LB blocks, on the first `--max_samples` images of the config's val
 split (the test split the training loop evaluates, drawn from the config's
 dataset and `--seed`). The float model runs in eval mode on the same
 images, in float32 (TF32 off, as in training). Prints one JSON object: the
@@ -64,7 +64,7 @@ def deploy(model: EtinyNet, etiny_path: Path) -> Tuple:
 
 def score(model: EtinyNet, kparams: Dict, sim: Dict, cfg, images: np.ndarray,
           labels: np.ndarray, batch: int = 1024) -> Dict:
-    """The int8 forward (K6, one launch per LB block and batch) against the
+    """The int8 forward (K6, one launch per run of LB blocks and batch) against the
     float model in eval mode on (images (N, H, W, 3) in [0, 1], labels
     (N,)); on the card each int8 batch is also held to the engine sim."""
     dev = next(model.parameters()).device

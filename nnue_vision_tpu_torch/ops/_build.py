@@ -52,10 +52,11 @@ SIGNATURES = {
     "photometric_blocks_per_sm": ([_I] * 2, _I),
     "etiny_block_smem": ([_I] * 8, _I),
     "etiny_block_tile": ([_I] * 8, _I),
+    "etiny_run_smem": ([_P], _I),
 }
-# words of the packed argument: the widest launcher's, nnue_mega_launch's
-# 36, and the stream
-WORDS = 37
+# words of the packed argument: the widest launcher's, etiny_run_launch's
+# for a run of 16 blocks (4 + 16 x 13 + the output), and the stream
+WORDS = 214
 
 
 class Built(NamedTuple):

@@ -1,15 +1,25 @@
-"""EtinyNet int8 serving with hand-written Hopper kernels: the stem, one
-kernel per LB block (K6), and the pool and classifier.
+"""EtinyNet int8 serving with hand-written Hopper kernels: the stem, the LB
+blocks (K6) in runs of consecutive blocks, and the pool and classifier.
 
 Port of `nnue_vision_tpu/ops/etiny_pallas.py:90-339`. `etiny_forward_kernel`
 is the counterpart of `etiny_forward_pallas`: the stem conv is one launch of
-`etiny_stem_kernel`, every LB block one launch of `etiny_block_kernel`
-(`csrc/etiny_block.cu`), which computes the block at its stride in int32
-with C truncating division, and the global pool and the classifier one
-launch of `etiny_tail_kernel` (`csrc/etiny_stem.cu`; the JAX package runs
-the stem, pool and classifier in XLA). The logits equal
-`etiny_engine_forward`'s, and the C++ `etinynet_inference` binary's, bit
-for bit.
+`etiny_stem_kernel`; the LB blocks are launches of `etiny_block_kernel`
+(`csrc/etiny_block.cu`), which computes each block at its stride in int32
+with C truncating division, one launch per run of `run_plan`; and the
+global pool and the classifier one launch of `etiny_tail_kernel`
+(`csrc/etiny_stem.cu`; the JAX package runs the stem, pool and classifier
+in XLA). The logits equal `etiny_engine_forward`'s, and the C++
+`etinynet_inference` binary's, bit for bit.
+
+A run of several blocks is one launch whose every block of threads carries
+a tile of images through all of them, each block's output written into
+shared memory as the next block's input; only the run's last output goes
+to device memory. `run_plan` cuts the blocks into runs from their shapes
+and the batch alone: a band-path block runs alone; a block joins the run
+before it while the run's tile keeps every product of the run at least
+`_SUPER_ROWS` GEMM rows, fills the SMs and fits in shared memory with 2
+weight-ring slots at every block boundary (`run_smem`, the library's
+layout); a run of one block is the single-block launch, unchanged.
 
 As in the JAX package, a model with a stride-2 dense block (the engine's
 dim-preservation quirk, which the serializer never emits) is refused by
@@ -38,7 +48,7 @@ forward is the sim, `etiny_engine_forward`.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -56,9 +66,10 @@ from nnue_vision_tpu_torch.ops.nnue_kernels import mma_tiles
 from nnue_vision_tpu_torch.tracing import span
 
 # Launches since the last reset_launch_counts(), counted by `_build.launch`;
-# `band_launches` counts the K6 launches that took the band path.
+# `band_launches` counts the K6 launches that took the band path,
+# `run_launches` those that carried more than one block.
 LAUNCHES = tracing.counters("etiny_kernels", "etiny_block_kernel", "band_launches",
-                            "etiny_stem_kernel", "etiny_tail_kernel")
+                            "run_launches", "etiny_stem_kernel", "etiny_tail_kernel")
 
 INT32_MAX = 2**31 - 1
 # csrc/etiny_stem.cu: the stem's int16 operand of __dp2a caps its int32
@@ -66,11 +77,16 @@ INT32_MAX = 2**31 - 1
 STEM_Q_CAP = 32767
 _STEM_CHUNK, _STEM_PAIRS = 8, 14
 
-# csrc/etiny_block.cu's shared memory (kMaxSmem, its Smem regions) and
-# int8_mma.cuh's ring slots, in bytes
+# csrc/etiny_block.cu's shared memory (kMaxSmem, its Smem regions), GEMM
+# rows a tile aims for (kRowTarget), blocks a run carries at most
+# (kMaxRun), and int8_mma.cuh's ring slots, in bytes
 MAX_SMEM = 232448
 _SUPER_ROWS = 64
+_ROW_TARGET = 256
+MAX_RUN = 16
 _SLOT_BYTES = 128 * (128 + 16)
+# the SMs of the H100, for a plan made for a tensor on no card
+H100_SMS = 132
 
 
 def reset_launch_counts() -> None:
@@ -100,6 +116,107 @@ def block_smem(tile: int, h: int, w: int, cin: int, mid: int, cout: int,
     expand = min(-(-mid // 128) * (_round_up(cin, 128) // 128), slots)
     project = min(-(-cout // 128) * (_round_up(mid, 128) // 128), slots)
     return x_and_h2 + h1 + consts + max(expand, project) * _SLOT_BYTES
+
+
+def _ring_slots(n: int, k: int, slots: int) -> int:
+    """Ring slots of a product of n columns over k bytes (int8_mma.cuh
+    ring_slots): its stages a super-tile, `slots` at most."""
+    return min(-(-n // 128) * (_round_up(k, 128) // 128), slots)
+
+
+def block_tile(batch: int, h: int, w: int, cin: int, mid: int, cout: int,
+               oh: int, ow: int, sms: int = H100_SMS) -> int:
+    """Images per block of threads of a single-block launch on the tile
+    path (the library's `etiny_block_tile` on a card of `sms` SMs): about
+    `_ROW_TARGET` GEMM rows, no more than fill the SMs, no more than fit
+    with 2 ring slots; 0 where one image does not fit."""
+    tile = min(max(1, _ROW_TARGET // (h * w)), -(-batch // sms))
+    while tile > 0 and block_smem(tile, h, w, cin, mid, cout, oh, ow) > MAX_SMEM:
+        tile -= 1
+    return tile
+
+
+def run_smem(tile: int, shapes, slots: int = 2) -> int:
+    """Shared memory of one block of threads of a run launch, in bytes (the
+    library's `etiny_run_smem` gives it at 2 slots): `tile` images through
+    the blocks of `shapes`, each (h, w, cin, mid, cout, stride). Two
+    regions take turns: block k's input and depthwise output in one, its
+    expansion and output (as the next block's operand; the last block's
+    densely) in the other; then every block's bias and depthwise weights,
+    then the weight ring."""
+    reg = [0, 0]
+    consts = ring = 0
+    for k, (h, w, cin, mid, cout, stride) in enumerate(shapes):
+        oh, ow = conv_out_hw(h, w, stride)
+        rows = _round_up(tile * h * w, _SUPER_ROWS)
+        orows = _round_up(tile * oh * ow, _SUPER_ROWS)
+        last = k + 1 == len(shapes)
+        reg[k & 1] = max(reg[k & 1], _a_region(rows, cin), _a_region(orows, mid))
+        reg[~k & 1] = max(reg[~k & 1], rows * mid,
+                          orows * cout if last else _a_region(orows, cout))
+        consts += _round_up(4 * mid, 128) + _round_up(9 * mid, 128)
+        ring = max(ring, _ring_slots(mid, cin, slots), _ring_slots(cout, mid, slots))
+    return (_round_up(reg[0], 128) + _round_up(reg[1], 128) + consts
+            + ring * _SLOT_BYTES)
+
+
+class Run(NamedTuple):
+    """One K6 launch: blocks first .. first + count − 1, at `tile` images
+    a block of threads (a single block's tile path: `block_tile`), or on
+    row bands of `band` output rows (a single block)."""
+    first: int
+    count: int
+    tile: int
+    band: int
+
+
+@functools.lru_cache(maxsize=None)
+def run_plan(shapes: Tuple[Tuple[int, ...], ...], batch: int,
+             sms: int = H100_SMS) -> Tuple[Run, ...]:
+    """The K6 launches of the blocks of `shapes` (consecutive, each (h, w,
+    cin, mid, cout, stride)) at `batch` images on a card of `sms` SMs. A
+    band-path block is a run of its own. A tile-path block opens a run at
+    its own tile (`block_tile`); the next block joins while the run, at the
+    smallest tile that gives each of its products at least `_SUPER_ROWS`
+    GEMM rows (and no less than the first block's tile), still fills the
+    SMs (at most ⌈batch / sms⌉ images a tile) and fits in shared memory
+    with 2 ring slots (`run_smem`); at most MAX_RUN blocks a run."""
+    fill = -(-batch // sms)
+    runs = []
+    i = 0
+    while i < len(shapes):
+        h, w, cin, mid, cout, stride = shapes[i]
+        band = band_plan(h, w, cin, mid, cout, stride)
+        if band:
+            runs.append(Run(i, 1, 1, band))
+            i += 1
+            continue
+        oh, ow = conv_out_hw(h, w, stride)
+        tile = block_tile(batch, h, w, cin, mid, cout, oh, ow, sms)
+        need = tile
+        j = i + 1
+        while j < len(shapes) and j - i < MAX_RUN and not band_plan(*shapes[j]):
+            jh, jw, *_, js = shapes[j]
+            joh, jow = conv_out_hw(jh, jw, js)
+            need = max(need, -(-_SUPER_ROWS // (oh * ow)), -(-_SUPER_ROWS // (joh * jow)))
+            if need > fill or run_smem(need, shapes[i:j + 1]) > MAX_SMEM:
+                break
+            tile = need
+            j += 1
+        runs.append(Run(i, j - i, tile, 0))
+        i = j
+    return tuple(runs)
+
+
+def block_shapes(specs: Tuple[Tuple[int, int, int, int], ...], h: int, w: int
+                 ) -> Tuple[Tuple[int, ...], ...]:
+    """(h, w, cin, mid, cout, stride) of each block for a stem output of
+    h×w, from the blocks' (cin, mid, cout, stride) (`k6_specs`)."""
+    out = []
+    for cin, mid, cout, stride in specs:
+        out.append((h, w, cin, mid, cout, stride))
+        h, w = conv_out_hw(h, w, stride)
+    return tuple(out)
 
 
 def band_in_rows(rows: int, h: int, stride: int) -> int:
@@ -219,7 +336,8 @@ def etiny_kernel_params(sim_params: Dict, cfg: EtinySimCfg) -> Dict:
     int8. The stem: `stem_wp` (`stem_pack`), `stem_bp` (the bias, int32,
     zero padded to the packed channels) and `stem_q_max`; the tail:
     `cls_wt` (`tail_pack`) and `tail_int64` (`tail_needs_int64`). Raises
-    ValueError for a stride-2 dense block."""
+    ValueError for a stride-2 dense block. `k6_specs`: each block's (cin,
+    mid, cout, stride), for `block_shapes` and `run_plan`."""
     blocks = []
     for blk, bs in zip(sim_params["blocks"], cfg.blocks):
         if bs.is_dense and bs.stride != 1:
@@ -238,7 +356,10 @@ def etiny_kernel_params(sim_params: Dict, cfg: EtinySimCfg) -> Dict:
     stem_bp = torch.zeros(stem_wp.shape[0] * _STEM_CHUNK, dtype=torch.int32,
                           device=stem_wp.device)
     stem_bp[:sim_params["stem_b"].shape[0]] = sim_params["stem_b"]
-    return {**sim_params, "blocks": blocks, "stem_wp": stem_wp,
+    specs = tuple((blk["pw_expand_w"].shape[1], blk["pw_expand_w"].shape[0],
+                   blk["pw_project_w"].shape[0], bs.stride)
+                  for blk, bs in zip(sim_params["blocks"], cfg.blocks))
+    return {**sim_params, "blocks": blocks, "k6_specs": specs, "stem_wp": stem_wp,
             "stem_bp": stem_bp,
             "stem_q_max": stem_q_max(sim_params["stem_w"], sim_params["stem_b"]),
             "cls_wt": tail_pack(sim_params["cls_w"]),
@@ -267,19 +388,27 @@ def _require(kernel: str, dev: torch.device, *args) -> None:
                 f"{dtype} tensor on {dev}; got {t.dtype} on {t.device}")
 
 
-def _launch_block(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg
-                  ) -> torch.Tensor:
-    dev = x.device
-    b, h, w, cin = x.shape
+def _check_block(dev: torch.device, blk: Dict, cin: int) -> Tuple[int, int]:
+    """A block's (mid, cout), its weights checked against an input of
+    `cin` channels on `dev`; raises ValueError."""
     mid, cout = blk["dw"].shape[0], blk["pw_project_w"].shape[0]
     if (tuple(blk["we"].shape) != _tiles_shape(mid, cin)
             or tuple(blk["wp"].shape) != _tiles_shape(cout, mid)
             or tuple(blk["dw"].shape) != (mid, 3, 3)
             or tuple(blk["be"].shape) != (mid,)):
         raise ValueError("block weights do not match the input's channels")
-    _require("etiny_block_kernel", dev, ("x", x, torch.int8, 16),
+    _require("etiny_block_kernel", dev,
              ("we", blk["we"], torch.int8, 16), ("be", blk["be"], torch.int32, 16),
              ("dw", blk["dw"], torch.int8, 16), ("wp", blk["wp"], torch.int8, 16))
+    return mid, cout
+
+
+def _launch_block(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg
+                  ) -> torch.Tensor:
+    dev = x.device
+    b, h, w, cin = x.shape
+    _require("etiny_block_kernel", dev, ("x", x, torch.int8, 16))
+    mid, cout = _check_block(dev, blk, cin)
     oh, ow = conv_out_hw(h, w, bs.stride)
     out = torch.empty((b, oh, ow, cout), dtype=torch.int8, device=dev)
     if b == 0:
@@ -293,6 +422,42 @@ def _launch_block(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg
     if band:
         LAUNCHES["band_launches"] += 1
     return out
+
+
+def _launch_run(x: torch.Tensor, blks, bss, tile: int) -> torch.Tensor:
+    """One launch of consecutive blocks `blks` (configs `bss`) at `tile`
+    images a block of threads: (B, H, W, in) int8 → the last block's (B,
+    oh, ow, out) int8."""
+    dev = x.device
+    b, h, w, cin = x.shape
+    _require("etiny_block_kernel", dev, ("x", x, torch.int8, 16))
+    words = [x.data_ptr(), b, tile, len(blks)]
+    for blk, bs in zip(blks, bss):
+        mid, cout = _check_block(dev, blk, cin)
+        words += [h, w, cin, mid, cout, bs.stride, bs.s_expand, bs.s_dw,
+                  bs.s_project, blk["we"].data_ptr(), blk["be"].data_ptr(),
+                  blk["dw"].data_ptr(), blk["wp"].data_ptr()]
+        (h, w), cin = conv_out_hw(h, w, bs.stride), cout
+    out = torch.empty((b, h, w, cin), dtype=torch.int8, device=dev)
+    if b == 0:
+        return out
+    words.append(out.data_ptr())
+    _build.launch(dev, LAUNCHES, "etiny_block_kernel", "etiny_run_launch", words)
+    LAUNCHES["run_launches"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of card `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan(kparams: Dict, x: torch.Tensor) -> Tuple[Run, ...]:
+    """`run_plan` of the model's blocks for a stem output x."""
+    b, h, w, _ = x.shape
+    sms = sm_count(x.device.index or 0) if x.device.type == "cuda" else H100_SMS
+    return run_plan(block_shapes(kparams["k6_specs"], h, w), b, sms)
 
 
 def lb_block(x: torch.Tensor, blk: Dict, bs: EtinyBlockCfg) -> torch.Tensor:
@@ -370,40 +535,57 @@ def etiny_tail_logits(kparams: Dict, x: torch.Tensor, cfg: EtinySimCfg
     return _launch_tail(kparams, x.contiguous(), cfg)
 
 
-def _row_counts(kparams: Dict, cfg: EtinySimCfg, shape: tuple) -> Dict[str, int]:
+def lb_blocks(x: torch.Tensor, kparams: Dict, cfg: EtinySimCfg) -> torch.Tensor:
+    """Every LB block of the model on a stem output x, one launch per run
+    of `run_plan` (the plain blocks for a CPU tensor)."""
+    blocks = kparams["blocks"]
+    if x.device.type == "cpu":
+        for blk, bs in zip(blocks, cfg.blocks):
+            x = lb_block_reference(x, blk, bs)
+        return x
+    x = x.contiguous()
+    for run in _plan(kparams, x):
+        end = run.first + run.count
+        if run.count == 1:
+            x = _launch_block(x, blocks[run.first], cfg.blocks[run.first])
+        else:
+            x = _launch_run(x, blocks[run.first:end], cfg.blocks[run.first:end],
+                            run.tile)
+    return x
+
+
+def _row_counts(kparams: Dict, x: torch.Tensor) -> Dict[str, int]:
     """`rows`, the image rows of the blocks' inputs (Σ B·H), and `rows_read`,
-    the rows the kernel's blocks of threads read, for a stem output of
-    `shape` (B, H, W, C), from the band plan alone."""
-    b, h, w, cin = shape
-    rows = read = 0
-    for blk, bs in zip(kparams["blocks"], cfg.blocks):
-        mid, cout = blk["dw"].shape[0], blk["pw_project_w"].shape[0]
-        rows += b * h
-        read += b * rows_read(h, w, cin, mid, cout, bs.stride)
-        (h, w), cin = conv_out_hw(h, w, bs.stride), cout
-    return {"rows": rows, "rows_read": read}
+    the rows the single-block launches' blocks of threads read, for a stem
+    output x, from the band plan alone; and `k6_launches`, the call's K6
+    launches, from the run plan."""
+    b, h, w, _ = x.shape
+    shapes = block_shapes(kparams["k6_specs"], h, w)
+    return {"rows": b * sum(s[0] for s in shapes),
+            "rows_read": b * sum(rows_read(*s) for s in shapes),
+            "k6_launches": len(_plan(kparams, x))}
 
 
 def etiny_forward_kernel(kparams: Dict, images: torch.Tensor, *,
                          cfg: EtinySimCfg, image_h: int, image_w: int
                          ) -> torch.Tensor:
     """Bit-exact EtinyNet int8 inference, one kernel launch for the stem,
-    one per LB block and one for the pool and classifier: (B, H, W, 3)
-    float32 normalized images → logits (B, classes) float32,
-    `kparams` from `etiny_kernel_params`. Its plain version is the engine
-    sim, `etiny_engine_forward`. The `serve.kernels` span counts `rows`,
-    the image rows of the blocks' inputs (Σ B·H), and `rows_read`, the rows
-    the kernel's blocks of threads read (a band's halo rows each time),
-    from the plan alone."""
+    one per run of LB blocks (`run_plan`) and one for the pool and
+    classifier: (B, H, W, 3) float32 normalized images → logits (B,
+    classes) float32, `kparams` from `etiny_kernel_params`. Its plain
+    version is the engine sim, `etiny_engine_forward`. The `serve.kernels`
+    span counts `rows`, the image rows of the blocks' inputs (Σ B·H),
+    `rows_read`, the rows the kernel's blocks of threads read (a band's
+    halo rows each time), and `k6_launches`, the K6 launches of the call,
+    from the plans alone."""
     del image_h, image_w  # read from the images
     with span("serve.stem"):
         x = etiny_stem_int8(kparams, images, cfg)
     with span("serve.kernels") as sp:
         if sp.recording:
-            sp.count(**_row_counts(kparams, cfg, tuple(x.shape)))
-        for blk, bs in zip(kparams["blocks"], cfg.blocks):
-            # a stride-1 dense block keeps its dims: the engine's quirk is the
-            # identity (stride-2 dense blocks were refused at parameter build)
-            x = lb_block(x, blk, bs)
+            sp.count(**_row_counts(kparams, x))
+        # a stride-1 dense block keeps its dims: the engine's quirk is the
+        # identity (stride-2 dense blocks were refused at parameter build)
+        x = lb_blocks(x, kparams, cfg)
     with span("serve.tail"):
         return etiny_tail_logits(kparams, x, cfg)

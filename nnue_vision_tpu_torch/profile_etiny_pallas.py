@@ -7,16 +7,16 @@ Port of `scripts/profile_etiny_pallas.py`: the micro variant (the
 reference's test and bench model) at 32×32, batch 2048, weights from
 `etinynet_init` (torch generator, seed 2) through `etinynet_quantize`, on
 four buffers of numpy standard-normal images (seed 0) cycled through by
-the reps. Before timing, `etiny_forward_kernel` (K6, one launch per LB
-block) must equal `etiny_engine_forward` bit for bit on the first buffer;
+the reps. Before timing, `etiny_forward_kernel` (K6, one launch per run
+of LB blocks) must equal `etiny_engine_forward` bit for bit on the first buffer;
 the probe raises otherwise.
 
 The JAX probe ran both paths with a bf16 stem (`conv_mode="bf16"`) as a
 timing configuration; the port's stem is exact for any input, so both
 paths run it. Its `rows_target` sweep (4096, 16384, 32768 rows per Pallas
 block) has no counterpart: K6 picks its tile per block from the batch and
-the shared memory, so there is one K6 row, with the tile of each block
-(`k6_tiles`, null on the CPU).
+the shared memory, so there is one K6 row, with the tile of each block's
+single-block launch (`k6_tiles`, null on the CPU).
 
 Each path is timed by `ops/timing.py`: a CUDA graph of 100 calls,
 best of 3 replays. Prints one JSON object with ms per batch and images/s

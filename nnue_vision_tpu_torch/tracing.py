@@ -23,7 +23,8 @@ drops.
 The counters are one registry (`COUNTERS`): each module that counts asks
 `counters` for its group's dict and adds to it (the kernel modules'
 `LAUNCHES`, among them `etiny_kernels`' `band_launches`, the K6 launches
-that took its row bands; the draws' `host_draw_calls`). `GAUGES` holds
+that took its row bands, and `run_launches`, those that carried more than
+one block; the draws' `host_draw_calls`). `GAUGES` holds
 values that are set, not added to: the newest chunk graph's nodes by phase
 (a copy of its `ChunkGraph.phase_nodes`, for a reader that holds no
 graph).
@@ -34,9 +35,10 @@ call; `steps`) with `chunk.draws` (`draw_calls`), `chunk.pack`,
 (`training/step.py`); `serve.kernels` (the int8 serving kernels' wrappers:
 `nnue_engine_forward_mega` in `ops/nnue_kernels.py`, `etiny_forward_kernel`
 in `ops/etiny_kernels.py`, whose span counts `rows`, the image rows of its
-K6 launches' inputs, Σ B·H, and `rows_read`, the rows their blocks of
-threads read with a band's halo rows each time, both from the band plan on
-the host) and the EtinyNet's `serve.stem` and `serve.tail`.
+LB blocks' inputs, Σ B·H, `rows_read`, the rows a single-block launch of
+each block would read with a band's halo rows each time, both from the
+band plan, and `k6_launches`, the call's K6 launches, from the run plan,
+all on the host) and the EtinyNet's `serve.stem` and `serve.tail`.
 """
 
 from __future__ import annotations

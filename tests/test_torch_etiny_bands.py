@@ -178,7 +178,7 @@ def test_port_serving_equals_the_reference(side, batch):
 
 def test_row_counts_are_made_only_while_a_profiler_records(monkeypatch):
     """With no profiler the serving call computes no count (it would cost
-    host time on every call); under one the counts are the plan's."""
+    host time on every call); under one the counts are the plans'."""
     cfg = EtinyNetConfig(variant="micro", num_classes=10, input_size=20)
     model = EtinyNet(cfg, device="cpu")
     sim, scfg = etiny_sim_params(etinynet_quantize(model.eval()), device="cpu")
@@ -197,8 +197,9 @@ def test_row_counts_are_made_only_while_a_profiler_records(monkeypatch):
         ek.etiny_forward_kernel(kp, x, cfg=scfg, image_h=20, image_w=20)
     counts = [s.counts for s in tracing.spans() if s.name == "serve.kernels"]
     # the inputs of the micro model's 7 blocks and final conv: sides 10, 5,
-    # 3, 3, 2, 2, 1, 1; every block takes whole images
-    assert counts == [{"rows": 2 * 27, "rows_read": 2 * 27}]
+    # 3, 3, 2, 2, 1, 1; every block takes whole images, each a launch of its
+    # own at batch 2 (no run keeps 64 GEMM rows)
+    assert counts == [{"rows": 2 * 27, "rows_read": 2 * 27, "k6_launches": 8}]
 
 
 def test_the_reference_float_forward_follows_the_port():

@@ -4,7 +4,9 @@ tail kernels, one launch each a call), on a quantized
 0.98M-width model, on a quantized 0.75-width engine_friendly model (LSQ
 folds) and on random int models at full int8 ranges; EtinyNet-1.0 at
 224×224 and at odd sides, whose large blocks take K6's row bands; the
-wrapper's shared-memory plan against the library's.
+run launches of `run_plan` against the chain of single-block launches and
+the sim; the wrapper's shared-memory plans and tiles against the
+library's.
 
 Marked `gpu`; each test skips where there is no CUDA device. The file
 imports no jax, so it also runs on a machine without it:
@@ -103,11 +105,19 @@ def test_forward_equals_sim(cuda, which, batch):
     x = normalize_images(torch.rand((batch, 32, 32, 3), device=cuda)).contiguous()
     before = dict(ek.LAUNCHES)
     got = ek.etiny_forward_kernel(kp, x, cfg=cfg, image_h=32, image_w=32)
-    assert ek.LAUNCHES["etiny_block_kernel"] == before["etiny_block_kernel"] + len(cfg.blocks)
+    assert ek.LAUNCHES["etiny_block_kernel"] == before["etiny_block_kernel"] + len(
+        _plan(kp, batch, 32))
     _one_stem_and_tail(before)
     want = etiny_engine_forward(sim, x, cfg=cfg, image_h=32, image_w=32)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _plan(kp, batch, side):
+    """`run_plan` of the model's blocks for `batch` images of `side`."""
+    h = (side - 1) // 2 + 1
+    return ek.run_plan(ek.block_shapes(kp["k6_specs"], h, h), batch,
+                       ek.sm_count(torch.cuda.current_device()))
 
 
 def _ef_quantized_model(cuda):
@@ -130,8 +140,9 @@ def _ef_quantized_model(cuda):
 
 @pytest.mark.parametrize("batch", [37, 1024])
 def test_ef_forward_equals_sim(cuda, batch):
-    """K6 on an engine_friendly `.etiny`: 12 launches (11 LB blocks and the
-    synthetic final block) equal to the engine sim."""
+    """K6 on an engine_friendly `.etiny` (11 LB blocks and the synthetic
+    final block), one launch per run of the plan, equal to the engine
+    sim."""
     q = _ef_quantized_model(cuda)
     proj = q.blocks[-1].pw_project
     assert len(q.blocks) == 12 and len(set(np.diag(proj).tolist())) > 1
@@ -140,7 +151,8 @@ def test_ef_forward_equals_sim(cuda, batch):
     x = normalize_images(torch.rand((batch, 32, 32, 3), device=cuda)).contiguous()
     before = dict(ek.LAUNCHES)
     got = ek.etiny_forward_kernel(kp, x, cfg=cfg, image_h=32, image_w=32)
-    assert ek.LAUNCHES["etiny_block_kernel"] == before["etiny_block_kernel"] + 12
+    assert ek.LAUNCHES["etiny_block_kernel"] == before["etiny_block_kernel"] + len(
+        _plan(kp, batch, 32))
     _one_stem_and_tail(before)
     want = etiny_engine_forward(sim, x, cfg=cfg, image_h=32, image_w=32)
     torch.cuda.synchronize()
@@ -210,10 +222,12 @@ def _blocks_equal_plain(kp, cfg, x):
 
 @pytest.mark.parametrize("batch,side", [(1, 224), (37, 224), (1024, 224), (3, 218)])
 def test_etinynet_1_0_at_imagenet_size(cuda, batch, side):
-    """EtinyNet-1.0's 13 blocks and final 1×1 conv: 14 launches, 9 of them
-    on row bands at 224 (the blocks at 112, 56 and 28; at 218 the sides
-    are 109, 55, 28, 14, 7); each launch equal to the plain block, the
-    logits to the sim. Batch 37 leaves a ragged last tile."""
+    """EtinyNet-1.0's 13 blocks and final 1×1 conv: 14 single-block
+    launches, 9 of them on row bands at 224 (the blocks at 112, 56 and 28;
+    at 218 the sides are 109, 55, 28, 14, 7), each equal to the plain
+    block; the forward's launches, one per run of the plan with the same 9
+    on bands, give the sim's logits. Batch 37 leaves a ragged last
+    tile."""
     q = _random_model(np.random.default_rng(batch + side), variant="1.0",
                       final=True)
     sim, cfg = etiny_sim_params(q, device=cuda)
@@ -225,7 +239,8 @@ def test_etinynet_1_0_at_imagenet_size(cuda, batch, side):
     assert launches == 14 and bands == 9
     before = dict(ek.LAUNCHES)
     got = ek.etiny_forward_kernel(kp, x, cfg=cfg, image_h=side, image_w=side)
-    assert ek.LAUNCHES["etiny_block_kernel"] == before["etiny_block_kernel"] + 14
+    assert ek.LAUNCHES["etiny_block_kernel"] == before["etiny_block_kernel"] + len(
+        _plan(kp, batch, side))
     assert ek.LAUNCHES["band_launches"] == before["band_launches"] + 9
     _one_stem_and_tail(before)
     want = etiny_engine_forward(sim, x, cfg=cfg, image_h=side, image_w=side)
@@ -233,14 +248,95 @@ def test_etinynet_1_0_at_imagenet_size(cuda, batch, side):
     assert torch.equal(got, want)
 
 
+def _model_params(cuda, model):
+    """(kparams, sim, cfg, side) of a test model: a random 0.98M, the
+    quantized engine_friendly 0.75 at 32×32, or a random 1.0 at 224."""
+    if model == "0.98M":
+        q, side = _random_model(np.random.default_rng(11), final=True), 32
+    elif model == "ef 0.75":
+        q, side = _ef_quantized_model(cuda), 32
+    else:
+        q, side = _random_model(np.random.default_rng(12), variant="1.0",
+                                final=True), 224
+    sim, cfg = etiny_sim_params(q, device=cuda)
+    return ek.etiny_kernel_params(sim, cfg), sim, cfg, side
+
+
+@pytest.mark.parametrize("model,batch", [
+    (model, batch) for model in ("0.98M", "ef 0.75")
+    for batch in (1, 37, 1024, 2050, 8192)] + [
+    ("1.0 at 224", batch) for batch in (1, 37, 1024)])
+def test_runs_equal_the_chain_and_the_sim(cuda, model, batch):
+    """The forward's launches, one per run of `run_plan`, against the chain
+    of single-block launches and the sim's blocks (each run's output) and
+    the sim's logits. At 2050 both fused runs of the 0.98M and 0.75 models
+    (tiles of 4 and 16) end on a ragged tile. The 1.0 model at 224 stops at
+    batch 1024 (its int64 sim at 8192 would hold 3.3 GB a block's input)."""
+    kp, sim, cfg, side = _model_params(cuda, model)
+    gen = torch.Generator(device=cuda).manual_seed(batch)
+    x = normalize_images(torch.rand((batch, side, side, 3), generator=gen,
+                                    device=cuda)).contiguous()
+    if model != "ef 0.75":
+        x = x * 4  # the random weights' activations away from zero
+    plan = _plan(kp, batch, side)
+    assert [r.first for r in plan] == list(
+        np.cumsum([0] + [r.count for r in plan[:-1]]))
+    a = etiny_stem(kp, x, cfg).to(torch.int8)
+    before = dict(ek.LAUNCHES)
+    fused = ek.lb_blocks(a, kp, cfg)
+    assert ek.LAUNCHES["etiny_block_kernel"] - before["etiny_block_kernel"] == len(plan)
+    assert ek.LAUNCHES["run_launches"] - before["run_launches"] == sum(
+        r.count > 1 for r in plan)
+    chain = plain = a
+    for blk, bs in zip(kp["blocks"], cfg.blocks):
+        chain = ek.lb_block(chain, blk, bs)
+        plain = ek.lb_block_reference(plain, blk, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, chain) and torch.equal(fused, plain)
+    got = ek.etiny_forward_kernel(kp, x, cfg=cfg, image_h=side, image_w=side)
+    want = etiny_engine_forward(sim, x, cfg=cfg, image_h=side, image_w=side)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if side == 32:  # the blocks did not round to zero
+        assert float(fused.float().std()) > 0
+
+
 def test_shared_memory_plan_equals_the_library(cuda):
     """The wrapper's copy of the kernel's shared-memory layout
     (`block_smem`, from which `band_plan` picks the band) against the
     library's `etiny_block_smem`, on the tile shapes of the 0.98M and 1.0
-    models and on the bands the plan picks at 224."""
+    models and on the bands the plan picks at 224; the run layout
+    (`run_smem`) against `etiny_run_smem` on every run the plan makes at
+    batches 1, 37, 1024 and 8192 and at tiles 1 to 64; and the
+    single-block tile (`block_tile`) against `etiny_block_tile`."""
+    import ctypes
+
     from nnue_vision_tpu_torch.ops._build import load_library
 
     lib = load_library().lib
+    sms = ek.sm_count(torch.cuda.current_device())
+    for variant, side in (("0.98M", 32), ("0.75", 32), ("1.0", 224), ("micro", 32)):
+        cfg = EtinyNetConfig(variant=variant)
+        specs = [(cin, mid, out, s) for _, cin, mid, out, s, _ in cfg.block_specs()]
+        fin = cfg.table["final_channels"]
+        specs.append((specs[-1][2], fin, fin, 1))
+        shapes = ek.block_shapes(tuple(specs), (side - 1) // 2 + 1, (side - 1) // 2 + 1)
+        runs = {(r.first, r.count) for batch in (1, 37, 1024, 8192)
+                for r in ek.run_plan(shapes, batch, sms) if r.count > 1}
+        assert runs, variant
+        for first, count in runs:
+            part = shapes[first:first + count]
+            for tile in (1, 2, 4, 16, 64):
+                words = [tile, count] + [v for shape in part for v in shape]
+                got = lib.etiny_run_smem((ctypes.c_int64 * len(words))(*words))
+                assert ek.run_smem(tile, part) == got, (variant, part, tile)
+        for h, w, cin, mid, cout, s in shapes:
+            oh, ow = (h - 1) // s + 1, (w - 1) // s + 1
+            if ek.band_plan(h, w, cin, mid, cout, s):
+                continue
+            for batch in (1, 37, 1024, 8192):
+                assert ek.block_tile(batch, h, w, cin, mid, cout, oh, ow, sms) == \
+                    lib.etiny_block_tile(batch, h, w, cin, mid, cout, oh, ow)
     shapes = []
     for variant, side in (("0.98M", 32), ("1.0", 224)):
         specs = [(cin, mid, out, s) for _, cin, mid, out, s, _

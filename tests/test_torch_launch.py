@@ -27,7 +27,7 @@ LAUNCHERS = {
     "nnue_mega_launch", "nnue_mega_stage_launch", "nnue_head_launch",
     "light_pipeline_launch", "warp_launch", "lerp_pass_launch",
     "photometric_launch", "photometric_band_launch", "etiny_block_launch",
-    "etiny_stem_launch", "etiny_tail_launch",
+    "etiny_run_launch", "etiny_stem_launch", "etiny_tail_launch",
 }
 
 
