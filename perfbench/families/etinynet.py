@@ -52,10 +52,11 @@ def serving_stats(params, cfg, seed, device) -> Dict[str, torch.Tensor]:
 
 def port_serving(model, cfg: dict, device) -> Callable[[torch.Tensor], torch.Tensor]:
     """The program's int8 serving entry for the float `model`:
-    `etiny_forward_kernel` (the stem and tail in plain torch, K6 for each LB
-    block) on `etiny_kernel_params(etiny_sim_params(etinynet_quantize(
-    model)))`, as a call of a (B, H, W, 3) float32 batch returning its
-    logits on the device."""
+    `etiny_forward_kernel` (the stem kernel, one K6 launch a run of LB
+    blocks in the run plan, the pool + classifier kernel) on
+    `etiny_kernel_params(etiny_sim_params(etinynet_quantize(model)))`, as
+    a call of a (B, H, W, 3) float32 batch returning its logits on the
+    device."""
     from nnue_vision_tpu_torch.models.etinynet import etinynet_quantize
     from nnue_vision_tpu_torch.ops.engine_sim import etiny_sim_params
     from nnue_vision_tpu_torch.ops.etiny_kernels import (

@@ -1,10 +1,9 @@
 """The EtinyNet-1.0 family at ImageNet size: how the benchmark builds the
 program's model from a configuration file and the benchmark's weights,
 which entry serves it, and which plain reference stands beside it
-(`perfbench/reference/etinynet_imagenet.py`). It serves: a train cell of
-this configuration would add the training reference's names
-(`ref_forward`, `init_stats`, `forward_macs`, `ref_after_update`). The
-program's side is the EtinyNet family's (`families/etinynet.py`).
+(`perfbench/reference/etinynet_imagenet.py`), for serving and for
+training. The program's side is the EtinyNet family's
+(`families/etinynet.py`).
 """
 
 from __future__ import annotations
@@ -19,8 +18,12 @@ from perfbench.reference import augment as ref_aug
 from perfbench.reference import etinynet_imagenet as ref
 
 param_specs = ref.param_specs
+forward_macs = ref.forward_macs
+ref_forward = ref.forward
 ref_quantize = ref.quantize
 ref_engine = ref.engine_forward
+init_stats = ref.init_stats
+ref_after_update = etinynet.ref_after_update
 port_model = etinynet.port_model
 port_serving = etinynet.port_serving
 

@@ -1,6 +1,7 @@
 """The serving kernels' wrappers per call, on the host: the program's
-`serve.kernels` spans (K1's wrapper, or the loop over the 12 K6 block
-wrappers: their checks, the library lookup and the launches' enqueue)
+`serve.kernels` spans (K1's wrapper, or the K6 wrappers, one a run of
+LB blocks in the run plan: their checks, the library lookup and the
+launches' enqueue)
 summed over the traced window, over its calls, in ms."""
 
 from perfbench.program_spans import span_ns

@@ -1,7 +1,8 @@
-"""The plain ops of an int8 serving call, on the host: the program's
-`serve.stem` and `serve.tail` spans (the EtinyNet's exact int64 stem conv,
-pool and classifier, enqueued) summed over the traced window, over its
-calls, in ms. Nothing for an entry with no plain stem or tail (K1)."""
+"""The stem and tail of an int8 serving call, on the host: the program's
+`serve.stem` and `serve.tail` spans (the EtinyNet's stem kernel wrapper
+and its pool + classifier kernel wrapper: their checks and the launches'
+enqueue) summed over the traced window, over its calls, in ms. Nothing
+for an entry with no stem or tail span (K1)."""
 
 from perfbench.program_spans import span_ns
 

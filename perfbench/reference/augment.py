@@ -12,11 +12,19 @@ augmentation of a gathered batch on x's device:
 * `light`: hflip (p .5), brightness/contrast ±0.1 (p .2), one 5% cutout
   (p .2);
 * `medium`: one block, a composed geometry (hflip, rot90, rotate, affine)
-  realized as a two-pass bilinear resample, then a gated photometric
-  chain (brightness/contrast, HSV, 3×3 blur, noise, cutout, HSV, shadow,
-  fog, posterize, equalize);
+  realized as one bilinear warp, then a gated photometric chain
+  (brightness/contrast, HSV, 3×3 blur, noise, cutout, HSV, shadow, fog,
+  posterize, equalize);
 * `heavy`: the medium block, then a second block of a wider geometry and
   a shorter chain (brightness/contrast, HSV, blur, noise, two cutouts).
+
+The warp follows JAX `_warp`'s size rule off the TPU (`data/augment.py`
+:408, :418; `two_pass`): a square image with h·w·w ≤ 2^17 (32×32 up to
+50×50) is resampled in two linear passes, a block carrying the passes'
+coefficients; any other size (64×64, 224×224, a non-square image) by a
+single bilinear gather of four corner taps (JAX `_warp_gather` and
+`_bilinear_gather`, :61-94, :184-202), a block carrying the composed
+inverse map (m, v). The draws are the same at every size.
 
 The fused light path draws a whole chunk at once (`draw_light_chunk`) and
 folds brightness/contrast to x·α + β (`apply_light_fused`). `NOISE_DRAWS`
@@ -27,7 +35,7 @@ Every batch ends with the ImageNet normalize.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import torch
 from torch.nn import functional as F
@@ -236,23 +244,34 @@ def _warp_coefficients(m, v, h, w) -> torch.Tensor:
                       torch.stack([bb, a, p_c], dim=-1)], dim=1).float()
 
 
-def draw_medium(gen: torch.Generator, b: int, h: int, w: int
-                ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """One step's medium-tier draws: one block of (warp coefficients,
-    photometric float params, photometric int params)."""
-    warp1 = _warp_coefficients(*_geometry(gen, b, h, w, 0.5, 0.5, 0.3, 15.0,
-                                          0.1, 0.9, 1.1), h, w)
+def two_pass(h: int, w: int) -> bool:
+    """JAX `_warp`'s choice off the TPU (`data/augment.py`:408, :418): the
+    two-pass resample for a square image with h·w·w ≤ 2^17, the
+    single-pass gather otherwise."""
+    return h == w and h * w * w <= 1 << 17
+
+
+def _warp_params(mv, h: int, w: int):
+    """What a block carries for its warp: the two passes' coefficients
+    within `two_pass`'s rule, the inverse map (m, v) past it."""
+    return _warp_coefficients(*mv, h, w) if two_pass(h, w) else mv
+
+
+def draw_medium(gen: torch.Generator, b: int, h: int, w: int) -> List[tuple]:
+    """One step's medium-tier draws: one block of (warp params, photometric
+    float params, photometric int params), the warp's as `_warp_params`."""
+    warp1 = _warp_params(_geometry(gen, b, h, w, 0.5, 0.5, 0.3, 15.0,
+                                   0.1, 0.9, 1.1), h, w)
     f1, i1 = _medium_photometric(gen, b, h, w)
     return [(warp1, f1, i1)]
 
 
-def draw_heavy(gen: torch.Generator, b: int, h: int, w: int
-               ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+def draw_heavy(gen: torch.Generator, b: int, h: int, w: int) -> List[tuple]:
     """One step's heavy-tier draws: the medium block's, then the second
     block's."""
     blocks = draw_medium(gen, b, h, w)
-    warp2 = _warp_coefficients(*_geometry(gen, b, h, w, 0.1, 0.1, 0.2, 25.0,
-                                          0.15, 0.85, 1.15), h, w)
+    warp2 = _warp_params(_geometry(gen, b, h, w, 0.1, 0.1, 0.2, 25.0,
+                                   0.15, 0.85, 1.15), h, w)
     f2, i2 = _heavy_photometric(gen, b, h, w)
     return blocks + [(warp2, f2, i2)]
 
@@ -312,8 +331,9 @@ def _lerp_pass(x: torch.Tensor, coef: torch.Tensor, n: int, c: int):
     return v0 * (1.0 - fr) + v1 * fr
 
 
-def warp(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """The two-pass bilinear warp of square (B, H, W, C) images."""
+def _two_pass_warp(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The two-pass bilinear warp of square (B, H, W, C) images, `p` the
+    (B, 7) coefficients of `_warp_coefficients`."""
     b, h, w, c = x.shape
     swap = p[:, 0] > 0.5
     xs = torch.where(swap[:, None, None, None], x.transpose(1, 2), x)
@@ -321,6 +341,46 @@ def warp(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     tmp_t = tmp.reshape(b, h, w, c).transpose(1, 2).reshape(b, w, h * c)
     out = _lerp_pass(tmp_t, p[:, 4:7], h, c)
     return out.reshape(b, w, h, c).transpose(1, 2).contiguous()
+
+
+def _gather_warp(x: torch.Tensor, m: torch.Tensor, v: torch.Tensor
+                 ) -> torch.Tensor:
+    """The single-pass bilinear warp of (B, H, W, C) images of any shape by
+    the inverse map src = m·(dst − centre) + v + centre, in float32: four
+    corner taps, each zero outside the frame, blended along x, then along
+    y (JAX `_warp_gather`, `_bilinear_gather`)."""
+    b, h, w, c = x.shape
+    dev = x.device
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None] - cy
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :] - cx
+
+    def row(i):
+        return (m[:, i, 0, None, None] * yy + m[:, i, 1, None, None] * xx
+                + v[:, i, None, None])
+    src_y, src_x = row(0) + cy, row(1) + cx
+    y0, x0 = torch.floor(src_y), torch.floor(src_x)
+    wy, wx = (src_y - y0)[..., None], (src_x - x0)[..., None]
+    y0, x0 = y0.to(torch.int64), x0.to(torch.int64)
+    flat = x.reshape(b, h * w, c)
+
+    def tap(yi, xi):
+        inside = ((yi >= 0) & (yi < h) & (xi >= 0) & (xi < w))[..., None]
+        idx = torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)
+        got = torch.gather(flat, 1, idx.reshape(b, h * w, 1).expand(-1, -1, c))
+        return torch.where(inside, got.reshape(b, h, w, c), 0.0)
+
+    top = tap(y0, x0) * (1.0 - wx) + tap(y0, x0 + 1) * wx
+    bot = tap(y0 + 1, x0) * (1.0 - wx) + tap(y0 + 1, x0 + 1) * wx
+    return top * (1.0 - wy) + bot * wy
+
+
+def warp(x: torch.Tensor, p) -> torch.Tensor:
+    """One block's warp of (B, H, W, C) images by `two_pass`: the two
+    passes for `p` the coefficients, the gather for `p` the map (m, v)."""
+    if two_pass(x.shape[1], x.shape[2]):
+        return _two_pass_warp(x, p)
+    return _gather_warp(x, *p)
 
 
 def _const(x, value):

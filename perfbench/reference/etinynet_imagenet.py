@@ -1,7 +1,7 @@
 """The plain EtinyNet-1.0 at ImageNet size: its parameters and norm
-statistics, its float forward, its quantization to the int8 engine's
-integers, the engine's forward and its multiply-adds, in plain torch and
-numpy.
+statistics, its training and eval forward and its multiply-adds, its
+quantization to the int8 engine's integers, the engine's forward and its
+multiply-adds, in plain torch and numpy.
 
 Part of the benchmark's yardstick: it imports nothing of the program. The
 arithmetic that does not depend on the widths (the operand casts, the
@@ -129,6 +129,22 @@ def forward(p: Dict[str, torch.Tensor], stats: Optional[Dict[str, torch.Tensor]]
     x = x.mean(dim=(1, 2))
     logits = net.op(x) @ net.op(p["cls_w"]).T + p["cls_b"].to(net.dtype)
     return logits.to(torch.float32)
+
+
+def forward_macs(cfg: dict) -> float:
+    """Multiply-adds of one training forward at cfg["input_size"], by the
+    base reference's rule over this module's table: the stem, each block's
+    expand at its input size, its depthwise and project (and dense
+    projection) at the strided size, the final 1×1 conv, the classifier."""
+    t = VARIANTS[cfg["variant"]]
+    h = (cfg["input_size"] - 1) // 2 + 1
+    macs = h * h * t["conv_channels"] * 27
+    for cin, mid, out, stride, _, proj in blocks(cfg):
+        macs += h * h * cin * mid
+        h = (h - 1) // stride + 1
+        macs += h * h * (mid * 9 + mid * out + ((cin + out) * out if proj else 0))
+    macs += h * h * blocks(cfg)[-1][2] * t["final_channels"]
+    return float(macs + t["final_channels"] * cfg["num_classes"])
 
 
 def engine_macs(cfg: dict):

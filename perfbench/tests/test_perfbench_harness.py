@@ -131,6 +131,38 @@ def test_new_train_mix_is_found_with_no_edit(root, tmp_path, monkeypatch,
     assert not run.execute(cell, SEED, 0.2, False, CPU, _quiet)["correct"]
 
 
+def test_train_cell_past_the_two_pass_rule_is_added_as_files(root, tmp_path,
+                                                            monkeypatch):
+    """A medium-tier train cell of the etinynet_imagenet family at 64×64
+    (micro widths), where the warp takes the gather, added as a
+    configuration file, a mix file and entries alone: it reads correct
+    under `etiny_train_medium`'s limits, and the half-batch fault does
+    not."""
+    import shutil
+    from perfbench.reference.augment import two_pass
+    base = tmp_path / "base"
+    shutil.copytree(root, base)
+    cfg = json.loads((base / "perfbench/configs/etinynet_imagenet.json").read_text())
+    cfg["input_size"] = 64
+    assert not two_pass(64, 64)
+    (base / "perfbench/configs/imagenet_64.json").write_text(json.dumps(cfg))
+    bench = json.loads((base / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "imagenet_64", "source": "test",
+                             "file": "perfbench/configs/imagenet_64.json",
+                             "reduced": [], "why": "test"})
+    (base / "BENCHMARK.json").write_text(json.dumps(bench))
+    mix = json.loads((REPO / "perfbench/traffic/train_medium.json").read_text())
+    new = _add_cell(base, tmp_path, "imagenet_train_medium", "imagenet_64",
+                    mix, "etiny_train_medium")
+    cell = spec.load_cell(new, "imagenet_train_medium")
+    line = run.execute(cell, SEED, 0.2, False, CPU, _quiet)
+    assert line["correct"], line["compared"]
+    assert set(line["metrics"]) == {"train_images_per_s", "setup_s"}
+    _half_batch(monkeypatch)
+    line = run.execute(cell, SEED, 0.2, False, CPU, _quiet)
+    assert line["correct"] is False, line["compared"]
+
+
 def test_fused_mix_of_another_tier_is_refused(root, tmp_path):
     new = _add_cell(root, tmp_path, "fused_medium", "nnue_hard",
                     {"kind": "train", "tier": "medium", "fused": True,
@@ -271,6 +303,29 @@ def test_forward_counts_by_hand():
     stem = 16 * 16 * 28 * 27
     assert etinynet.forward_macs(e) > stem
     assert etinynet.forward_macs(e) == 3_948_896
+
+
+def test_imagenet_forward_count_by_hand():
+    """EtinyNet-1.0 at 224 by the base reference's rule over its own table:
+    the stem at 112; per stage the first block's expand at its input size,
+    every depthwise, project and dense projection at the strided size; the
+    final 1×1 conv at 7×7; the classifier."""
+    from perfbench.reference import etinynet, etinynet_imagenet
+    cfg = spec.load_cell(REPO, "etiny_imagenet_serve_b1024").config
+    stem = 112 * 112 * 32 * 27
+    lb1 = 112 * 112 * 32 * 32 + 56 * 56 * (32 * 9 + 32 * 32) \
+        + 3 * 56 * 56 * (32 * 32 + 32 * 9 + 32 * 32)
+    lb2 = 56 * 56 * 32 * 128 + 28 * 28 * (128 * 9 + 128 * 128) \
+        + 3 * 28 * 28 * (128 * 128 + 128 * 9 + 128 * 128)
+    dlb3 = 28 * 28 * 128 * 192 + 14 * 14 * (192 * 9 + 192 * 192) \
+        + 2 * 14 * 14 * (192 * 192 + 192 * 9 + 192 * 192 + 384 * 192)
+    dlb4 = 14 * 14 * 192 * 256 + 7 * 7 * (256 * 9 + 256 * 256) \
+        + 7 * 7 * (256 * 256 + 256 * 9 + 256 * 256 + 512 * 256)
+    final, head = 7 * 7 * 256 * 1280, 1280 * 1000
+    total = stem + lb1 + lb2 + dlb3 + dlb4 + final + head
+    assert etinynet_imagenet.forward_macs(cfg) == total == 284_711_680
+    micro = dict(cfg, variant="micro", input_size=64, num_classes=10)
+    assert etinynet_imagenet.forward_macs(micro) == etinynet.forward_macs(micro)
 
 
 def test_peaks_and_bound():

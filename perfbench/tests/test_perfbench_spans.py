@@ -21,10 +21,15 @@ TRAIN = ("draws_host_ms_per_step", "replay_host_ms_per_step",
          "host_draw_calls_per_step", "input_nodes_per_step",
          "model_nodes_per_step", "update_nodes_per_step")
 SERVE = ("serve_kernel_host_ms_per_call", "serve_plain_host_ms_per_call")
-# host generator calls a step, by cell (the fused chunk draws 8 a chunk)
-CALLS = {"etiny_train_heavy": 70, "etiny_train_medium": 39,
+# host generator calls a step, by cell: one a chunk of the tiny recipe's
+# steps (the general chunk's `draw_chunk`, the fused chunk's light draws),
+# none where nothing is drawn
+ETINY_CHUNK = 1 / RECIPE["etinynet_cifar10"]["steps_per_dispatch"]
+CALLS = {"etiny_train_heavy": ETINY_CHUNK, "etiny_train_medium": ETINY_CHUNK,
          "etiny_train_none": 0,
-         "nnue_train_light": 8 / RECIPE["nnue_hard"]["steps_per_dispatch"]}
+         "nnue_train_light": 1 / RECIPE["nnue_hard"]["steps_per_dispatch"],
+         "nnue_train_light_unfused":
+             1 / RECIPE["nnue_hard"]["steps_per_dispatch"]}
 ON_CPU = {"draws_host_ms_per_step", "host_draw_calls_per_step",
           "serve_kernel_host_ms_per_call", "serve_plain_host_ms_per_call"}
 

@@ -13,7 +13,8 @@ REPO = Path(__file__).resolve().parents[2]
 NNUE = {"l1_size": 64, "l2_size": 16, "l3_size": 8}
 ETINY = {"variant": "micro", "calibration_images": 32}
 RECIPE = {"nnue_hard": {"batch_size": 16, "steps_per_dispatch": 3},
-          "etinynet_cifar10": {"batch_size": 16, "steps_per_dispatch": 2}}
+          "etinynet_cifar10": {"batch_size": 16, "steps_per_dispatch": 2},
+          "etinynet_imagenet": {"batch_size": 8, "steps_per_dispatch": 2}}
 TRAIN_IMAGES = 96
 SERVE = {"batch": 32, "buffers": 2}
 
