@@ -8,7 +8,9 @@ one K3 launch a step; the light tier only) or the loop's general chunk
 (`scanned_train_steps`). The reference follows each tier by its name
 (`reference/augment.py`'s `draw_<tier>` and `apply_<tier>`). The
 configuration gives the model, the recipe (batch, steps a dispatch, the
-optimizer and its schedule) and the dataset's size.
+optimizer and its schedule) and the dataset's size. The reference steps
+with the optimizer the recipe's `optimizer_type` names
+(`reference/optim.py`: "sgd" or "adam"; any other raises at set-up).
 
 Set-up makes the weights, the data and the trainer's draw generator from
 the seed, builds the program's model and optimizer state, and drives that
@@ -16,9 +18,10 @@ one state through its first steps with the same call the window makes: a
 chunk of one step, then one of two (the three steps the reference
 follows), then a full chunk (on the card the chunk graph's eager warm-up)
 and a second one (its capture and first replay; the program's state
-before and after it is kept for the replay check). The window then calls
-the chunk on fresh index chunks with no sync until the last, whose final
-loss it reads: images trained over the window's seconds.
+before and after it, the optimizer's whole state with it, is kept for the
+replay check). The window then calls the chunk on fresh index chunks with
+no sync until the last, whose final loss it reads: images trained over
+the window's seconds.
 
 After the window the program's state is freed and the reference follows
 the same steps from the same inputs (see `compare`).
@@ -55,6 +58,11 @@ def _clone(d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in d.items()}
 
 
+def _opt_snapshot(state: dict) -> dict:
+    """An optimizer state's whole copy: its count and every buffer dict."""
+    return {k: int(v) if k == "count" else _clone(v) for k, v in state.items()}
+
+
 def build(cell: spec.Cell, seed: int, device: torch.device) -> Setup:
     from nnue_vision_tpu_torch.data.augment import device_generator
     from nnue_vision_tpu_torch.ops.input_pipeline import prepare_gather_dataset
@@ -70,6 +78,7 @@ def build(cell: spec.Cell, seed: int, device: torch.device) -> Setup:
     fam = spec.family(cfg)
     s = Setup()
     s.cfg, s.traffic, s.fam, s.device, s.seed = cfg, traffic, fam, device, seed
+    s.moment = ref_optim.FIRST_MOMENT[ref_optim.kind(rec)]
     s.batch, s.steps = rec["batch_size"], rec["steps_per_dispatch"]
     hw, n = cfg["input_size"], cfg["train_images"]
     s.weights = inputs.make_params(fam.param_specs(cfg), seed, device)
@@ -115,15 +124,14 @@ def warm(s: Setup) -> None:
         return _clone(dict(s.state.model.named_parameters()))
 
     losses = [s.call(s.chunks[0])]
-    s.trace1 = _clone(s.state.opt_state["trace"])
+    s.opt1 = _opt_snapshot(s.state.opt_state)
     losses.append(s.call(s.chunks[1]))
     s.params3 = params()
     s.loss13 = [float(v) for t in losses for v in t.tolist()]
     s.call(s.chunks[2])
     s.snap = params()
-    s.snap_trace = _clone(s.state.opt_state["trace"])
+    s.snap_opt = _opt_snapshot(s.state.opt_state)
     s.snap_stats = _clone(dict(s.state.model.named_buffers()))
-    s.snap_count = int(s.state.opt_state["count"])
     s.replay_losses = [float(v) for v in s.call(s.chunks[3]).tolist()]
     s.replay_params = params()
     graph = s.state.chunk_graph
@@ -190,17 +198,16 @@ def end_to_end(s: Setup, w: dict, setup_s: float) -> Dict[str, float]:
 
 
 class Ref:
-    """The reference trainer: its parameters, norm statistics, momentum
-    trace and step count, its draw generators, and one step. A stand-in
-    for the program (`perfbench/readings.py`) overrides `inputs` or
-    `logits`."""
+    """The reference trainer: its parameters, norm statistics, optimizer
+    state (the step count and the recipe's optimizer's buffers), its draw
+    generators, and one step. A stand-in for the program
+    (`perfbench/readings.py`) overrides `inputs` or `logits`."""
 
-    def __init__(self, s: Setup, params, stats, trace_, count: int):
+    def __init__(self, s: Setup, params, stats, opt: dict):
         self.s = s
         self.p = {k: v.clone() for k, v in params.items()}
         self.stats = {k: v.clone() for k, v in stats.items()}
-        self.trace = {k: v.clone() for k, v in trace_.items()}
-        self.count = count
+        self.opt = _opt_snapshot(opt)
         tier = s.traffic["tier"]
         self.fused = s.traffic["fused"]
         self.draw_step = getattr(ref_aug, f"draw_{tier}")
@@ -249,9 +256,8 @@ class Ref:
         loss = F.cross_entropy(self.logits(leaves, x), labels)
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()), allow_unused=True)))
-        ref_optim.sgd_step(self.p, grads, self.trace, s.cfg["recipe"], self.count)
+        ref_optim.step(self.p, grads, self.opt, s.cfg["recipe"])
         s.fam.ref_after_update(self.p)
-        self.count += 1
         return {"loss": float(loss.detach()),
                 "grad_norms": {k: 0.0 if g is None else float(g.norm())
                                for k, g in grads.items()}}
@@ -294,23 +300,22 @@ def _diff(a, b):
 def follow(s: Setup, ref_cls=Ref) -> dict:
     """What `ref_cls` makes of the steps the check compares, from the same
     weights, data and draws as the program: the first three steps' losses,
-    the momentum trace after step 1 and the parameters after step 3; the
-    losses and parameters of the chunk that captured the graph and ran its
-    first replay, followed from the program's state before that call (the
-    chunk in between is skipped); and each leaf's gradient norm at step
-    1."""
-    def zeros():
-        return {k: torch.zeros_like(v) for k, v in s.weights.items()}
-
-    ref = ref_cls(s, s.weights, s.stats0, zeros(), 0)
+    the optimizer's first moment after step 1 and the parameters after
+    step 3, from a zero optimizer state; the losses and parameters of the
+    chunk that captured the graph and ran its first replay, followed from
+    the program's state before that call, its whole optimizer state with
+    it (the chunk in between is skipped); and each leaf's gradient norm at
+    step 1."""
+    ref = ref_cls(s, s.weights, s.stats0,
+                  ref_optim.init(s.cfg["recipe"], s.weights))
     r1 = ref.chunk(s.chunks[0])
-    trace1 = _clone(ref.trace)
+    moment1 = _clone(ref.opt[s.moment])
     r23 = ref.chunk(s.chunks[1])
     ref.skip(s.steps)
-    rr = ref_cls(s, s.snap, s.snap_stats, s.snap_trace, s.snap_count)
+    rr = ref_cls(s, s.snap, s.snap_stats, s.snap_opt)
     rr.gen, rr.noise = ref.gen, ref.noise
     rl = rr.chunk(s.chunks[3])
-    return {"loss13": [r["loss"] for r in r1 + r23], "trace1": trace1,
+    return {"loss13": [r["loss"] for r in r1 + r23], "moment1": moment1,
             "params3": _clone(ref.p), "grad_norms1": r1[0]["grad_norms"],
             "replay_losses": [r["loss"] for r in rl], "replay_params": rr.p}
 
@@ -318,8 +323,9 @@ def follow(s: Setup, ref_cls=Ref) -> dict:
 def program(s: Setup) -> dict:
     """The program's readings of the steps `follow` follows, kept by
     `warm`."""
-    return {"loss13": s.loss13, "trace1": s.trace1, "params3": s.params3,
-            "replay_losses": s.replay_losses, "replay_params": s.replay_params}
+    return {"loss13": s.loss13, "moment1": s.opt1[s.moment],
+            "params3": s.params3, "replay_losses": s.replay_losses,
+            "replay_params": s.replay_params}
 
 
 def compare(s: Setup, prog: Optional[dict] = None) -> Dict[str, float]:
@@ -327,17 +333,23 @@ def compare(s: Setup, prog: Optional[dict] = None) -> Dict[str, float]:
     stand-in's `follow`) against the reference:
 
     * `loss_gap`: the worst relative gap of the first three steps' losses;
-    * `grad_gap`: the worst leaf's gap of the momentum trace after step 1,
-      the first gradient as the optimizer takes it (clipped, decayed);
+    * `grad_gap`: the worst leaf's gap of the optimizer's first moment
+      after step 1, the first gradient as the optimizer takes it (clipped,
+      decayed): SGD's momentum trace, Adam's `mu`, (1 − b1) times it;
     * `update_gap`: the worst leaf's gap of the parameters' change over the
       first three steps;
     * `replay_loss_gap`, `replay_update_gap`: the same for the first three
       losses and the whole chunk's change of the chunk whose call captured
       the graph and ran its first replay.
 
+    Every leaf gap, under SGD and Adam alike, is the gap of two norms
+    (`leaf_gap`), not the norm of the two changes' difference.
+
     Leaves whose reference gradient at step 1 is under a thousandth of the
-    median leaf's (the NNUE's `nnue2score`, which no loss reaches) count in
-    no leaf gap: they move by the weight decay alone."""
+    median leaf's (the NNUE's `nnue2score`, which no loss reaches; the
+    EtinyNet's norm scales and biases that a following norm cancels) count
+    in no leaf gap: they move by the weight decay, or under Adam by its
+    scaling of their rounding, alone."""
     prog = program(s) if prog is None else prog
     ref = follow(s)
     g1 = ref["grad_norms1"]
@@ -346,7 +358,8 @@ def compare(s: Setup, prog: Optional[dict] = None) -> Dict[str, float]:
     start = s.snap
     return {
         "loss_gap": loss_gap(prog["loss13"], ref["loss13"]),
-        "grad_gap": leaf_gap(_norms(prog["trace1"]), _norms(ref["trace1"]), keep),
+        "grad_gap": leaf_gap(_norms(prog["moment1"]), _norms(ref["moment1"]),
+                             keep),
         "update_gap": leaf_gap(_norms(_diff(prog["params3"], s.weights)),
                                _norms(_diff(ref["params3"], s.weights)), keep),
         "replay_loss_gap": loss_gap(prog["replay_losses"][:3],

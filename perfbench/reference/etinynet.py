@@ -30,6 +30,10 @@ VARIANTS = {
               "stages": [[(28, 28)] * 3, [(112, 112)] * 3,
                          [(168, 168)] * 3, [(224, 224)] * 2],
               "final_channels": 1120},
+    "0.75": {"conv_channels": 24,
+             "stages": [[(24, 24)] * 3, [(96, 96)] * 3,
+                        [(144, 144)] * 3, [(192, 192)] * 2],
+             "final_channels": 960},
     "micro": {"conv_channels": 8,
               "stages": [[(8, 8)], [(16, 16)] * 2, [(24, 24)] * 2,
                          [(32, 32)] * 2],

@@ -163,6 +163,106 @@ def test_train_cell_past_the_two_pass_rule_is_added_as_files(root, tmp_path,
     assert line["correct"] is False, line["compared"]
 
 
+def _repo_with_config(tmp_path, name, cfg, cell, traffic, limits,
+                      metrics_of):
+    """A copy of the repository's benchmark files with one more
+    configuration `name` (the dict `cfg`) and its cell `cell` on the mix
+    `traffic`, as files and entries alone: the cell's limits `limits`, its
+    metrics those of the cell `metrics_of`. Then a checkout root that
+    `make_root` cuts from that copy."""
+    import shutil
+    src = tmp_path / "src"
+    src.mkdir()
+    shutil.copy(REPO / "BENCHMARK.json", src / "BENCHMARK.json")
+    for sub in ("metrics", "limits", "traffic", "configs"):
+        shutil.copytree(REPO / "perfbench" / sub, src / "perfbench" / sub)
+    (src / f"perfbench/configs/{name}.json").write_text(json.dumps(cfg))
+    (src / f"perfbench/limits/{cell}.json").write_text(json.dumps(limits))
+    bench = json.loads((src / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": name, "source": "test",
+                             "file": f"perfbench/configs/{name}.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": cell, "config": name,
+                               "traffic": traffic, "chips": 1, "why": "test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if metrics_of in m.get("workloads", ()):
+            m["workloads"].append(cell)
+    (src / "BENCHMARK.json").write_text(json.dumps(bench))
+    out = tmp_path / "root"
+    out.mkdir()
+    return make_root(out, repo=src)
+
+
+def _adam_config(**recipe):
+    """EtinyNet-0.98M in float32 with the engine-friendly anchor's Adam
+    recipe (`config/train_etinynet_anchor_qat.py`: lr 8e-4, decay 1e-4,
+    clip 1.0, cosine, batch 256, 19 steps a dispatch, 5,000 images)."""
+    cfg = json.loads((REPO / "perfbench/configs/etinynet_cifar10.json").read_text())
+    cfg.update(dtype="float32", train_images=5000)
+    cfg["recipe"].update({"optimizer_type": "adam", "learning_rate": 8e-4,
+                          "weight_decay": 1e-4, "max_grad_norm": 1.0,
+                          "max_epochs": 35, "batch_size": 256,
+                          "steps_per_epoch": 19, "steps_per_dispatch": 19,
+                          **recipe})
+    return cfg
+
+
+# on the CPU the program reads at most float32 rounding against the
+# reference at the micro cut (0 to 2.5e-5, the most on the change of the
+# first three steps), the half-batch fault 0.04 (loss) to 1.6 (that change)
+ADAM_LIMITS = {"loss_gap": 1e-5, "grad_gap": 1e-5, "update_gap": 1e-3,
+               "replay_loss_gap": 1e-5, "replay_update_gap": 1e-3}
+
+
+def test_adam_train_cell_is_added_as_files(tmp_path, monkeypatch):
+    """A train cell whose recipe names Adam, of a configuration that the
+    tiny cut names nowhere, added as a configuration file, a limits file
+    and entries alone on the existing light unfused mix: set-up, window
+    and check run with the reference stepping Adam and read correct, and
+    the half-batch fault does not."""
+    from perfbench.tests import tiny
+    assert "etiny_adam" not in tiny.RECIPE
+    root = _repo_with_config(tmp_path, "etiny_adam", _adam_config(),
+                             "etiny_adam_train", "train_light_unfused",
+                             ADAM_LIMITS, "nnue_train_light_unfused")
+    cell = spec.load_cell(root, "etiny_adam_train")
+    assert cell.config["recipe"]["batch_size"] == tiny.DEFAULT_RECIPE["batch_size"]
+    line = run.execute(cell, SEED, 0.2, False, CPU, _quiet)
+    assert line["correct"], line["compared"]
+    assert set(line["metrics"]) == {"train_images_per_s", "setup_s"}
+    _half_batch(monkeypatch)
+    line = run.execute(cell, SEED, 0.2, False, CPU, _quiet)
+    assert line["correct"] is False, line["compared"]
+
+
+def test_unknown_optimizer_is_refused_at_set_up(tmp_path):
+    root = _repo_with_config(tmp_path, "etiny_lamb",
+                             _adam_config(optimizer_type="lamb"),
+                             "etiny_lamb_train", "train_light_unfused",
+                             ADAM_LIMITS, "nnue_train_light_unfused")
+    cell = spec.load_cell(root, "etiny_lamb_train")
+    from perfbench.kinds import train
+    with pytest.raises(ValueError, match="optimizer_type 'lamb'"):
+        train.build(cell, SEED, CPU)
+
+
+def test_new_configuration_file_alone_is_cut_by_make_root(tmp_path):
+    """A configuration file that the tiny cut does not name is cut by its
+    family's widths and the default recipe, and a cell of it runs."""
+    from perfbench.tests import tiny
+    cfg = json.loads((REPO / "perfbench/configs/nnue_hard.json").read_text())
+    root = _repo_with_config(tmp_path, "nnue_other", cfg, "nnue_other_train",
+                             "train_light_fused",
+                             json.loads((REPO / "perfbench/limits/nnue_train_light.json")
+                                        .read_text()), "nnue_train_light")
+    cell = spec.load_cell(root, "nnue_other_train")
+    assert cell.config["l1_size"] == tiny.NNUE["l1_size"]
+    assert cell.config["recipe"]["steps_per_dispatch"] == \
+        tiny.DEFAULT_RECIPE["steps_per_dispatch"]
+    line = run.execute(cell, SEED, 0.2, False, CPU, _quiet)
+    assert line["correct"], line["compared"]
+
+
 def test_fused_mix_of_another_tier_is_refused(root, tmp_path):
     new = _add_cell(root, tmp_path, "fused_medium", "nnue_hard",
                     {"kind": "train", "tier": "medium", "fused": True,
