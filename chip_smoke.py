@@ -87,6 +87,10 @@ Phases, one line each (any failure raises and exits non-zero):
              the stem and tail kernels at 8192×32×32 (0.98M) and at
              1024×224×224 (EtinyNet-1.0, 1,000 classes), each torch.equal to
              its plain version, event-, graph- and host-timed beside it;
+             K6's nine band launches of that 224 model (K6's counter
+             reading nine), each torch.equal to its plain block, together
+             event-, graph- and host-timed beside the plain blocks, and
+             each graph-timed alone;
              ms per EtinyNet train step at batch 1024 over 48 steps (host
              clock, one sync at the end)
 18. ef-etiny  train_model on config/train_etinynet_anchor_qat.py (0.75
@@ -324,7 +328,9 @@ launches the first entry's count includes; K7's level 3; K1, K2, K3, K4,
 K5, K6, K7, the single pass and K8 also graph-timed, with their host cost
 per call,
 and the single pass's grid_sample graph-timed as `library_graph_ms`; K5's
-band path at 224 as a second K5 entry; K3 at batch 8192 as a second K3 entry,
+band path at 224 as a second K5 entry; K6's nine band launches at
+1024×224×224 as a third K6 entry (its launches those of phase 28's
+forward, as K6's counter read them); K3 at batch 8192 as a second K3 entry,
 with the first entry's launches; each kernel of 31-33 also its
 launches per rank, which its `launches` includes), the card's name and
 power limit, and the last line
@@ -496,6 +502,8 @@ K5_BAND = "photometric_band_kernel"  # K5's band path, at 224×224
 STEM_224 = "etiny_stem_kernel (B=1024, 224x224)"
 TAIL_224 = "etiny_tail_kernel (B=1024, 224x224)"
 STEM_TAIL_224_BATCH = 1024
+# K6's band launches timed on the same model and images (phase 17)
+K6_BANDS_224 = "etiny_block_kernel (bands, B=1024, 224x224)"
 K3_8192 = "light_pipeline_kernel (B=8192)"  # K3 timed at batch 8192
 GATES = {"medium": [0, 3, 7, 8, 10, 11, 15, 20, 22, 23],
          "heavy_extra": [0, 3, 7, 8, 10, 11]}
@@ -516,6 +524,7 @@ SOURCES = {
     "etiny_tail_kernel": "nnue_vision_tpu_torch/csrc/etiny_stem.cu",
     STEM_224: "nnue_vision_tpu_torch/csrc/etiny_stem.cu",
     TAIL_224: "nnue_vision_tpu_torch/csrc/etiny_stem.cu",
+    K6_BANDS_224: "nnue_vision_tpu_torch/csrc/etiny_block.cu",
 }
 REPLACES = {
     "nnue_mega_kernel": "nnue_vision_tpu/ops/pallas_kernels.py:161",
@@ -536,6 +545,7 @@ REPLACES = {
     "etiny_tail_kernel": "none (XLA: nnue_vision_tpu/ops/etiny_pallas.py:333)",
     STEM_224: "none (XLA: nnue_vision_tpu/ops/etiny_pallas.py:301)",
     TAIL_224: "none (XLA: nnue_vision_tpu/ops/etiny_pallas.py:333)",
+    K6_BANDS_224: "nnue_vision_tpu/ops/etiny_pallas.py:105",
 }
 BISECT_REPS = 100
 GRAPH_REPS = 50  # calls per CUDA graph in the graph-timed rows
@@ -1093,6 +1103,49 @@ def stem_tail_timing(errs: Errors, smi: str, kp, ecfg, x: torch.Tensor,
             f"ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) on {smi}")
 
 
+def k6_bands_timing(errs: Errors, smi: str, kp, ecfg, x: torch.Tensor,
+                    tables: tuple) -> int:
+    """Phase 17's row of K6's band launches on images x: each band-path
+    block's launch held to its plain block (torch.equal); the band
+    launches together event-timed beside their plain blocks, graph-timed
+    with their host cost per call, beside their bound (`k6_bound`); each
+    launch graph-timed alone, printed. Returns the band launches that K6's
+    counter read over the equality checks, one call of each block."""
+    ms, bounds, extra, library = tables
+    blocks = []
+    for a, blk, bs in k6_blocks(kp, ecfg, x):
+        mid, cout = blk["dw"].shape[0], blk["pw_project_w"].shape[0]
+        band = ek.band_plan(a.shape[1], a.shape[2], a.shape[3], mid, cout, bs.stride)
+        if band:
+            blocks.append((a, blk, bs, band))
+    tag = f"B={x.shape[0]} {x.shape[1]}x{x.shape[2]}"
+    before = ek.LAUNCHES["band_launches"]
+    for i, (a, blk, bs, _) in enumerate(blocks):
+        errs.equal(K6_BANDS_224, f"{tag} band launch {i} vs its plain block",
+                   ek.lb_block(a, blk, bs), ek.lb_block_reference(a, blk, bs))
+    launched = ek.LAUNCHES["band_launches"] - before
+
+    def kernel():
+        return [ek.lb_block(a, blk, bs) for a, blk, bs, _ in blocks][-1]
+
+    ms[K6_BANDS_224] = time_pair(
+        kernel, lambda: [ek.lb_block_reference(a, blk, bs) for a, blk, bs, _ in blocks])
+    extra[K6_BANDS_224] = (chained_best_ms(kernel, GRAPH_REPS), host_ms(kernel, K6_HOST_CALLS))
+    bounds[K6_BANDS_224] = k6_bound([(a, blk, bs) for a, blk, bs, _ in blocks])
+    library[K6_BANDS_224] = None  # expand, depthwise, project
+    each = [f"{a.shape[1]}x{a.shape[2]}x{a.shape[3]}->{blk['dw'].shape[0]}->"
+            f"{blk['pw_project_w'].shape[0]} s{bs.stride} in bands of {band}: "
+            + f"{chained_best_ms(lambda a=a, blk=blk, bs=bs: ek.lb_block(a, blk, bs), GRAPH_REPS):.4f} ms"
+            for a, blk, bs, band in blocks]
+    say("timing", f"{tag} {K6_BANDS_224}, the {len(blocks)} band launches: event "
+        f"{ms[K6_BANDS_224][0]:.4f} ms, graph {extra[K6_BANDS_224][0]:.4f} ms "
+        f"({GRAPH_REPS} calls per CUDA graph, best of 3), host "
+        f"{extra[K6_BANDS_224][1]:.4f} ms per call, plain {ms[K6_BANDS_224][1]:.4f} "
+        f"ms, bound {bounds[K6_BANDS_224][0]:.4f} ms ({bounds[K6_BANDS_224][1]}) on "
+        f"{smi}; each launch graph-timed: " + "; ".join(each))
+    return launched
+
+
 def reset_launches() -> None:
     for module in (wk, pk, ek, ip, nk):
         module.reset_launch_counts()
@@ -1600,8 +1653,8 @@ def imagenet_phases(errs: Errors, smi: str) -> dict:
     band = {K5_BAND: launches[K5_BAND], "warp_kernel": launches["warp_kernel"],
             "etiny_block_kernel": k6_launches, "band_launches": k6_bands}
     say("launches", "ImageNet-224 " + json.dumps(band))
-    return dict(launches=launches[K5_BAND], k6_launches=k6_launches, ms=(k, p),
-                bound=k5_bound, extra=graph_host)
+    return dict(launches=launches[K5_BAND], k6_launches=k6_launches,
+                k6_bands=k6_bands, ms=(k, p), bound=k5_bound, extra=graph_host)
 
 
 # ---------------------------------------------------------------------------
@@ -3413,9 +3466,14 @@ def main() -> int:
     xi = normalize_images(torch.rand(
         (STEM_TAIL_224_BATCH, 224, 224, 3), device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(SEED))).contiguous()
-    stem_tail_timing(errs, smi, ek.etiny_kernel_params(isim, icfg), icfg, xi,
-                     (STEM_224, TAIL_224), (ms, bounds, extra, library))
-    del xi
+    ikp = ek.etiny_kernel_params(isim, icfg)
+    stem_tail_timing(errs, smi, ikp, icfg, xi, (STEM_224, TAIL_224),
+                     (ms, bounds, extra, library))
+    k6_bands_launched = k6_bands_timing(errs, smi, ikp, icfg, xi,
+                                        (ms, bounds, extra, library))
+    check(k6_bands_launched == 9,
+          f"224: the counter read {k6_bands_launched} band launches, not 9")
+    del xi, ikp
     ecfg_t = et["cfg"]
     eopt = create_optimizer(ecfg_t, steps)
     estate = make_train_state(trained_e, eopt)
@@ -3715,6 +3773,7 @@ def main() -> int:
     band = imagenet_phases(errs, smi)
     launches[K5_BAND] = band["launches"]
     launches["etiny_block_kernel"] += band["k6_launches"]
+    launches[K6_BANDS_224] = band["k6_bands"]
     ms[K5_BAND], bounds[K5_BAND], extra[K5_BAND] = band["ms"], band["bound"], band["extra"]
     library[K5_BAND] = None  # no single call runs the gated photometric chain
     dp = dp_phases(errs, smi, model, qe)

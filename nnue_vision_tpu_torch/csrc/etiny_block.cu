@@ -28,8 +28,8 @@
 // shared memory. The last tile is ragged: its missing images are never
 // stored.
 //   1. The tile's input (T*h*w rows of cin int8), the pw-expand bias and
-//      the depthwise weights are copied to shared memory while the first
-//      weight stages load.
+//      the depthwise weights are copied to shared memory by cp.async while
+//      the first weight stages load.
 //   2. pw-expand is one tensor-core product (int8_mma.cuh: mma.sync
 //      m16n8k32 s8, weights streamed through a cp.async ring), rows x K =
 //      cin x N = mid; its epilogue writes int8 values 0..6.
@@ -67,24 +67,36 @@
 // pw-project epilogue writes the next block's input into shared memory in
 // the operand layout that block's pw-expand reads (a_stride(cin)), and
 // only the run's last output goes to device memory. The arithmetic is the
-// tile path's, so the run is exact in the same way. Its products copy of
-// each weight stage only what they read and, where a product's stages
-// stay resident, meet the block's barrier once; a product of at most 32
-// columns takes a layout whose every warp holds real columns; the
-// epilogues store two values at a time; the depthwise takes four channels
-// a thread with __dp4a (run_depthwise). The caller
+// tile path's, so the run is exact in the same way. The caller
 // (ops/etiny_kernels.py run_plan) picks the runs and their tile, at which
 // every product keeps at least kSuperRows GEMM rows; a run of one block
-// is the single-block launch above, unchanged.
+// is the single-block launch above.
 //
-// What bounds it now (PERF.md): the run's CUDA-core work, the
-// depthwise and the epilogues, and its products' latency chains with 8
-// warps a block of threads and 2 blocks an SM; then the final block alone
-// (224 -> 1120 -> 1120), whose 1.5 MB of weights each block of threads
-// streams through the ring. Loops that read shared or device memory and
-// write shared memory name their regions __restrict__ (they never
-// overlap), so that a value's reads are not held behind the last value's
-// store.
+// Both kernels run one block body (lb_block) on the loops they share, one
+// copy each, and differ only in their set-up: a product copies of each
+// weight stage only what it reads and, where its stages stay resident,
+// meets the block's barrier once; a product of at most 32 columns takes a
+// layout whose every warp holds real columns (run_product); the
+// epilogues store two values at a time (expand_epilogue,
+// project_epilogue); the depthwise takes four channels a thread with
+// __dp4a and walks its positions by carries, with no division
+// (run_depthwise, which tests a band's windows against the image); the
+// input lands by cp.async, walked the same way (load_rows). On the bands
+// of EtinyNet-1.0 at 224, whose 32-channel blocks at 112 and 56 had two
+// working warps a block of threads, one block of threads an SM, they cut
+// the nine band launches about 3.3x (PERF.md).
+//
+// What bounds it now (PERF.md): on the bands, one block of threads an SM
+// (a band fills shared memory), whose steps follow one another behind
+// barriers with eight warps to hide each one's latency, and the stride-2
+// blocks, which expand every input position; in the runs, the CUDA-core
+// work, the depthwise and the epilogues, and the products' latency chains
+// with 8 warps a block of threads and 2 blocks an SM; and the final block
+// alone (224 -> 1120 -> 1120 at 8192, 256 -> 1280 -> 1280 at 224), whose
+// weights, 1.5 and 1.97 MB, each block of threads streams through the
+// ring. Loops that read shared or device memory and write shared memory
+// name their regions __restrict__ (they never overlap), so that a value's
+// reads are not held behind the last value's store.
 //
 // C interface (ctypes): each launcher (etiny_block_launch, one block;
 // etiny_run_launch, a run) takes one packed argument (launch_args.cuh)
@@ -103,21 +115,28 @@ using namespace int8mma;
 
 constexpr int kMaxSmem = 232448;  // what a block may use on sm_90
 constexpr int kRowTarget = 256;   // GEMM rows a tile aims for
-constexpr int kSuperRows = 64;    // rows per product super-tile (<2, 2>)
+constexpr int kSuperRows = 64;    // rows per product super-tile (either layout)
 
-struct BlockArgs {
-  const int8_t* x;        // (batch, h, w, cin)
-  int batch, tile;        // images in all, images per block of threads
-  int slots;              // weight ring slots: 2 to kMaxSlots
-  int h, w, cin, mid, cout, stride, oh, ow;
-  int k_expand, k_dw, k_project;  // the scales' log2 (they are powers of two)
+// One LB block: its shape, its scales' log2, its weights, and (in a run)
+// where its bias and depthwise weights lie in the run's constants.
+struct LbBlock {
   const uint8_t* we;      // pw-expand (mid, cin) as mma tiles
   const int* be;          // (mid,)
   const int8_t* dw;       // (mid, 3, 3)
   const uint8_t* wp;      // pw-project (cout, mid) as mma tiles
+  int h, w, cin, mid, cout, stride, oh, ow;
+  int k_expand, k_dw, k_project;  // the scales' log2 (they are powers of two)
+  int consts;             // run path: byte offset in the constants region
+};
+
+struct BlockArgs {
+  const int8_t* x;        // (batch, h, w, cin)
   int8_t* out;            // (batch, oh, ow, cout)
+  int batch, tile;        // images in all, images per block of threads
+  int slots;              // weight ring slots: 2 to kMaxSlots
   int band, band_in;      // band path: output rows a band, its most input rows
   int bands;              // band path: bands per image
+  LbBlock b;
 };
 
 __host__ __device__ inline int align128(int n) { return round_up(n, 128); }
@@ -154,183 +173,11 @@ __host__ __device__ inline int band_end_in(int oy0, int rows, int stride, int h)
   return end < h ? end : h;
 }
 
-// kBand: one band of a.band output rows of one image a block of threads;
-// else a tile of a.tile whole images.
-template <bool kBand>
-__global__ void __launch_bounds__(kThreads)
-etiny_block_kernel(BlockArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem sm(kBand ? 1 : a.tile, kBand ? a.band_in : a.h, a.w, a.cin, a.mid, a.cout,
-                kBand ? a.band : a.oh, a.ow, a.slots);
-  int8_t* xs = reinterpret_cast<int8_t*>(smem);    // (rows, a_stride(cin))
-  int8_t* h2 = xs;                                 // (orows, a_stride(mid))
-  int8_t* h1 = xs + sm.x_and_h2;                   // (rows, mid)
-  int8_t* os = h1;                                 // (orows, cout), after h1
-  int* s_be = reinterpret_cast<int*>(smem + sm.x_and_h2 + sm.h1);  // (mid,)
-  int8_t* s_dw = reinterpret_cast<int8_t*>(s_be) + align128(4 * a.mid);  // (mid, 9)
-  unsigned char* ring = smem + sm.x_and_h2 + sm.h1 + sm.consts;
+// ---- The loops both kernels share -----------------------------------------
 
-  // This block's images, and per image its input rows [iy0, iy0 + in_rows)
-  // and output rows [oy0, oy0 + o_rows): the whole image on the tile path.
-  const int img0 = kBand ? blockIdx.x / a.bands : blockIdx.x * a.tile;
-  const int n_img = kBand ? 1 : min(a.tile, a.batch - img0);
-  const int oy0 = kBand ? (blockIdx.x - img0 * a.bands) * a.band : 0;
-  const int o_rows = kBand ? min(a.band, a.oh - oy0) : a.oh;
-  const int iy0 = kBand ? band_first_in(oy0, a.stride) : 0;
-  const int in_rows = kBand ? band_end_in(oy0, o_rows, a.stride, a.h) - iy0 : a.h;
-  const int hw = in_rows * a.w, ohw = o_rows * a.ow;
-  const int rows = n_img * hw, orows = n_img * ohw;
-  const int ldx = a_stride(a.cin), ldh = a_stride(a.mid);
-  const int cin_steps = k_stages(a.cin);  // K stages of pw-expand
-  const int mid_steps = k_stages(a.mid);  // and of pw-project
-
-  // 1 + 2. The input tile, the bias and the depthwise weights land while
-  // the first weight stages load (the epilogues would otherwise wait on a
-  // device-memory read per value); then pw-expand + bias, /s_expand, ReLU6
-  // into h1.
-  auto load_x = [&] {
-    for (int m = threadIdx.x; m < a.mid; m += blockDim.x) s_be[m] = __ldg(a.be + m);
-    for (int e = threadIdx.x; e < a.mid * 9; e += blockDim.x) s_dw[e] = a.dw[e];
-    const int8_t* xg = a.x + (kBand ? (static_cast<size_t>(img0) * a.h + iy0) * a.w
-                                    : static_cast<size_t>(img0) * hw) * a.cin;
-    if ((a.cin & 3) == 0) {
-      const int words = a.cin >> 2;
-      const int* __restrict__ xw = reinterpret_cast<const int*>(xg);
-      int* __restrict__ xd = reinterpret_cast<int*>(xs);
-#pragma unroll 4
-      for (int e = threadIdx.x; e < rows * words; e += blockDim.x) {
-        const int r = e / words, k = e - r * words;
-        xd[(r * ldx >> 2) + k] = __ldg(xw + e);
-      }
-    } else {
-      for (int e = threadIdx.x; e < rows * a.cin; e += blockDim.x) {
-        const int r = e / a.cin, k = e - r * a.cin;
-        xs[r * ldx + k] = xg[e];
-      }
-    }
-  };
-  stream_gemm<2, 2>(
-      xs, ldx, (rows + kSuperRows - 1) / kSuperRows, a.we, Chunks{0, 1, (a.mid + kCols - 1) / kCols},
-      a.cin, a.mid, cin_steps, 0, ring, a.slots, blockIdx.x, load_x,
-      [&](int, int c, const auto& acc, int row0, int col0) {
-        for_each_sum_col(
-            acc, row0, c * kCols + col0, [&](int m) { return m < a.mid ? s_be[m] : 0; },
-            [&](int r, int m, int v, int bias) {
-              if (r < rows && m < a.mid)
-                h1[r * a.mid + m] = static_cast<int8_t>(clampi(tdiv_pow2(v + bias, a.k_expand), 0, 6));
-            });
-      });
-
-  // 3. depthwise 3x3, zero padding, at the block's stride; /s_dw, ReLU6.
-  // Rows are the image's; h1 holds rows iy0.. of each image. (The regions
-  // do not overlap: said so, the compiler may batch one value's reads
-  // ahead of the last value's store.)
-  {
-  const int8_t* __restrict__ hsrc = h1;
-  const int8_t* __restrict__ wsrc = s_dw;
-  int8_t* __restrict__ hdst = h2;
-#pragma unroll 2
-  for (int e = threadIdx.x; e < orows * a.mid; e += blockDim.x) {
-    const int orow = e / a.mid, m = e - orow * a.mid;
-    const int img = orow / ohw, op = orow - img * ohw;
-    const int oy = op / a.ow, ox = op - oy * a.ow;
-    const int8_t* hin = hsrc + img * hw * a.mid + m;
-    const int8_t* wd = wsrc + m * 9;
-    int acc = 0;
-    for (int ky = 0; ky < 3; ++ky) {
-      const int iy = (oy0 + oy) * a.stride + ky - 1;
-      if (iy < 0 || iy >= a.h) continue;
-      for (int kx = 0; kx < 3; ++kx) {
-        const int ix = ox * a.stride + kx - 1;
-        if (ix < 0 || ix >= a.w) continue;
-        acc += static_cast<int>(hin[((iy - iy0) * a.w + ix) * a.mid]) *
-               static_cast<int>(wd[ky * 3 + kx]);
-      }
-    }
-    hdst[orow * ldh + m] = static_cast<int8_t>(clampi(tdiv_pow2(acc, a.k_dw), 0, 6));
-  }
-  }
-  __syncthreads();
-
-  // 4. pw-project, /s_project, clamp +-127 into the output tile, which then
-  // goes to device memory in 16-byte stores where the addresses allow.
-  int8_t* og = a.out + (kBand ? (static_cast<size_t>(img0) * a.oh + oy0) * a.ow
-                               : static_cast<size_t>(img0) * ohw) * a.cout;
-  stream_gemm<2, 2>(
-      h2, ldh, (orows + kSuperRows - 1) / kSuperRows, a.wp, Chunks{0, 1, (a.cout + kCols - 1) / kCols},
-      a.mid, a.cout, mid_steps, 0, ring, a.slots, blockIdx.x, [] {},
-      [&](int, int c, const auto& acc, int row0, int col0) {
-        for_each_sum(acc, row0, c * kCols + col0, [&](int r, int o, int v) {
-          if (r < orows && o < a.cout)
-            os[r * a.cout + o] = static_cast<int8_t>(clampi(tdiv_pow2(v, a.k_project), -127, 127));
-        });
-      });
-  const int bytes = orows * a.cout;
-  if (((reinterpret_cast<uintptr_t>(og) | bytes) & 15) == 0) {
-    for (int e = threadIdx.x; e < (bytes >> 4); e += blockDim.x)
-      reinterpret_cast<int4*>(og)[e] = reinterpret_cast<const int4*>(os)[e];
-  } else {
-    for (int e = threadIdx.x; e < bytes; e += blockDim.x) og[e] = os[e];
-  }
-}
-
-// ---- Runs of blocks (etiny_block_kernel_run) ------------------------------
-
-constexpr int kMaxRun = 16;  // blocks a run carries at most
 constexpr int kNarrow = 32;  // a product with at most this many columns takes <1, 4, 32>
-
-// One block of a run: its shape, its scales' log2, its weights, and where
-// its bias and depthwise weights lie in the run's constants.
-struct RunBlock {
-  const uint8_t* we;
-  const int* be;
-  const int8_t* dw;
-  const uint8_t* wp;
-  int h, w, cin, mid, cout, stride, oh, ow;
-  int k_expand, k_dw, k_project;
-  int consts;  // byte offset in the constants region
-};
-
-struct RunArgs {
-  const int8_t* x;  // (batch, h, w, cin) of the run's first block
-  int8_t* out;      // (batch, oh, ow, cout) of its last
-  int batch, tile, slots, n;
-  int q, consts, ring;  // byte offsets of region Q, the constants and the ring
-  RunBlock b[kMaxRun];
-};
-
-// The shared memory of a run at `tile` images (host side; the launcher
-// hands the kernel the offsets). Two regions take turns: block k reads its
-// input from one (P for even k) and leaves its depthwise output there;
-// its expanded activations, then its output, go to the other, in the
-// operand layout that block k + 1's pw-expand reads (the run's last
-// output densely, for the copy out). Then every block's bias and
-// depthwise weights, then the weight ring.
-struct RunSmem {
-  int p, q, consts, slots_used, total;
-  RunSmem(int tile, const int (*shape)[6], int n, int slots) {
-    int reg[2] = {0, 0};
-    consts = slots_used = 0;
-    for (int k = 0; k < n; ++k) {
-      const int h = shape[k][0], w = shape[k][1], cin = shape[k][2], mid = shape[k][3];
-      const int cout = shape[k][4], stride = shape[k][5];
-      const int oh = (h - 1) / stride + 1, ow = (w - 1) / stride + 1;
-      const int rows = round_up(tile * h * w, kSuperRows);
-      const int orows = round_up(tile * oh * ow, kSuperRows);
-      const int in = imax(a_region(rows, cin), a_region(orows, mid));
-      const int out = imax(rows * mid, k + 1 < n ? a_region(orows, cout) : orows * cout);
-      reg[k & 1] = imax(reg[k & 1], in);
-      reg[~k & 1] = imax(reg[~k & 1], out);
-      consts += align128(4 * mid) + align128(9 * mid);
-      slots_used = imax(slots_used,
-                        imax(ring_slots((mid + kCols - 1) / kCols * k_stages(cin), slots),
-                             ring_slots((cout + kCols - 1) / kCols * k_stages(mid), slots)));
-    }
-    p = align128(reg[0]);
-    q = align128(reg[1]);
-    total = p + q + consts + slots_used * kSlotBytes;
-  }
-};
+static_assert(Layout<1, 4, kNarrow>::kRows == kSuperRows && Layout<2, 2>::kRows == kSuperRows,
+              "both layouts cover the super-tile that Smem and RunSmem round rows to");
 
 // f(row, col, value at col, value at col + 1, cv(col), cv(col + 1)) for
 // each pair of neighbouring columns a thread holds (cv read first).
@@ -368,12 +215,40 @@ __device__ inline void store_pair(int8_t* dst, int c, int n, int q0, int q1) {
   }
 }
 
+// The pw-expand epilogue of the sums a thread holds (chunk column col0):
+// + bias, /2^k, ReLU6 into `rows` dense rows of mid values at dst.
+template <int kMW, int kNW>
+__device__ __forceinline__ void expand_epilogue(const int (&acc)[kMW][kNW][4], int row0,
+                                                int col0, int8_t* dst, int rows, int mid,
+                                                const int* be, int k) {
+  for_each_pair(acc, row0, col0, [&](int m) { return m < mid ? be[m] : 0; },
+                [&](int r, int m, int v0, int v1, int b0, int b1) {
+                  if (r < rows)
+                    store_pair(dst + r * mid + m, m, mid, relu6_shift(v0 + b0, k),
+                               relu6_shift(v1 + b1, k));
+                });
+}
+
+// The pw-project epilogue: /2^k, clamp +-127 into `rows` rows of n values
+// at dst, ld bytes apart.
+template <int kMW, int kNW>
+__device__ __forceinline__ void project_epilogue(const int (&acc)[kMW][kNW][4], int row0,
+                                                 int col0, int8_t* dst, int ld, int rows, int n,
+                                                 int k) {
+  for_each_pair(acc, row0, col0, [](int) { return 0; },
+                [&](int r, int o, int v0, int v1, int, int) {
+                  if (r < rows)
+                    store_pair(dst + r * ld + o, o, n, clampi(tdiv_pow2(v0, k), -127, 127),
+                               clampi(tdiv_pow2(v1, k), -127, 127));
+                });
+}
+
 // C = A . W^T for a block's product, n columns of k bytes, with the
 // layout its width calls for; each stage copied only as far as read.
 template <class Before, class Epi>
-__device__ inline void run_product(const int8_t* a, int lda, int rows, const uint8_t* w, int k,
-                                   int n, unsigned char* ring, int slots, Before&& before,
-                                   Epi&& epi) {
+__device__ __forceinline__ void run_product(const int8_t* a, int lda, int rows, const uint8_t* w,
+                                            int k, int n, unsigned char* ring, int slots,
+                                            Before&& before, Epi&& epi) {
   const int n_super = (rows + kSuperRows - 1) / kSuperRows;
   if (n <= kNarrow)
     stream_gemm<1, 4, kNarrow, true>(a, lda, n_super, w, Chunks{0, 1, 1}, k, n, k_stages(k), 0,
@@ -381,6 +256,49 @@ __device__ inline void run_product(const int8_t* a, int lda, int rows, const uin
   else
     stream_gemm<2, 2, kCols, true>(a, lda, n_super, w, Chunks{0, 1, (n + kCols - 1) / kCols}, k,
                                    n, k_stages(k), 0, ring, slots, blockIdx.x, before, epi);
+}
+
+// A block's pw-expand bias (mid int32) and depthwise weights (mid x 9
+// int8) into shared memory by cp.async (the weights a byte at a time
+// where mid % 4 != 0). The copy loops here and in load_rows stay rolled:
+// unrolled, they add about a thousand instructions to each kernel and
+// save no measured time.
+__device__ __forceinline__ void load_consts(unsigned char* be, unsigned char* dw,
+                                            const int* be_g, const int8_t* dw_g, int mid) {
+#pragma unroll 1
+  for (int m = threadIdx.x; m < mid; m += kThreads) cp_async4(be + 4 * m, be_g + m);
+  if ((mid & 3) == 0) {
+#pragma unroll 1
+    for (int e = threadIdx.x; e < mid * 9 / 4; e += kThreads) cp_async4(dw + 4 * e, dw_g + 4 * e);
+  } else {
+#pragma unroll 1
+    for (int e = threadIdx.x; e < mid * 9; e += kThreads)
+      reinterpret_cast<int8_t*>(dw)[e] = dw_g[e];
+  }
+}
+
+// `rows` dense rows of k bytes at src into shared memory, ld bytes a row:
+// a word at a time by cp.async where k % 4 == 0 (word e of the rows is row
+// r's word c; the walk adds kThreads by carries), else a byte at a time.
+__device__ __forceinline__ void load_rows(int8_t* dst, int ld, const int8_t* src, int rows,
+                                          int k) {
+  if ((k & 3) == 0) {
+    const int words = k >> 2, dr = kThreads / words, dc = kThreads - dr * words;
+    int r = threadIdx.x / words, c = threadIdx.x - r * words;
+#pragma unroll 1
+    for (int e = threadIdx.x; e < rows * words; e += kThreads) {
+      cp_async4(dst + r * ld + 4 * c, src + 4 * e);
+      r += dr;
+      c += dc;
+      if (c >= words) { c -= words; ++r; }
+    }
+  } else {
+#pragma unroll 1
+    for (int e = threadIdx.x; e < rows * k; e += kThreads) {
+      const int r = e / k, c = e - r * k;
+      dst[r * ld + c] = src[e];
+    }
+  }
 }
 
 // The 4x4 byte transpose: o[c] byte i = byte c of the i-th word.
@@ -395,18 +313,24 @@ __device__ inline void transpose4(uint32_t q0, uint32_t q1, uint32_t q2, uint32_
 }
 
 // 3x3 depthwise, zero padding, at `stride`, of n_img images of h x w
-// positions in h1 (mid values a row, dense) into h2 (ldh bytes a row);
-// /2^k_dw, clamp [0, 6]. A thread takes one group of channels (four where
-// mid allows, else one) at positions p0, p0 + step, ..., its weights held
-// in registers; it walks the positions by carries, with no division in
-// the loop. Four channels are read as one word a tap; the four words of
-// taps 0-3 (and of 4-7) are transposed with byte permutes into one word a
-// channel, so that __dp4a sums four taps at once, and tap 8's word meets
-// a weight word that holds the channel's weight at its own byte. Values
-// 0..6 times int8 weights, nine a sum: exact in int32.
-__device__ inline void run_depthwise(const int8_t* __restrict__ h1, const int8_t* __restrict__ wdw,
-                                     int8_t* __restrict__ h2, int ldh, int n_img, int h, int w,
-                                     int oh, int ow, int mid, int stride, int k_dw) {
+// positions in h1 (mid values a row, dense) into h2 (ldh bytes a row), oh
+// x ow outputs an image; /2^k_dw, clamp [0, 6]. A band (one image) holds
+// the image's rows iy0.. in h1 and computes its output rows oy0..: the
+// windows are tested against the image's height h_img. The tile and run
+// paths pass oy0 = iy0 = 0 and h_img = h. A thread takes one group of
+// channels (four where mid allows, else one) at positions p0, p0 + step,
+// ..., its weights held in registers; it walks the positions by carries,
+// with no division in the loop. Four channels are read as one word a tap;
+// the four words of taps 0-3 (and of 4-7) are transposed with byte
+// permutes into one word a channel, so that __dp4a sums four taps at once,
+// and tap 8's word meets a weight word that holds the channel's weight at
+// its own byte. Values 0..6 times int8 weights, nine a sum: exact in
+// int32.
+__device__ __forceinline__ void run_depthwise(const int8_t* __restrict__ h1,
+                                              const int8_t* __restrict__ wdw,
+                                              int8_t* __restrict__ h2, int ldh, int n_img, int h,
+                                              int w, int oh, int ow, int mid, int stride,
+                                              int k_dw, int oy0, int iy0, int h_img) {
   const bool quads = (mid & 3) == 0;
   const int groups = quads ? mid >> 2 : mid;
   const int step = groups < kThreads ? kThreads / groups : 1;  // positions in parallel
@@ -444,9 +368,10 @@ __device__ inline void run_depthwise(const int8_t* __restrict__ h1, const int8_t
         w2[c] = static_cast<uint32_t>(static_cast<uint8_t>(wc[8])) << (8 * c);
       }
       for (int p = p0; p < total; p += step) {
-        const int iy0 = oy * stride - 1, ix0 = ox * stride - 1;
-        const int8_t* win = h1 + ((img * h + iy0) * w + ix0) * mid + 4 * g;
-        const bool rows_ok[3] = {iy0 >= 0, true, iy0 + 2 < h};
+        // the window's first row and column in the image
+        const int iy = (oy0 + oy) * stride - 1, ix0 = ox * stride - 1;
+        const int8_t* win = h1 + ((img * h + iy - iy0) * w + ix0) * mid + 4 * g;
+        const bool rows_ok[3] = {iy >= 0, true, iy + 2 < h_img};
         const bool cols_ok[3] = {ix0 >= 0, true, ix0 + 2 < w};
         uint32_t v[9];
 #pragma unroll
@@ -474,9 +399,9 @@ __device__ inline void run_depthwise(const int8_t* __restrict__ h1, const int8_t
 #pragma unroll
       for (int t = 0; t < 9; ++t) wt[t] = wdw[g * 9 + t];
       for (int p = p0; p < total; p += step) {
-        const int iy0 = oy * stride - 1, ix0 = ox * stride - 1;
-        const int8_t* win = h1 + ((img * h + iy0) * w + ix0) * mid + g;
-        const bool rows_ok[3] = {iy0 >= 0, true, iy0 + 2 < h};
+        const int iy = (oy0 + oy) * stride - 1, ix0 = ox * stride - 1;
+        const int8_t* win = h1 + ((img * h + iy - iy0) * w + ix0) * mid + g;
+        const bool rows_ok[3] = {iy >= 0, true, iy + 2 < h_img};
         const bool cols_ok[3] = {ix0 >= 0, true, ix0 + 2 < w};
         int acc = 0;
 #pragma unroll
@@ -488,6 +413,133 @@ __device__ inline void run_depthwise(const int8_t* __restrict__ h1, const int8_t
     }
   }
 }
+
+// ---- The body of both kernels ---------------------------------------------
+
+// Block b on n_img images of in_rows x b.w input positions in x
+// (a_stride(cin) bytes a row), o_rows x b.ow outputs an image: 2. (while
+// the first weight stages load, `load`, which lands the input and the
+// constants) pw-expand + bias, /s_expand, ReLU6 into y; 3. the depthwise
+// from y into x (the input is dead), at the block's stride, /s_dw, ReLU6,
+// its windows tested against the image's b.h rows, of which a band holds
+// rows iy0.. and computes output rows oy0..; 4. pw-project, /s_project,
+// clamp +-127 into y (the expansion is dead), ldo bytes a row. be and dw
+// are the block's bias and depthwise weights in shared memory.
+template <class Load>
+__device__ __forceinline__ void lb_block(const LbBlock& b, int n_img, int in_rows, int o_rows,
+                                         int oy0, int iy0, int8_t* x, int8_t* y, int ldo,
+                                         const int* be, const int8_t* dw, unsigned char* ring,
+                                         int slots, Load&& load) {
+  const int rows = n_img * in_rows * b.w, orows = n_img * o_rows * b.ow;
+  run_product(x, a_stride(b.cin), rows, b.we, b.cin, b.mid, ring, slots, load,
+              [&](int, int c, const auto& acc, int row0, int col0) {
+                expand_epilogue(acc, row0, c * kCols + col0, y, rows, b.mid, be, b.k_expand);
+              });
+  run_depthwise(y, dw, x, a_stride(b.mid), n_img, in_rows, b.w, o_rows, b.ow, b.mid, b.stride,
+                b.k_dw, oy0, iy0, b.h);
+  __syncthreads();
+  run_product(x, a_stride(b.mid), orows, b.wp, b.mid, b.cout, ring, slots, [] {},
+              [&](int, int c, const auto& acc, int row0, int col0) {
+                project_epilogue(acc, row0, c * kCols + col0, y, ldo, orows, b.cout,
+                                 b.k_project);
+              });
+}
+
+// `bytes` bytes of an output tile at src to device memory at dst, 16 bytes
+// a store where the address and the size allow, else a byte at a time.
+__device__ __forceinline__ void store_out(int8_t* dst, const int8_t* src, int bytes) {
+  if (((reinterpret_cast<uintptr_t>(dst) | bytes) & 15) == 0) {
+    for (int e = threadIdx.x; e < (bytes >> 4); e += blockDim.x)
+      reinterpret_cast<int4*>(dst)[e] = reinterpret_cast<const int4*>(src)[e];
+  } else {
+    for (int e = threadIdx.x; e < bytes; e += blockDim.x) dst[e] = src[e];
+  }
+}
+
+// ---- One block a launch (etiny_block_kernel) ------------------------------
+
+// kBand: one band of a.band output rows of one image a block of threads;
+// else a tile of a.tile whole images.
+template <bool kBand>
+__global__ void __launch_bounds__(kThreads)
+etiny_block_kernel(const __grid_constant__ BlockArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const LbBlock& b = a.b;
+  const Smem sm(kBand ? 1 : a.tile, kBand ? a.band_in : b.h, b.w, b.cin, b.mid, b.cout,
+                kBand ? a.band : b.oh, b.ow, a.slots);
+  int8_t* x = reinterpret_cast<int8_t*>(smem);     // the input, then the depthwise output
+  int8_t* y = x + sm.x_and_h2;                     // the expansion, then the output tile
+  unsigned char* be = smem + sm.x_and_h2 + sm.h1;  // (mid,) int32
+  unsigned char* dw = be + align128(4 * b.mid);    // (mid, 9)
+
+  // This block's images, and per image its input rows [iy0, iy0 + in_rows)
+  // and output rows [oy0, oy0 + o_rows): the whole image on the tile path.
+  const int img0 = kBand ? blockIdx.x / a.bands : blockIdx.x * a.tile;
+  const int n_img = kBand ? 1 : min(a.tile, a.batch - img0);
+  const int oy0 = kBand ? (blockIdx.x - img0 * a.bands) * a.band : 0;
+  const int o_rows = kBand ? min(a.band, b.oh - oy0) : b.oh;
+  const int iy0 = kBand ? band_first_in(oy0, b.stride) : 0;
+  const int in_rows = kBand ? band_end_in(oy0, o_rows, b.stride, b.h) - iy0 : b.h;
+
+  // 1. The bias, the depthwise weights and the input tile land while the
+  // first weight stages load.
+  lb_block(b, n_img, in_rows, o_rows, oy0, iy0, x, y, b.cout, reinterpret_cast<const int*>(be),
+           reinterpret_cast<const int8_t*>(dw), be + sm.consts, a.slots, [&] {
+             load_consts(be, dw, b.be, b.dw, b.mid);
+             load_rows(x, a_stride(b.cin),
+                       a.x + (static_cast<size_t>(img0) * b.h + iy0) * b.w * b.cin,
+                       n_img * in_rows * b.w, b.cin);
+             cp_async_commit();
+             cp_async_wait<0>();
+           });
+  store_out(a.out + (static_cast<size_t>(img0) * b.oh + oy0) * b.ow * b.cout, y,
+            n_img * o_rows * b.ow * b.cout);
+}
+
+// ---- Runs of blocks (etiny_block_kernel_run) ------------------------------
+
+constexpr int kMaxRun = 16;  // blocks a run carries at most
+
+struct RunArgs {
+  const int8_t* x;  // (batch, h, w, cin) of the run's first block
+  int8_t* out;      // (batch, oh, ow, cout) of its last
+  int batch, tile, slots, n;
+  int q, consts, ring;  // byte offsets of region Q, the constants and the ring
+  LbBlock b[kMaxRun];
+};
+
+// The shared memory of a run at `tile` images (host side; the launcher
+// hands the kernel the offsets). Two regions take turns: block k reads its
+// input from one (P for even k) and leaves its depthwise output there;
+// its expanded activations, then its output, go to the other, in the
+// operand layout that block k + 1's pw-expand reads (the run's last
+// output densely, for the copy out). Then every block's bias and
+// depthwise weights, then the weight ring.
+struct RunSmem {
+  int p, q, consts, slots_used, total;
+  RunSmem(int tile, const int (*shape)[6], int n, int slots) {
+    int reg[2] = {0, 0};
+    consts = slots_used = 0;
+    for (int k = 0; k < n; ++k) {
+      const int h = shape[k][0], w = shape[k][1], cin = shape[k][2], mid = shape[k][3];
+      const int cout = shape[k][4], stride = shape[k][5];
+      const int oh = (h - 1) / stride + 1, ow = (w - 1) / stride + 1;
+      const int rows = round_up(tile * h * w, kSuperRows);
+      const int orows = round_up(tile * oh * ow, kSuperRows);
+      const int in = imax(a_region(rows, cin), a_region(orows, mid));
+      const int out = imax(rows * mid, k + 1 < n ? a_region(orows, cout) : orows * cout);
+      reg[k & 1] = imax(reg[k & 1], in);
+      reg[~k & 1] = imax(reg[~k & 1], out);
+      consts += align128(4 * mid) + align128(9 * mid);
+      slots_used = imax(slots_used,
+                        imax(ring_slots((mid + kCols - 1) / kCols * k_stages(cin), slots),
+                             ring_slots((cout + kCols - 1) / kCols * k_stages(mid), slots)));
+    }
+    p = align128(reg[0]);
+    q = align128(reg[1]);
+    total = p + q + consts + slots_used * kSlotBytes;
+  }
+};
 
 // A tile of a.tile images through the a.n consecutive blocks of a run:
 // each block's steps 1-4 as the tile path's, its output written by the
@@ -504,95 +556,36 @@ etiny_block_kernel_run(const __grid_constant__ RunArgs a) {
   const int n_img = min(a.tile, a.batch - img0);
 
   for (int k = 0; k < a.n; ++k) {
-    const RunBlock& b = a.b[k];
+    const LbBlock& b = a.b[k];
     int8_t* const in = k & 1 ? rq : rp;   // the input, then the depthwise output
     int8_t* const oth = k & 1 ? rp : rq;  // the expansion, then the output
-    const int rows = n_img * b.h * b.w, orows = n_img * b.oh * b.ow;
-    const int ldo = k + 1 < a.n ? a_stride(b.cout) : b.cout;
-    const int* s_be = reinterpret_cast<const int*>(consts + b.consts);
-    const int8_t* s_dw = reinterpret_cast<const int8_t*>(consts + b.consts + align128(4 * b.mid));
+    const unsigned char* s_be = consts + b.consts;
 
-    // 1 + 2. (first block) every block's bias and depthwise weights and the
-    // run's input tile land while the first weight stages load; pw-expand
-    // + bias, /s_expand, ReLU6 into `oth`.
-    auto load_in = [&] {
-      if (k != 0) return;
-      for (int j = 0; j < a.n; ++j) {
-        const RunBlock& c = a.b[j];
-        unsigned char* be = consts + c.consts;
-        unsigned char* dw = be + align128(4 * c.mid);
-        for (int m = threadIdx.x; m < c.mid; m += kThreads) cp_async4(be + 4 * m, c.be + m);
-        if ((c.mid & 3) == 0) {
-          for (int e = threadIdx.x; e < c.mid * 9 / 4; e += kThreads)
-            cp_async4(dw + 4 * e, c.dw + 4 * e);
-        } else {
-          for (int e = threadIdx.x; e < c.mid * 9; e += kThreads)
-            reinterpret_cast<int8_t*>(dw)[e] = c.dw[e];
-        }
-      }
-      const int8_t* xg = a.x + static_cast<size_t>(img0) * b.h * b.w * b.cin;
-      const int ldx = a_stride(b.cin);
-      if ((b.cin & 3) == 0) {
-        // word e of the tile is row r's word c; the walk adds kThreads
-        const int words = b.cin >> 2, dr = kThreads / words, dc = kThreads - dr * words;
-        int r = threadIdx.x / words, c = threadIdx.x - r * words;
-        for (int e = threadIdx.x; e < rows * words; e += kThreads) {
-          cp_async4(in + r * ldx + 4 * c, xg + 4 * e);
-          r += dr;
-          c += dc;
-          if (c >= words) { c -= words; ++r; }
-        }
-      } else {
-        for (int e = threadIdx.x; e < rows * b.cin; e += kThreads) {
-          const int r = e / b.cin, c = e - r * b.cin;
-          in[r * ldx + c] = xg[e];
-        }
-      }
-      // everything above, and the first weight stages, landed
-      cp_async_commit();
-      cp_async_wait<0>();
-    };
-    run_product(in, a_stride(b.cin), rows, b.we, b.cin, b.mid, ring, a.slots, load_in,
-                [&](int, int c, const auto& acc, int row0, int col0) {
-                  for_each_pair(
-                      acc, row0, c * kCols + col0, [&](int m) { return m < b.mid ? s_be[m] : 0; },
-                      [&](int r, int m, int v0, int v1, int b0, int b1) {
-                        if (r < rows)
-                          store_pair(oth + r * b.mid + m, m, b.mid,
-                                     relu6_shift(v0 + b0, b.k_expand),
-                                     relu6_shift(v1 + b1, b.k_expand));
-                      });
-                });
-
-    // 3. depthwise from `oth` into `in` (the input is dead)
-    run_depthwise(oth, s_dw, in, a_stride(b.mid), n_img, b.h, b.w, b.oh, b.ow, b.mid, b.stride,
-                  b.k_dw);
-    __syncthreads();
-
-    // 4. pw-project, /s_project, clamp +-127 into `oth` (the expansion is
-    // dead): the next block's input, or the run's output tile
-    run_product(in, a_stride(b.mid), orows, b.wp, b.mid, b.cout, ring, a.slots, [] {},
-                [&](int, int c, const auto& acc, int row0, int col0) {
-                  for_each_pair(acc, row0, c * kCols + col0, [](int) { return 0; },
-                                [&](int r, int o, int v0, int v1, int, int) {
-                                  if (r < orows)
-                                    store_pair(oth + r * ldo + o, o, b.cout,
-                                               clampi(tdiv_pow2(v0, b.k_project), -127, 127),
-                                               clampi(tdiv_pow2(v1, b.k_project), -127, 127));
-                                });
-                });
+    // 1. (first block) every block's bias and depthwise weights and the
+    // run's input tile land while the first weight stages load; block k's
+    // output goes into `oth` as block k + 1's input, or the run's output
+    // tile.
+    lb_block(b, n_img, b.h, b.oh, 0, 0, in, oth, k + 1 < a.n ? a_stride(b.cout) : b.cout,
+             reinterpret_cast<const int*>(s_be),
+             reinterpret_cast<const int8_t*>(s_be + align128(4 * b.mid)), ring, a.slots, [&] {
+               if (k != 0) return;
+               for (int j = 0; j < a.n; ++j) {
+                 const LbBlock& c = a.b[j];
+                 unsigned char* be = consts + c.consts;
+                 load_consts(be, be + align128(4 * c.mid), c.be, c.dw, c.mid);
+               }
+               load_rows(in, a_stride(b.cin),
+                         a.x + static_cast<size_t>(img0) * b.h * b.w * b.cin,
+                         n_img * b.h * b.w, b.cin);
+               // everything above, and the first weight stages, landed
+               cp_async_commit();
+               cp_async_wait<0>();
+             });
   }
 
-  const RunBlock& l = a.b[a.n - 1];
-  const int8_t* os = a.n & 1 ? rq : rp;
-  int8_t* og = a.out + static_cast<size_t>(img0) * l.oh * l.ow * l.cout;
-  const int bytes = n_img * l.oh * l.ow * l.cout;
-  if (((reinterpret_cast<uintptr_t>(og) | bytes) & 15) == 0) {
-    for (int e = threadIdx.x; e < (bytes >> 4); e += blockDim.x)
-      reinterpret_cast<int4*>(og)[e] = reinterpret_cast<const int4*>(os)[e];
-  } else {
-    for (int e = threadIdx.x; e < bytes; e += blockDim.x) og[e] = os[e];
-  }
+  const LbBlock& l = a.b[a.n - 1];
+  store_out(a.out + static_cast<size_t>(img0) * l.oh * l.ow * l.cout, a.n & 1 ? rq : rp,
+            n_img * l.oh * l.ow * l.cout);
 }
 
 // log2 of a power of two in 1..2^30, else -1 (the engine sim's scales are
@@ -651,6 +644,9 @@ extern "C" {
 int etiny_block_smem(int tile, int h, int w, int cin, int mid, int cout, int oh, int ow) {
   return Smem(tile, h, w, cin, mid, cout, oh, ow, 2).total;
 }
+
+// The widest product, in columns, that takes the narrow warp layout.
+int etiny_narrow_columns() { return kNarrow; }
 
 // Images per block of threads: ~kRowTarget GEMM rows, no more than fill
 // the SMs, and no more than fit in shared memory with 2 ring slots (0 if
@@ -714,12 +710,10 @@ int etiny_block_launch(const int64_t* p) {
   const cudaError_t err = band ? allow_max_smem<true>() : allow_max_smem<false>();
   if (err != cudaSuccess) return static_cast<int>(err);
   a.x = x;
-  a.batch = batch;
-  a.h = h; a.w = w; a.cin = cin; a.mid = mid; a.cout = cout;
-  a.stride = stride; a.oh = oh; a.ow = ow;
-  a.k_expand = k_expand; a.k_dw = k_dw; a.k_project = k_project;
-  a.we = we; a.be = be; a.dw = dw; a.wp = wp;
   a.out = out;
+  a.batch = batch;
+  a.b = LbBlock{we, be, dw, wp, h, w, cin, mid, cout, stride, oh, ow,
+                k_expand, k_dw, k_project, 0};
   if (band)
     etiny_block_kernel<true><<<blocks, kThreads, smem, s>>>(a);
   else
@@ -758,7 +752,7 @@ int etiny_run_launch(const int64_t* p) {
   int shape[kMaxRun][6];
   int consts = 0;
   for (int k = 0; k < a.n; ++k) {
-    RunBlock& b = a.b[k];
+    LbBlock& b = a.b[k];
     b.h = r.i(); b.w = r.i(); b.cin = r.i(); b.mid = r.i(); b.cout = r.i(); b.stride = r.i();
     b.k_expand = log2_exact(r.i());
     b.k_dw = log2_exact(r.i());

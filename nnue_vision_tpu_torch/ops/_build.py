@@ -53,6 +53,7 @@ SIGNATURES = {
     "etiny_block_smem": ([_I] * 8, _I),
     "etiny_block_tile": ([_I] * 8, _I),
     "etiny_run_smem": ([_P], _I),
+    "etiny_narrow_columns": ([], _I),
 }
 # words of the packed argument: the widest launcher's, etiny_run_launch's
 # for a run of 16 blocks (4 + 16 x 13 + the output), and the stream

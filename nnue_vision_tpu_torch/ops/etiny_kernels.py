@@ -79,11 +79,14 @@ _STEM_CHUNK, _STEM_PAIRS = 8, 14
 
 # csrc/etiny_block.cu's shared memory (kMaxSmem, its Smem regions), GEMM
 # rows a tile aims for (kRowTarget), blocks a run carries at most
-# (kMaxRun), and int8_mma.cuh's ring slots, in bytes
+# (kMaxRun), the widest product that takes the narrow warp layout
+# (kNarrow, held to the library's `etiny_narrow_columns` by a gpu test),
+# and int8_mma.cuh's ring slots, in bytes
 MAX_SMEM = 232448
 _SUPER_ROWS = 64
 _ROW_TARGET = 256
 MAX_RUN = 16
+NARROW = 32
 _SLOT_BYTES = 128 * (128 + 16)
 # the SMs of the H100, for a plan made for a tensor on no card
 H100_SMS = 132
@@ -554,16 +557,27 @@ def lb_blocks(x: torch.Tensor, kparams: Dict, cfg: EtinySimCfg) -> torch.Tensor:
     return x
 
 
+def narrow_products(shapes) -> int:
+    """The products of at most NARROW columns among the blocks of `shapes`
+    (each (h, w, cin, mid, cout, stride)): a block's pw-expand has mid
+    columns and its pw-project cout. Both kernels give such a product the
+    layout in which every warp holds columns that exist."""
+    return sum((mid <= NARROW) + (cout <= NARROW) for _, _, _, mid, cout, _ in shapes)
+
+
 def _row_counts(kparams: Dict, x: torch.Tensor) -> Dict[str, int]:
     """`rows`, the image rows of the blocks' inputs (Σ B·H), and `rows_read`,
     the rows the single-block launches' blocks of threads read, for a stem
-    output x, from the band plan alone; and `k6_launches`, the call's K6
-    launches, from the run plan."""
+    output x, from the band plan alone; `k6_launches`, the call's K6
+    launches, from the run plan; and `k6_narrow_products`, the call's K6
+    products of at most NARROW columns (every block lies in one launch of
+    the plan), from the shapes."""
     b, h, w, _ = x.shape
     shapes = block_shapes(kparams["k6_specs"], h, w)
     return {"rows": b * sum(s[0] for s in shapes),
             "rows_read": b * sum(rows_read(*s) for s in shapes),
-            "k6_launches": len(_plan(kparams, x))}
+            "k6_launches": len(_plan(kparams, x)),
+            "k6_narrow_products": narrow_products(shapes)}
 
 
 def etiny_forward_kernel(kparams: Dict, images: torch.Tensor, *,
@@ -576,8 +590,9 @@ def etiny_forward_kernel(kparams: Dict, images: torch.Tensor, *,
     version is the engine sim, `etiny_engine_forward`. The `serve.kernels`
     span counts `rows`, the image rows of the blocks' inputs (Σ B·H),
     `rows_read`, the rows the kernel's blocks of threads read (a band's
-    halo rows each time), and `k6_launches`, the K6 launches of the call,
-    from the plans alone."""
+    halo rows each time), `k6_launches`, the K6 launches of the call, and
+    `k6_narrow_products`, its products of at most NARROW columns, from the
+    plans and shapes alone."""
     del image_h, image_w  # read from the images
     with span("serve.stem"):
         x = etiny_stem_int8(kparams, images, cfg)

@@ -37,8 +37,9 @@ call; `steps`) with `chunk.draws` (`draw_calls`), `chunk.pack`,
 in `ops/etiny_kernels.py`, whose span counts `rows`, the image rows of its
 LB blocks' inputs, Σ B·H, `rows_read`, the rows a single-block launch of
 each block would read with a band's halo rows each time, both from the
-band plan, and `k6_launches`, the call's K6 launches, from the run plan,
-all on the host) and the EtinyNet's `serve.stem` and `serve.tail`.
+band plan, `k6_launches`, the call's K6 launches, from the run plan, and
+`k6_narrow_products`, its K6 products of at most 32 columns, from the
+shapes, all on the host) and the EtinyNet's `serve.stem` and `serve.tail`.
 """
 
 from __future__ import annotations

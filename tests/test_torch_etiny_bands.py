@@ -199,7 +199,8 @@ def test_row_counts_are_made_only_while_a_profiler_records(monkeypatch):
     # the inputs of the micro model's 7 blocks and final conv: sides 10, 5,
     # 3, 3, 2, 2, 1, 1; every block takes whole images, each a launch of its
     # own at batch 2 (no run keeps 64 GEMM rows)
-    assert counts == [{"rows": 2 * 27, "rows_read": 2 * 27, "k6_launches": 8}]
+    assert counts == [{"rows": 2 * 27, "rows_read": 2 * 27, "k6_launches": 8,
+                       "k6_narrow_products": 14}]
 
 
 def test_the_reference_float_forward_follows_the_port():

@@ -3,8 +3,9 @@ on a card, per block and for the whole int8 forward (with the stem and
 tail kernels, one launch each a call), on a quantized
 0.98M-width model, on a quantized 0.75-width engine_friendly model (LSQ
 folds) and on random int models at full int8 ranges; EtinyNet-1.0 at
-224×224 and at odd sides, whose large blocks take K6's row bands; the
-run launches of `run_plan` against the chain of single-block launches and
+224×224 and at odd sides, whose large blocks take K6's row bands; single
+launches of random blocks on bands and tiles, on both warp layouts and both
+depthwise paths, against the plain block; the run launches of `run_plan` against the chain of single-block launches and
 the sim; the wrapper's shared-memory plans and tiles against the
 library's.
 
@@ -33,6 +34,7 @@ from nnue_vision_tpu_torch.models.etinynet import (
 )
 from nnue_vision_tpu_torch.ops import etiny_kernels as ek
 from nnue_vision_tpu_torch.ops.engine_sim import (
+    EtinyBlockCfg,
     etiny_engine_forward,
     etiny_sim_params,
     etiny_stem,
@@ -174,6 +176,57 @@ def test_each_block_equals_plain(cuda):
         a = got
 
 
+def _one_block(gen, cin, mid, cout, stride, dev):
+    """A block of random int8 weights and wide biases in the layouts of
+    `etiny_kernel_params`, its scales chosen so that the expansion, the
+    depthwise and the projection each reach values inside their clamps."""
+    def i8(*s):
+        return torch.randint(-127, 128, s, generator=gen, dtype=torch.int8).to(dev)
+
+    we, dw, wp = i8(mid, cin), i8(mid, 3, 3), i8(cout, mid)
+    be = torch.randint(-20000, 20000, (mid,), generator=gen, dtype=torch.int32).to(dev)
+    blk = {"pw_expand_w": we, "pw_expand_b": be, "dw_w": dw, "pw_project_w": wp,
+           "we": ek.mma_tiles(we), "be": be.contiguous(), "dw": dw.contiguous(),
+           "wp": ek.mma_tiles(wp)}
+    return blk, EtinyBlockCfg(stride=stride, s_expand=4096, s_dw=128,
+                              s_project=16, is_dense=False)
+
+
+# (batch, h, w, cin, mid, cout, stride, band rows the plan gives); the
+# narrow layout takes a product of at most 32 columns
+ONE_LAUNCH = [
+    (3, 112, 112, 32, 32, 32, 2, 11),   # EtinyNet-1.0's b0 at 224: both narrow
+    (3, 56, 56, 32, 32, 32, 1, 44),     # its b1-b3, a short last band (12)
+    (3, 28, 28, 128, 128, 128, 1, 25),  # its b5-b7: both wide, last band 3
+    (3, 56, 56, 32, 96, 24, 1, 17),     # cout <= 32 < mid: narrow project
+    (37, 8, 8, 32, 96, 24, 1, 0),       # the same on the tile path
+    (3, 56, 56, 28, 30, 28, 1, 46),     # mid % 4 != 0: the one-channel depthwise
+    (3, 56, 56, 32, 34, 24, 2, 22),     # the same with a wide expansion
+    (3, 109, 109, 32, 32, 32, 2, 11),   # b0 at 218: an odd side
+    (3, 55, 55, 32, 32, 32, 1, 45),     # b1 at 218: odd, a short last band
+    (3, 57, 57, 30, 32, 32, 2, 22),     # cin % 4 != 0: the input a byte a time
+]
+
+
+@pytest.mark.parametrize("batch,h,w,cin,mid,cout,stride,band", ONE_LAUNCH)
+def test_one_launch_equals_the_plain_block(cuda, batch, h, w, cin, mid, cout, stride,
+                                           band):
+    """A single-block launch, on row bands or on tiles, torch.equal to the
+    plain block, on both warp layouts and both depthwise paths."""
+    gen = torch.Generator().manual_seed(h * 1000 + cin + mid + cout + stride)
+    blk, bs = _one_block(gen, cin, mid, cout, stride, cuda)
+    assert ek.band_plan(h, w, cin, mid, cout, stride) == band
+    x = torch.randint(-127, 128, (batch, h, w, cin), generator=gen,
+                      dtype=torch.int8).to(cuda)
+    before = dict(ek.LAUNCHES)
+    got = ek.lb_block(x, blk, bs)
+    assert ek.LAUNCHES["band_launches"] - before["band_launches"] == int(band > 0)
+    want = ek.lb_block_reference(x, blk, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(want.float().std()) > 0  # the scales kept values apart
+
+
 def test_refusals_on_the_card(cuda):
     """Sides that are not powers of two equal the sim; a weight of the
     wrong dtype is refused."""
@@ -307,13 +360,16 @@ def test_shared_memory_plan_equals_the_library(cuda):
     library's `etiny_block_smem`, on the tile shapes of the 0.98M and 1.0
     models and on the bands the plan picks at 224; the run layout
     (`run_smem`) against `etiny_run_smem` on every run the plan makes at
-    batches 1, 37, 1024 and 8192 and at tiles 1 to 64; and the
-    single-block tile (`block_tile`) against `etiny_block_tile`."""
+    batches 1, 37, 1024 and 8192 and at tiles 1 to 64; the single-block
+    tile (`block_tile`) against `etiny_block_tile`; and the widest product
+    that `narrow_products` counts (`NARROW`) against the kernel's
+    `etiny_narrow_columns`."""
     import ctypes
 
     from nnue_vision_tpu_torch.ops._build import load_library
 
     lib = load_library().lib
+    assert ek.NARROW == lib.etiny_narrow_columns()
     sms = ek.sm_count(torch.cuda.current_device())
     for variant, side in (("0.98M", 32), ("0.75", 32), ("1.0", 224), ("micro", 32)):
         cfg = EtinyNetConfig(variant=variant)

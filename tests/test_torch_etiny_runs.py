@@ -5,8 +5,10 @@ once and in order, a band block alone, every run within shared memory by
 the mirrored layout with at least 64 GEMM rows in each of its products
 and a tile that fills the SMs, a run of one block the single-block
 launch; the layout worked by hand for the 0.98M's first run; and the
-`serve.kernels` span's `k6_launches`. The run kernel itself runs only on
-a card (`tests/test_torch_etiny_gpu.py`). The file imports no jax.
+`serve.kernels` span's `k6_launches` and `k6_narrow_products` (EtinyNet-1.0
+at 224, 0.98M and 0.75 at 32, a model of wide blocks). The run kernel
+itself runs only on a card (`tests/test_torch_etiny_gpu.py`). The file
+imports no jax.
 """
 
 import pytest
@@ -138,3 +140,30 @@ def test_the_span_counts_the_plans_launches():
     counts = [s.counts for s in tracing.spans() if s.name == "serve.kernels"]
     plan = ek.run_plan(ek.block_shapes(kp["k6_specs"], 10, 10), 2)
     assert counts[0]["k6_launches"] == len(plan) == 8
+    # every product of the micro model's 7 LB blocks has at most 32
+    # columns; the final 1x1 conv's two have 128
+    assert counts[0]["k6_narrow_products"] == 14
+
+
+@pytest.mark.parametrize("variant,side,batch,narrow", [
+    ("1.0", 224, 1024, 8), ("0.98M", 32, 8192, 6), ("0.75", 32, 8192, 6),
+    ("wide", 32, 8192, 0)])
+def test_narrow_products_from_the_plans(variant, side, batch, narrow):
+    """`k6_narrow_products` of the `serve.kernels` span's counts, from the
+    shapes at the plan's batch: EtinyNet-1.0 at 224 (b0-b3, four 32-channel
+    blocks on bands, two products each), 0.98M and 0.75 at 32 (b0-b2
+    inside the first run, 28 and 24 channels), and a model whose every
+    product is wider than 32 columns."""
+    if variant == "wide":
+        specs = ((48, 64, 48, 2), (48, 96, 64, 1), (64, 128, 64, 2))
+    else:
+        specs = tuple((cin, mid, cout, s) for _, _, cin, mid, cout, s
+                      in _shapes(variant, side))
+    h = (side - 1) // 2 + 1
+    x = torch.empty((batch, h, h, specs[0][0]), dtype=torch.int8, device="meta")
+    counts = ek._row_counts({"k6_specs": specs}, x)
+    assert counts["k6_narrow_products"] == narrow
+    shapes = ek.block_shapes(specs, h, h)
+    plan = ek.run_plan(shapes, batch)
+    assert narrow == sum(ek.narrow_products(shapes[r.first:r.first + r.count])
+                         for r in plan)
