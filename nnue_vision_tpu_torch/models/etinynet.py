@@ -46,12 +46,15 @@ int8 grids and the activations on the engine's 7-level and 1/16 grids,
 straight through; without it the model keeps the engine's clamp ranges but
 stays continuous, which is the warm-up function of progressive QAT
 (`training/loop.py`, `ef_warmup_epochs`). The quantizer folds the LSQ
-scales into the convs, so the `.etiny` format is unchanged.
+scales into the convs, so the `.etiny` format is unchanged. A captured
+train step counts the nodes of the quantized forward's quantizer calls as
+their own phase, `quant` (`training/step.py` `PHASES`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 from typing import Dict, List, Tuple
@@ -61,6 +64,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from nnue_vision_tpu_torch import tracing
 from nnue_vision_tpu_torch.formats import (
     QConv,
     QLBBlock,
@@ -271,6 +275,20 @@ def _conv3x3(x: torch.Tensor, w_hwio: torch.Tensor, dtype, stride: int,
 _GRID16_LIM = 127.0 / 16.0
 
 
+def _quantizer(fn):
+    """`fn`, a quantizer of the quantized forward, marked for a captured
+    train step: the nodes its call adds count as the phase `quant`, those
+    before it as `model` (`training/step.py` `PHASES`). Outside a capture
+    the marks do nothing."""
+    @functools.wraps(fn)
+    def marked(*args, **kwargs):
+        tracing.phase_end("model")
+        out = fn(*args, **kwargs)
+        tracing.phase_end("quant")
+        return out
+    return marked
+
+
 def _ste(x: torch.Tensor, quantized: torch.Tensor) -> torch.Tensor:
     """Straight-through: quantized forward, identity gradient. Written as
     JAX writes it: in float32, x + (q - x) is not always q."""
@@ -295,6 +313,7 @@ class _Div(torch.autograd.Function):
         return g / s, gs.sum_to_size(s.shape)
 
 
+@_quantizer
 def _wq_folded(w_hwio: torch.Tensor, norm: BatchNorm, scale: float,
                out_mul=None, in_mul=None) -> torch.Tensor:
     """The serializer's int8 grid for w as it is folded, straight through:
@@ -315,12 +334,14 @@ def _wq_folded(w_hwio: torch.Tensor, norm: BatchNorm, scale: float,
     return _ste(w_hwio, q)
 
 
+@_quantizer
 def _wq_plain(w: torch.Tensor, scale: float) -> torch.Tensor:
     """Plain int8-grid fake-quantization (the classifier: no norm to fold)."""
     q = torch.clamp(torch.round(w * scale), -127.0, 127.0) / scale
     return _ste(w, q)
 
 
+@_quantizer
 def _q_act_lsq(x: torch.Tensor, s: torch.Tensor, round_fn,
                restore=None) -> torch.Tensor:
     """LSQ 7-level activation with a learnable per-channel scale s:
@@ -333,12 +354,14 @@ def _q_act_lsq(x: torch.Tensor, s: torch.Tensor, round_fn,
     return zq * (s if restore is None else restore)
 
 
+@_quantizer
 def _q_grid16(x: torch.Tensor) -> torch.Tensor:
     """Engine block boundary: trunc(16·v)/16, clamped to ±127/16."""
     q = torch.trunc(torch.clamp(x, -_GRID16_LIM, _GRID16_LIM) * 16.0) / 16.0
     return _ste(x, q)
 
 
+@_quantizer
 def s3_deploy(s3: torch.Tensor) -> torch.Tensor:
     """The final activation's deployed restore multiplier round(64·s3)/64
     (the amplifier's diagonal), straight through to s3."""

@@ -29,6 +29,12 @@ values that are set, not added to: the newest chunk graph's nodes by phase
 (a copy of its `ChunkGraph.phase_nodes`, for a reader that holds no
 graph).
 
+Phase marks: `phase_end` marks where a phase of a train step ends (the
+step's and the chunk's in `training/step.py`, the quantizer calls' in
+`models/etinynet.py`). It passes the phase to the marker that `phase_marks`
+installs for a capture's length (`training/step.py`'s `ChunkGraph`, which
+counts the graph's nodes by phase) and does nothing otherwise.
+
 Spans (see `PERF.md` for the metric each feeds): `chunk` (a train chunk
 call; `steps`) with `chunk.draws` (`draw_calls`), `chunk.pack`,
 `chunk.load`, `chunk.capture`, `chunk.replay` and `chunk.eager`
@@ -44,9 +50,10 @@ shapes, all on the host) and the EtinyNet's `serve.stem` and `serve.tail`.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 from torch.autograd import profiler as _profiler
 
@@ -183,3 +190,26 @@ def spans() -> List[Span]:
 def dropped() -> int:
     """Spans not recorded since the process started: the buffer was full."""
     return _STATS["spans_dropped"]
+
+
+# the marker of the capture running, installed by `phase_marks` alone
+_marker: Optional[Callable[[str], None]] = None
+
+
+def phase_end(phase: str) -> None:
+    """Where a phase of a train step ends: passed to the marker of the
+    capture running, a no-op otherwise (eagerly, on the CPU, in a
+    replay)."""
+    if _marker is not None:
+        _marker(phase)
+
+
+@contextlib.contextmanager
+def phase_marks(marker: Callable[[str], None]):
+    """`marker` takes every `phase_end` inside."""
+    global _marker
+    _marker = marker
+    try:
+        yield
+    finally:
+        _marker = None

@@ -30,7 +30,7 @@ import torch
 OptState = Dict[str, Any]
 _F32 = np.float32
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # Adam's (optax's defaults)
-SCALARS = 5  # a step's row of `Optimizer.step_scalars`
+SCALARS = 3  # a step's row of `Optimizer.step_scalars`
 
 
 def get_lr(it: int, *, cfg: Any) -> float:
@@ -158,15 +158,13 @@ class Optimizer:
 
     def step_scalars(self, count: int, steps: int = 1) -> np.ndarray:
         """(steps, SCALARS) float32: for each step from `count` on, the
-        step's -LR, Adam's bias corrections c1 and c2 and their float32
-        reciprocals, the host values `step` computes when it is given none
-        (SGD reads only the first)."""
+        step's -LR and Adam's bias corrections c1 and c2, the host values
+        `step` computes when it is given none (SGD reads only the first)."""
         rows = []
         for c in range(count, count + steps):
             c1 = _F32(1) - _F32(_B1) ** _F32(c + 1)
             c2 = _F32(1) - _F32(_B2) ** _F32(c + 1)
-            rows.append((-_F32(self.schedule(c)), c1, c2, _F32(1) / c1,
-                         _F32(1) / c2))
+            rows.append((-_F32(self.schedule(c)), c1, c2))
         return np.array(rows, dtype=_F32).reshape(steps, SCALARS)
 
     @torch.no_grad()
@@ -192,38 +190,31 @@ class Optimizer:
 
         count = state["count"]
         if scalars is None:
-            neg_lr, c1, c2, inv1, inv2 = self.step_scalars(count)[0].tolist()
-            over = _over_host
+            neg_lr, c1, c2 = self.step_scalars(count)[0].tolist()
         else:
-            neg_lr, c1, c2, inv1, inv2 = scalars.unbind()
-            over = _over
+            neg_lr, c1, c2 = scalars.unbind()
         if self.kind == "sgd":
             trace = state["trace"]
             for x, n in zip(g, names):
                 trace[n].copy_(x + self.momentum * trace[n])
             u = [trace[n] for n in names]
         else:
+            if scalars is None:
+                # optax divides by the bias corrections; ATen divides a
+                # CUDA tensor by a host float as the product with its
+                # float32 reciprocal, an ulp away, and by a device tensor
+                # truly: so they go to the device (a fill, no copy)
+                c1, c2 = (torch.full((), c, dtype=torch.float32,
+                                     device=g[0].device) for c in (c1, c2))
             mu, nu = state["mu"], state["nu"]
             u = []
             for x, n in zip(g, names):
                 mu[n].copy_((1 - _B1) * x + _B1 * mu[n])
                 nu[n].copy_((1 - _B2) * (x * x) + _B2 * nu[n])
-                u.append(over(mu[n], c1, inv1)
-                         / (torch.sqrt(over(nu[n], c2, inv2)) + _EPS))
+                u.append(mu[n] / c1 / (torch.sqrt(nu[n] / c2) + _EPS))
         for un, n in zip(u, names):
             params[n].add_(un * neg_lr)
         state["count"] = count + 1
-
-
-def _over_host(x: torch.Tensor, c: float, inv: float) -> torch.Tensor:
-    return x / c
-
-
-def _over(x: torch.Tensor, c: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
-    """x / c as `_over_host` computes it with c a host float: ATen divides a
-    CUDA tensor by a host scalar as the product with its float32 reciprocal
-    (`div_true_kernel_cuda`), a CPU tensor by true division."""
-    return x * inv if x.is_cuda else x / c
 
 
 def create_optimizer(cfg: Any, steps_per_epoch: int = 1) -> Optimizer:

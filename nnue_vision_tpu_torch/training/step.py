@@ -36,7 +36,9 @@ Tracing (`tracing.py`): while a profiler runs, a chunk records the span
 `chunk` and within it `chunk.draws` (with the host generator calls it
 made), `chunk.pack`, `chunk.load`, and `chunk.capture`, `chunk.replay` or
 `chunk.eager`; a capture counts the graph's nodes by phase (`PHASES`),
-each phase's end marked in the body and in `train_step`.
+each phase's end marked in the body and in `train_step`, and `quant`
+around each quantizer call of an engine-friendly EtinyNet's forward
+(`models/etinynet.py`).
 
 Data parallelism (a `Mesh` in the TrainState, `parallel/mesh.py`): each
 rank holds the whole model and trains on its shard of the global batch.
@@ -95,9 +97,14 @@ from nnue_vision_tpu_torch.training.optim import SCALARS, Optimizer, OptState
 
 _I32, _F32 = torch.int32, torch.float32
 # a captured chunk's parts, in order: per step the input (gather, K3 or the
-# tier's K4/K5, normalize), the model (forward, loss, autograd.grad) and
-# the update (optimizer, clip, accuracy); then the chunk's tail (the stack)
-PHASES = ("input", "model", "update", "tail")
+# tier's K4/K5, normalize), the model (forward, loss, autograd.grad), within
+# its forward the quantizer calls of an engine-friendly EtinyNet (`quant`)
+# and the update (optimizer, clip, accuracy); then the chunk's tail (the
+# stack)
+PHASES = ("input", "model", "quant", "update", "tail")
+# the phases a capture counts only where a step marks them: a model without
+# quantizers has no `quant`
+_MARKED_ONLY = ("quant",)
 
 
 @dataclasses.dataclass
@@ -186,7 +193,7 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     loss = distillation_loss(logits, labels, images, teacher)
     grads = dict(zip(params, torch.autograd.grad(
         loss, list(params.values()), allow_unused=True)))
-    _phase_end("model")
+    tracing.phase_end("model")
     loss = loss.detach()
     acc = (logits.detach().argmax(dim=-1) == labels).to(torch.float32).mean()
     if state.mesh is not None:
@@ -198,7 +205,7 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     if isinstance(model, NNUE):
         nnue_clip_weights(model)
     state.step += 1
-    _phase_end("update")
+    tracing.phase_end("update")
     return {"loss": loss, "accuracy": acc}
 
 
@@ -232,15 +239,17 @@ def gathered_train_step(state: TrainState, device_images: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _driver() -> ctypes.CDLL:
-    """The CUDA driver, with the two queries the chunk graph asks."""
+    """The CUDA driver, with the three queries the chunk graph asks."""
     driver = ctypes.CDLL("libcuda.so.1")
-    driver.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.POINTER(ctypes.c_size_t)]
-    driver.cuGraphGetNodes.restype = ctypes.c_int
+    for name in ("cuGraphGetNodes", "cuGraphNodeGetDependencies"):
+        getattr(driver, name).argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.POINTER(ctypes.c_size_t)]
+        getattr(driver, name).restype = ctypes.c_int
     driver.cuStreamGetCaptureInfo_v2.argtypes = [
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_void_p)),
+        ctypes.POINTER(ctypes.c_size_t)]
     driver.cuStreamGetCaptureInfo_v2.restype = ctypes.c_int
     return driver
 
@@ -259,39 +268,65 @@ def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
     return _nodes_of(graph.raw_cuda_graph())
 
 
+_MAX_DEPS = 64
+
+
+def _dependencies(node: int) -> Tuple[int, ...]:
+    """The nodes a graph node (a `CUgraphNode` handle) depends on, asked of
+    the driver."""
+    deps, n = (ctypes.c_void_p * _MAX_DEPS)(), ctypes.c_size_t(_MAX_DEPS)
+    err = _driver().cuGraphNodeGetDependencies(node, deps, ctypes.byref(n))
+    if err != 0 or n.value >= _MAX_DEPS:
+        raise RuntimeError(f"cuGraphNodeGetDependencies: CUresult {err}, "
+                           f"{n.value} dependencies")
+    return tuple(deps[i] for i in range(n.value))
+
+
 class _PhaseNodes:
-    """The nodes a capture on `stream` adds in each of `PHASES`: each mark
-    counts the nodes of the graph under capture (`cuStreamGetCaptureInfo`
-    gives it; the driver answers queries on it while capture runs) and
-    credits those since the last mark to the phase that ends there."""
+    """The nodes a capture on `stream` adds in each of `PHASES`. A mark
+    notes where the capture stands: the nodes the stream's next captured
+    node will depend on (`cuStreamGetCaptureInfo`, which the driver answers
+    in constant time while capture runs); every node captured before it is
+    their ancestor. Once capture has ended, `count` walks the graph's
+    dependencies back from each mark once and credits the nodes that first
+    became ancestors there to the phase that ends at that mark."""
 
     def __init__(self, stream: torch.cuda.Stream):
         self.stream = stream.cuda_stream
-        self.nodes = dict.fromkeys(PHASES, 0)
-        self.last = 0
+        self.marks: List[Tuple[str, Tuple[int, ...]]] = []
 
-    def mark(self, phase: str) -> None:
-        status, graph = ctypes.c_int(0), ctypes.c_void_p(None)
+    def where(self) -> Tuple[int, ...]:
+        """The nodes the stream's next captured node will depend on."""
+        status, n = ctypes.c_int(0), ctypes.c_size_t(0)
+        deps = ctypes.POINTER(ctypes.c_void_p)()
         err = _driver().cuStreamGetCaptureInfo_v2(
-            self.stream, ctypes.byref(status), None, ctypes.byref(graph),
-            None, None)
+            self.stream, ctypes.byref(status), None, None, ctypes.byref(deps),
+            ctypes.byref(n))
         if err != 0 or status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
             raise RuntimeError(f"cuStreamGetCaptureInfo: CUresult {err}, "
                                f"capture status {status.value}")
-        n = _nodes_of(graph.value)
-        self.nodes[phase] += n - self.last
-        self.last = n
+        return tuple(deps[i] for i in range(n.value))
 
+    def mark(self, phase: str) -> None:
+        self.marks.append((phase, self.where()))
 
-# the phase count of the capture running, set by ChunkGraph._capture alone
-_capturing: Optional[_PhaseNodes] = None
-
-
-def _phase_end(phase: str) -> None:
-    """Where a phase of a step ends: counted while a chunk is captured, a
-    no-op otherwise (eagerly, on the CPU, in a replay)."""
-    if _capturing is not None:
-        _capturing.mark(phase)
+    def count(self, dependencies: Callable[[int], Tuple[int, ...]] = _dependencies
+              ) -> Dict[str, int]:
+        """The nodes by phase, `dependencies` giving a node's own."""
+        nodes = dict.fromkeys((p for p in PHASES if p not in _MARKED_ONLY), 0)
+        seen = set()
+        for phase, where in self.marks:
+            todo = [d for d in set(where) if d not in seen]
+            seen.update(todo)
+            new = len(todo)
+            while todo:
+                for d in dependencies(todo.pop()):
+                    if d not in seen:
+                        seen.add(d)
+                        todo.append(d)
+                        new += 1
+            nodes[phase] = nodes.get(phase, 0) + new
+        return nodes
 
 
 def _buffers(model: nn.Module, opt_state: OptState) -> Tuple[int, ...]:
@@ -320,8 +355,9 @@ class ChunkGraph:
     calls launch nothing and are taken back out). `generators` (the medium
     and heavy tiers' device noise) are registered with the graph, so that
     each replay advances their Philox offset as K eager steps would.
-    `phase_nodes` is the graph's nodes by `PHASES`, counted at capture and
-    summed over its steps: they add up to `nodes`. The newest capture's are
+    `phase_nodes` is the graph's nodes by `PHASES` (`quant` only where a
+    step marked it), counted at capture and summed over its steps: they add
+    up to `nodes`. The newest capture's are
     also the `tracing` gauge "chunk_graph_nodes".
     """
 
@@ -356,7 +392,6 @@ class ChunkGraph:
         return out
 
     def _capture(self, state: TrainState, body: Callable) -> None:
-        global _capturing
         count, step = state.opt_state["count"], state.step
         before = tracing.snapshot()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -365,10 +400,9 @@ class ChunkGraph:
         phases = _PhaseNodes(self.stream)
         try:
             t0 = time.perf_counter()
-            with torch.cuda.graph(graph, stream=self.stream):
-                _capturing = phases
+            with torch.cuda.graph(graph, stream=self.stream), \
+                    tracing.phase_marks(phases.mark):
                 out = body(self.buf)
-                _capturing = None
             t1 = time.perf_counter()
             graph.instantiate()
             self.instantiate_s = time.perf_counter() - t1
@@ -377,12 +411,11 @@ class ChunkGraph:
             self.launches = {k: after[k] - before[k] for k in before
                              if after[k] != before[k]}
         finally:
-            _capturing = None
             tracing.restore(before)
             state.opt_state["count"], state.step = count, step
         self.nodes = _graph_nodes(graph)
-        self.phase_nodes = phases.nodes
-        tracing.GAUGES["chunk_graph_nodes"] = dict(phases.nodes)
+        self.phase_nodes = phases.count()
+        tracing.GAUGES["chunk_graph_nodes"] = dict(self.phase_nodes)
         self.graph, self.out = graph, out
 
     def run(self, state: TrainState, rows: torch.Tensor,
@@ -431,7 +464,7 @@ def _run_chunk(state: TrainState, device: torch.device, key: tuple,
 
 def _stack(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     out = {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
-    _phase_end("tail")
+    tracing.phase_end("tail")
     return out
 
 
@@ -491,7 +524,7 @@ def scanned_train_steps(state: TrainState, device_images: torch.Tensor,
                 x = apply_draws(x, batch_draws(draws, strength, b), noise_gen,
                                 shard)
             x, y = normalize_images(x), device_labels.index_select(0, i)
-            _phase_end("input")
+            tracing.phase_end("input")
             metrics.append(train_step(state, x, y, optimizer=optimizer,
                                       teacher=teacher, scalars=sc))
         return _stack(metrics)
@@ -551,7 +584,7 @@ def scanned_train_steps_fused(state: TrainState, gather_dataset: torch.Tensor,
             x = fused_light_pipeline(gather_dataset, i_eff, pf, pi, h=height,
                                      w=width)
             y = device_labels.index_select(0, i)
-            _phase_end("input")
+            tracing.phase_end("input")
             metrics.append(train_step(state, x, y, optimizer=optimizer,
                                       scalars=sc))
         return _stack(metrics)

@@ -300,8 +300,7 @@ def test_step_scalars_are_the_host_values():
     for k, count in enumerate(range(4, 7)):
         c1 = np.float32(1) - np.float32(0.9) ** np.float32(count + 1)
         c2 = np.float32(1) - np.float32(0.999) ** np.float32(count + 1)
-        assert table[k].tolist() == [-opt.schedule(count), c1, c2,
-                                     np.float32(1) / c1, np.float32(1) / c2]
+        assert table[k].tolist() == [-opt.schedule(count), c1, c2]
 
 
 # ---------------------------------------------------------------------------

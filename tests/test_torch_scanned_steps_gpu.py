@@ -237,3 +237,42 @@ def test_replay_spans_leave_the_device_events_alone(cuda):
     device = [e.name() for e in prof.profiler.kineto_results.events()
               if e.device_type() == torch.autograd.DeviceType.CUDA]
     assert device and not set(device) & set(spans)
+
+
+@pytest.mark.parametrize("form", ["host", "vector"])
+def test_adam_divides_by_its_corrections_as_optax_does(cuda, form):
+    """On the card Adam divides its moments by the bias corrections truly,
+    as optax and the benchmark's plain chain (`perfbench/reference/optim.py`)
+    do, given host floats or the chunk's scalar row: three clipped steps
+    agree with that chain bit for bit. (ATen divides a CUDA tensor by a
+    host float as the product with its float32 reciprocal, an ulp away in
+    many elements at step 1's correction 0.1.)"""
+    import types
+
+    from perfbench.reference import optim as ref_optim
+    from nnue_vision_tpu_torch.training.optim import create_optimizer
+
+    recipe = {"optimizer_type": "adam", "learning_rate": 8e-4,
+              "weight_decay": 1e-4, "max_grad_norm": 1.0,
+              "use_cosine_scheduler": True, "steps_per_epoch": 19,
+              "max_epochs": 35}
+    opt = create_optimizer(types.SimpleNamespace(**recipe),
+                           recipe["steps_per_epoch"])
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"w": (64, 48), "b": (48,), "s": ()}
+    start = {n: torch.randn(s, generator=gen).to(cuda) for n, s in shapes.items()}
+    prog = {n: t.clone() for n, t in start.items()}
+    ref = {n: t.clone() for n, t in start.items()}
+    prog_s, ref_s = opt.init(prog), ref_optim.init(recipe, ref)
+    table = torch.from_numpy(opt.step_scalars(0, 3)).to(cuda)
+    for k in range(3):
+        grads = {n: torch.randn(s, generator=gen).to(cuda)
+                 for n, s in shapes.items()}
+        opt.step(prog, grads, prog_s,
+                 scalars=table[k] if form == "vector" else None)
+        ref_optim.step(ref, grads, ref_s, recipe)
+    for n in shapes:
+        assert not torch.equal(prog[n], start[n]), n
+        assert torch.equal(prog[n], ref[n]), n
+        for b in ("mu", "nu"):
+            assert torch.equal(prog_s[b][n], ref_s[b][n]), (b, n)
